@@ -1,0 +1,282 @@
+"""BpOsdDecoder: belief propagation + ordered-statistics fallback.
+
+Port of ``ldpc_tpu.decoders.bposd_decoder.BpOsdDecoder`` for OSD-0 and
+OSD off. ``decode_batch`` runs the two-phase cascade of the JAX package's
+fused TPU program:
+
+1. phase-1 BP at ``_CASCADE_ITERS`` iterations over the whole batch;
+2. the lanes that failed it are compacted (exactly: ``torch.nonzero``);
+3. full-depth BP re-runs on those lanes only;
+4. OSD-0 runs on the lanes that still fail;
+5. the results are merged back;
+6. zero-syndrome rows decode to zero and count as converged.
+
+Per-lane BP is deterministic, so the output equals a single full-depth run
+followed by OSD-0 on its failures. Each compaction costs one host sync;
+torch recompiles nothing, so no bucket sizes or overflow redispatch are
+needed.
+"""
+
+import warnings
+from typing import List, Optional, Union
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
+from ldpc_tpu_torch.ops import gf2
+from ldpc_tpu_torch.ops import osd as osd_ops
+
+_METHOD_NAMES = {
+    osd_ops.OSD_0: "OSD_0",
+    osd_ops.EXHAUSTIVE: "OSD_E",
+    osd_ops.COMBINATION_SWEEP: "OSD_CS",
+    osd_ops.OSD_OFF: "OSD_OFF",
+}
+
+
+class BpOsdDecoder(BpDecoderBase):
+    """BP decoding with OSD post-processing (batched).
+
+    Runs belief propagation first; on non-convergence falls back to
+    ordered-statistics decoding guided by the BP posterior LLRs.
+    ``osd_method`` is one of 'OSD_0' | 'OSD_E' | 'OSD_CS' | 'OSD_OFF' (plus
+    the reference's aliases); only OSD_0 and OSD_OFF decode so far (higher
+    orders raise ``NotImplementedError``). ``device`` is where the
+    decoder's tensors live.
+    """
+
+    def __init__(
+        self,
+        pcm: Union[np.ndarray, scipy.sparse.spmatrix],
+        error_rate: Optional[float] = None,
+        error_channel: Optional[Union[np.ndarray, List[float]]] = None,
+        max_iter: Optional[int] = 0,
+        bp_method: Optional[str] = "minimum_sum",
+        ms_scaling_factor: Optional[Union[float, int]] = 1.0,
+        schedule: Optional[str] = "parallel",
+        omp_thread_count: Optional[int] = 1,
+        random_schedule_seed: Optional[int] = 0,
+        serial_schedule_order: Optional[List[int]] = None,
+        osd_method: Union[str, int, float] = 0,
+        osd_order: int = 0,
+        input_vector_type: str = "syndrome",
+        random_serial_schedule: bool = False,
+        device="cpu",
+        **kwargs,
+    ):
+        for key in kwargs.keys():
+            if key not in ("channel_probs", "dtype"):
+                raise ValueError(
+                    f"Unknown parameter '{key}' passed to the BpDecoder constructor."
+                )
+        super().__init__(
+            pcm,
+            error_rate=error_rate,
+            error_channel=error_channel,
+            max_iter=max_iter,
+            bp_method=bp_method,
+            ms_scaling_factor=ms_scaling_factor,
+            schedule=schedule,
+            omp_thread_count=omp_thread_count,
+            random_schedule_seed=random_schedule_seed,
+            serial_schedule_order=serial_schedule_order,
+            random_serial_schedule=random_serial_schedule,
+            device=device,
+            **kwargs,
+        )
+        self.input_vector_type = input_vector_type
+        self._osd_method = 0
+        self._osd_order = 0
+        self.osd_method = osd_method
+        self.osd_order = osd_order
+        self._osdw_decoding = np.zeros(self.n, dtype=np.uint8)
+        self._bp_decoding = np.zeros(self.n, dtype=np.uint8)
+        self._bp_batch = None  # device tensors, pulled on property access
+        self._out_batch = None
+
+    # ------------------------------------------------------------------
+    # OSD configuration
+    # ------------------------------------------------------------------
+    @property
+    def osd_method(self) -> Optional[str]:
+        return _METHOD_NAMES[self._osd_method]
+
+    @osd_method.setter
+    def osd_method(self, method: Union[str, int, float]) -> None:
+        sval = str(method).lower()
+        if sval in ("osd_0", "0", "osd0"):
+            self._osd_method = osd_ops.OSD_0
+            self._osd_order = 0
+        elif sval in ("osd_e", "e", "exhaustive"):
+            self._osd_method = osd_ops.EXHAUSTIVE
+        elif sval in ("osd_cs", "1", "cs", "combination_sweep"):
+            self._osd_method = osd_ops.COMBINATION_SWEEP
+        elif sval in ("off", "osd_off", "deactivated", "-1"):
+            self._osd_method = osd_ops.OSD_OFF
+        else:
+            raise ValueError(
+                f"ERROR: OSD method '{method}' invalid. Please choose from "
+                "the following methods: 'OSD_0', 'OSD_E' or 'OSD_CS'."
+            )
+        self._invalidate_osd()
+
+    @property
+    def osd_order(self) -> int:
+        return self._osd_order
+
+    @osd_order.setter
+    def osd_order(self, order: int) -> None:
+        if order < 0:
+            raise ValueError(
+                f"ERROR: OSD order '{order}' invalid. Please choose a "
+                "positive integer."
+            )
+        if self._osd_method == osd_ops.OSD_0 and order != 0:
+            raise ValueError(
+                f"ERROR: OSD order '{order}' invalid. The 'osd_method' is "
+                "set to 'OSD_0'. The osd order must therefore be set to 0."
+            )
+        if self._osd_method == osd_ops.EXHAUSTIVE and order > 15:
+            warnings.warn(
+                "WARNING: Running the 'OSD_E' (Exhaustive method) with "
+                "search depth greater than 15 is not recommended. Use the "
+                "'osd_cs' method instead."
+            )
+        self._osd_order = order
+        self._invalidate_osd()
+
+    def _invalidate_osd(self):
+        for key in [k for k in self._decoder_cache if k and k[0] == "osd"]:
+            del self._decoder_cache[key]
+
+    def _osd_decode_fn(self):
+        key = ("osd", self._osd_method, self._osd_order, tuple(self._channel))
+        fn = self._decoder_cache.get(key)
+        if fn is None:
+            fn = osd_ops.make_osd_decoder(
+                self.graph,
+                self._channel,
+                self._osd_method,
+                self._osd_order,
+                self._device,
+            )
+            self._decoder_cache[key] = fn
+        return fn
+
+    # ------------------------------------------------------------------
+    # decoding
+    # ------------------------------------------------------------------
+    def decode(self, syndrome: np.ndarray) -> np.ndarray:
+        """BP decode; on non-convergence fall back to OSD."""
+        syndrome = np.asarray(syndrome)
+        if not len(syndrome) == self.m:
+            raise ValueError(
+                f"The syndrome must have length {self.m}. Not {len(syndrome)}."
+            )
+        out = self.decode_batch(syndrome[None, :].astype(np.uint8))[0]
+        return out.astype(syndrome.dtype)
+
+    def decode_batch(
+        self,
+        syndromes: np.ndarray,
+        *,
+        bit_packed_syndromes: bool = False,
+        bit_packed_output: bool = False,
+    ) -> np.ndarray:
+        """Decode a (B, m) batch: the two-phase BP cascade, then OSD-0 on
+        the lanes full-depth BP failed.
+
+        ``bit_packed_syndromes`` accepts little-endian bit-packed input
+        (``(B, ceil(m/8))`` uint8, stim b8 layout) and
+        ``bit_packed_output`` returns ``(B, ceil(n/8))`` packed decodings.
+        """
+        syndromes = self._coerce_batch_syndromes(
+            syndromes, bit_packed_syndromes
+        )
+        if syndromes.shape[1] != self.m:
+            raise ValueError(
+                f"The syndromes must have shape (batch, {self.m}). "
+                f"Not {syndromes.shape}."
+            )
+        run_osd = self._osd_method != osd_ops.OSD_OFF
+        osd_fn = self._osd_decode_fn() if run_osd else None
+
+        syn = torch.from_numpy(syndromes).to(self._device)
+        nonzero = (syn != 0).any(dim=1)
+        p1 = min(self._CASCADE_ITERS, self._max_iter)
+        bp = self._run_bp_batch(syn, p1)
+        dec, llr = bp.decoding, bp.llr_posterior
+        conv, iters = bp.converged | ~nonzero, bp.iterations
+        failed = torch.nonzero(~conv).squeeze(1)  # host sync
+        if failed.numel() and p1 < self._max_iter:
+            bp2 = self._run_bp_batch(syn[failed])
+            dec = dec.index_put((failed,), bp2.decoding)
+            llr = llr.index_put((failed,), bp2.llr_posterior)
+            conv = conv.index_put((failed,), bp2.converged)
+            iters = iters.index_put((failed,), bp2.iterations)
+            failed = failed[~bp2.converged]  # host sync
+        out = dec
+        if run_osd and failed.numel():
+            x0, _, _ = osd_fn(syn[failed], llr[failed])
+            out = dec.index_put((failed,), x0)
+        out = out * nonzero[:, None].to(out.dtype)
+
+        self.converge_batch = _to_numpy(conv)
+        self.iter_batch = _to_numpy(iters)
+        self._llr_batch = llr
+        self._bp_batch = dec
+        self._out_batch = out
+        self._converge = bool(self.converge_batch[0])
+        self._iter = int(self.iter_batch[0])
+        self._log_prob_ratios = _to_numpy(llr[0])
+        self._bp_decoding = _to_numpy(dec[0])
+        if bit_packed_output:
+            packed = _to_numpy(gf2.pack_bits_u8(out))
+            row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
+            result = packed
+        else:
+            result = _to_numpy(out)
+            row0 = result[0]
+        self._osdw_decoding = row0
+        self._decoding = row0
+        return result
+
+    # ------------------------------------------------------------------
+    # result properties
+    # ------------------------------------------------------------------
+    @property
+    def bp_decoding_batch(self) -> Optional[np.ndarray]:
+        """Full-depth BP decodings of the last batch."""
+        return None if self._bp_batch is None else _to_numpy(self._bp_batch)
+
+    @property
+    def osd0_decoding_batch(self) -> Optional[np.ndarray]:
+        """OSD-0 decodings of the last batch (BP's where BP converged)."""
+        return None if self._out_batch is None else _to_numpy(self._out_batch)
+
+    @property
+    def osdw_decoding_batch(self) -> Optional[np.ndarray]:
+        """OSD-w decodings of the last batch; at order 0 equal to OSD-0's."""
+        return self.osd0_decoding_batch
+
+    @property
+    def decoding(self) -> np.ndarray:
+        return np.asarray(self._decoding).astype(int)
+
+    @property
+    def bp_decoding(self) -> np.ndarray:
+        return np.asarray(self._bp_decoding).astype(int)
+
+    @property
+    def osd0_decoding(self) -> np.ndarray:
+        if self._converge:
+            return self.bp_decoding
+        return np.asarray(self._osdw_decoding).astype(int)
+
+    @property
+    def osdw_decoding(self) -> np.ndarray:
+        if self._converge:
+            return self.bp_decoding
+        return np.asarray(self._osdw_decoding).astype(int)

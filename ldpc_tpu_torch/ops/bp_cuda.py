@@ -1,0 +1,202 @@
+"""Kernel K1': batched parallel-schedule BP (counterpart of ``ops/bp_pallas.py``).
+
+- :func:`bp_parallel_reference` is the plain PyTorch version: the f32
+  gather-only engine of ``ldpc_tpu/ops/bp.py`` (``_make_parallel_decoder_
+  fast``), op for op.
+- :func:`bp_parallel_cuda` launches ``csrc/bp_parallel.cu`` on a CUDA
+  tensor and counts the launch in :data:`LAUNCHES`.
+- :func:`bp_parallel` picks by the tensors' device: the CPU runs the plain
+  version, a CUDA device runs the kernel, anything else raises.
+"""
+
+import torch
+
+from ldpc_tpu_torch.ops import _build
+from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, BpResult
+from ldpc_tpu_torch.ops.pcm import TorchGraph
+
+LAUNCHES = 0  # kernel launches made by bp_parallel_cuda
+
+_BIG = 1e30  # magnitude of absent slots in the min-sum reduction
+_MAX_DC = 32  # largest row degree the kernel is instantiated for
+
+
+def _check_to_bit_min_sum(v2c3, mask3, syndrome, alpha):
+    """Min-sum check update over the dc axis of (m, dc, B) messages."""
+    big = torch.tensor(_BIG, dtype=torch.float32, device=v2c3.device)
+    absv = torch.where(mask3, v2c3.abs(), big)
+    neg = (mask3 & (v2c3 <= 0)).to(torch.int32)
+    min1 = absv.min(dim=1).values
+    amin = absv.argmin(dim=1)  # first occurrence
+    slot = torch.arange(v2c3.shape[1], device=v2c3.device)[None, :, None]
+    is_min = slot == amin[:, None, :]
+    min2 = torch.where(is_min, big, absv).min(dim=1).values
+    total_par = (syndrome[:, None, :] + neg.sum(dim=1, keepdim=True) + neg) % 2
+    excl_min = torch.where(is_min, min2[:, None, :], min1[:, None, :])
+    sign = (1 - 2 * total_par).to(torch.float32)
+    return torch.where(mask3, alpha * sign * excl_min, 0.0)
+
+
+def _check_to_bit_product_sum(v2c3, mask3, syndrome):
+    """Product-sum check update: exclusive prefix/suffix tanh products,
+    clipped away from +-1 in f32."""
+    t = torch.where(mask3, torch.tanh(v2c3 * 0.5), 1.0)
+    ones = torch.ones_like(t[:, :1, :])
+    prefix = torch.cat([ones, torch.cumprod(t, dim=1)[:, :-1, :]], dim=1)
+    rev = torch.flip(t, dims=[1])
+    suffix = torch.flip(
+        torch.cat([ones, torch.cumprod(rev, dim=1)[:, :-1, :]], dim=1), dims=[1]
+    )
+    p = prefix * suffix
+    eps = torch.tensor(1e-7, dtype=torch.float32, device=v2c3.device)
+    p = torch.clamp(p, -1 + eps, 1 - eps)
+    mag = torch.log((1 + p) / (1 - p))
+    sign = (1 - 2 * syndrome[:, None, :]).to(torch.float32)
+    return torch.where(mask3, sign * mag, 0.0)
+
+
+def bp_parallel_reference(
+    tg: TorchGraph,
+    syndromes: torch.Tensor,
+    init_llr: torch.Tensor,
+    bp_method: int,
+    max_iter: int,
+    ms_scaling_factor: float,
+) -> BpResult:
+    """Plain PyTorch parallel-schedule BP on (B, m) uint8 syndromes."""
+    m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
+    E = m * dc
+    B = syndromes.shape[0]
+    dev = syndromes.device
+    chk_bits = tg.chk_bits.reshape(-1).long()  # (E,) pad = n
+    var_edges = tg.var_edges.reshape(-1).long()  # (n*dv,) pad = E
+    mask3 = tg.chk_mask[:, :, None]
+    syndrome = syndromes.t().to(torch.int32)  # (m, B)
+    llr_col = init_llr.to(torch.float32)[:, None]  # (n, 1)
+    zero_row = torch.zeros((1, B), dtype=torch.float32, device=dev)
+    false_row = torch.zeros((1, B), dtype=torch.bool, device=dev)
+
+    llr_post = llr_col.expand(n, B)
+    c2v = torch.zeros((m, dc, B), dtype=torch.float32, device=dev)
+    conv = torch.zeros(B, dtype=torch.bool, device=dev)
+    dec_out = torch.zeros((n, B), dtype=torch.bool, device=dev)
+    llr_out = llr_post.clone()
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    it = 0
+    while it < max_iter and not bool(conv.all()):
+        it += 1
+        if bp_method == MINIMUM_SUM and ms_scaling_factor == 0.0:
+            alpha = torch.tensor(1.0 - 2.0**-it, dtype=torch.float32, device=dev)
+        else:
+            alpha = torch.tensor(ms_scaling_factor, dtype=torch.float32, device=dev)
+        llr_pad = torch.cat([llr_post, zero_row])
+        v2c3 = llr_pad[chk_bits].reshape(m, dc, B) - c2v  # extrinsic
+        if bp_method == MINIMUM_SUM:
+            c2v = _check_to_bit_min_sum(v2c3, mask3, syndrome, alpha)
+        else:
+            c2v = _check_to_bit_product_sum(v2c3, mask3, syndrome)
+        c2v_pad = torch.cat([c2v.reshape(E, B), zero_row])
+        per_bit = c2v_pad[var_edges].reshape(n, dv, B)
+        acc = per_bit[:, 0]  # slot order, as the kernel sums
+        for k in range(1, dv):
+            acc = acc + per_bit[:, k]
+        llr_new = llr_col + acc
+        hard = llr_new <= 0
+        hard_pad = torch.cat([hard, false_row])
+        cand = hard_pad[chk_bits].reshape(m, dc, B).sum(dim=1) % 2
+        conv_now = (cand == syndrome).all(dim=0)
+        active = ~conv
+        dec_out = torch.where(active[None, :], hard, dec_out)
+        llr_out = torch.where(active[None, :], llr_new, llr_out)
+        iters = torch.where(active, it, iters)
+        conv = conv | conv_now
+        llr_post = llr_new
+    return BpResult(
+        decoding=dec_out.t().to(torch.uint8),
+        llr_posterior=llr_out.t(),
+        converged=conv,
+        iterations=iters,
+    )
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"bp_parallel_cuda: {what}")
+
+
+def bp_parallel_cuda(
+    tg: TorchGraph,
+    syndromes: torch.Tensor,
+    init_llr: torch.Tensor,
+    bp_method: int,
+    max_iter: int,
+    ms_scaling_factor: float,
+) -> BpResult:
+    """Launch K1' (``csrc/bp_parallel.cu``) on CUDA tensors."""
+    global LAUNCHES
+    dev = syndromes.device
+    m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
+    _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
+    for name, t in (
+        ("init_llr", init_llr),
+        ("chk_bits", tg.chk_bits),
+        ("var_edges", tg.var_edges),
+    ):
+        _require(t.device == dev, f"{name} is on {t.device}, syndromes on {dev}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(syndromes.dtype == torch.uint8, "syndromes must be uint8")
+    _require(
+        syndromes.dim() == 2 and syndromes.shape[1] == m,
+        f"syndromes must have shape (B, {m}), not {tuple(syndromes.shape)}",
+    )
+    _require(init_llr.dtype == torch.float32, "init_llr must be float32")
+    _require(init_llr.shape == (n,), f"init_llr must have shape ({n},)")
+    _require(tg.chk_bits.dtype == torch.int32, "chk_bits must be int32")
+    _require(tg.var_edges.dtype == torch.int32, "var_edges must be int32")
+    _require(dc <= _MAX_DC, f"row degree {dc} exceeds {_MAX_DC}")
+    _require(max_iter >= 0, "max_iter must be >= 0")
+    B = syndromes.shape[0]
+    synd_t = syndromes.t().contiguous()  # (m, B): coalesced per check
+    c2v = torch.empty((m * dc, B), dtype=torch.float32, device=dev)
+    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
+    dec = torch.empty((n, B), dtype=torch.uint8, device=dev)
+    conv = torch.empty(B, dtype=torch.bool, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = lib.ldpc_bp_parallel(
+                synd_t.data_ptr(), init_llr.data_ptr(),
+                tg.chk_bits.data_ptr(), tg.var_edges.data_ptr(),
+                m, n, dc, dv, B, max_iter,
+                int(bp_method == MINIMUM_SUM), float(ms_scaling_factor),
+                c2v.data_ptr(), llr.data_ptr(), dec.data_ptr(),
+                conv.data_ptr(), iters.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _build.check(lib, rc, "bp_parallel")
+        LAUNCHES += 1
+    return BpResult(
+        decoding=dec.t(), llr_posterior=llr.t(), converged=conv, iterations=iters
+    )
+
+
+def bp_parallel(
+    tg: TorchGraph,
+    syndromes: torch.Tensor,
+    init_llr: torch.Tensor,
+    bp_method: int,
+    max_iter: int,
+    ms_scaling_factor: float,
+) -> BpResult:
+    """K1' on a CUDA tensor, its plain version on a CPU tensor."""
+    kind = syndromes.device.type
+    if kind == "cpu":
+        return bp_parallel_reference(
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor
+        )
+    if kind == "cuda":
+        return bp_parallel_cuda(
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor
+        )
+    raise ValueError(f"bp_parallel: no kernel for device {syndromes.device}")

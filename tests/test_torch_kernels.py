@@ -1,0 +1,135 @@
+"""The CUDA kernels K1' (csrc/bp_parallel.cu) and K2' (csrc/osd0.cu) held
+against their plain PyTorch versions on the card.
+
+Marked ``cuda``: every test skips without a CUDA device. This file imports
+no jax, so on a machine without it run it without the repository's
+conftest (which configures jax):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ldpc_tpu_torch.codes import surface_code, toric_code
+from ldpc_tpu_torch.ops import bp_cuda, gf2, gf2_cuda
+from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
+from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
+
+pytestmark = pytest.mark.cuda
+
+LANES = 8192
+P = 0.01
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def codes(dev):
+    out = {}
+    for name, code in (("surface13", surface_code(13)), ("toric20", toric_code(20))):
+        graph = compile_pcm(code.hx)
+        rng = np.random.default_rng(7)
+        errors = (rng.random((LANES, graph.n)) < P).astype(np.uint8)
+        syn = (errors @ graph.dense.T % 2).astype(np.uint8)
+        out[name] = (
+            graph,
+            graph_to_torch(graph, dev),
+            torch.from_numpy(syn).to(dev),
+            torch.from_numpy(channel_llr(np.full(graph.n, P))).to(dev),
+        )
+    return out
+
+
+@pytest.mark.parametrize(
+    "method,alpha", [(MINIMUM_SUM, 0.625), (MINIMUM_SUM, 0.0), (PRODUCT_SUM, 1.0)]
+)
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k1_matches_plain_version(codes, name, method, alpha):
+    """Min-sum: bit-exact (same operations in the same order, no FMA
+    contraction). Product-sum: posteriors within rtol 1e-4 (tanh/log of
+    the CUDA math library on both sides; a cumulative product may round
+    differently)."""
+    _, tg, syn, llr0 = codes[name]
+    before = bp_cuda.LAUNCHES
+    ker = bp_cuda.bp_parallel(tg, syn, llr0, method, 30, alpha)
+    assert bp_cuda.LAUNCHES == before + 1
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, 30, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(ker.converged, ref.converged)
+    assert torch.equal(ker.iterations, ref.iterations)
+    if method == MINIMUM_SUM:
+        assert torch.equal(ker.decoding, ref.decoding)
+        assert torch.equal(ker.llr_posterior, ref.llr_posterior)
+    else:
+        torch.testing.assert_close(
+            ker.llr_posterior, ref.llr_posterior, rtol=1e-4, atol=1e-5
+        )
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 6])
+def test_k1_short_runs_and_odd_batches(codes, max_iter):
+    _, tg, syn, llr0 = codes["surface13"]
+    s = syn[:1001].contiguous()
+    ker = bp_cuda.bp_parallel_cuda(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625)
+    ref = bp_cuda.bp_parallel_reference(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625)
+    for a, b in zip(ker, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k2_matches_plain_version(codes, name):
+    """Bit-identical x0 and validity; x0 solves H x = s on valid lanes."""
+    graph, tg, syn, llr0 = codes[name]
+    llr = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, 0.625).llr_posterior
+    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+    rank = gf2.batched_rank(graph.dense)
+    before = gf2_cuda.LAUNCHES
+    x_k, v_k = gf2_cuda.osd0(tg, syn, order, rank)
+    assert gf2_cuda.LAUNCHES == before + 1
+    x_r, v_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    torch.cuda.synchronize()
+    assert torch.equal(x_k, x_r)
+    assert torch.equal(v_k, v_r)
+    x, s, v = x_k.cpu().numpy(), syn.cpu().numpy(), v_k.cpu().numpy()
+    assert v.all()
+    assert ((x @ graph.dense.T) % 2 == s).all()
+
+
+def test_k2_invalid_lanes_match_plain_version(codes):
+    """Random syndromes of a rank-deficient H include ones outside its image."""
+    graph, tg, syn, _ = codes["toric20"]
+    rng = np.random.default_rng(3)
+    s = torch.from_numpy(rng.integers(0, 2, (512, graph.m)).astype(np.uint8)).to(syn.device)
+    order = torch.from_numpy(
+        np.argsort(rng.random((512, graph.n)), axis=1).astype(np.int32)
+    ).to(syn.device)
+    rank = gf2.batched_rank(graph.dense)
+    x_k, v_k = gf2_cuda.osd0_cuda(tg, s, order, rank)
+    x_r, v_r = gf2_cuda.osd0_reference(tg, s, order, rank)
+    assert torch.equal(x_k, x_r) and torch.equal(v_k, v_r)
+    assert not bool(v_k.all())
+
+
+def test_wrappers_validate_inputs(codes):
+    graph, tg, syn, llr0 = codes["surface13"]
+    with pytest.raises(ValueError, match="uint8"):
+        bp_cuda.bp_parallel_cuda(tg, syn.int(), llr0, MINIMUM_SUM, 5, 0.625)
+    with pytest.raises(ValueError, match="float32"):
+        bp_cuda.bp_parallel_cuda(tg, syn, llr0.double(), MINIMUM_SUM, 5, 0.625)
+    order = torch.zeros((syn.shape[0], graph.n), dtype=torch.int64, device=syn.device)
+    with pytest.raises(ValueError, match="int32"):
+        gf2_cuda.osd0_cuda(tg, syn, order, 1)
+    # a working matrix beyond the card's shared memory is refused up front
+    big = compile_pcm(toric_code(60, compute_logicals=False).hx)  # m = 3600, n = 7200
+    tg_big = graph_to_torch(big, syn.device)
+    s = torch.zeros((1, big.m), dtype=torch.uint8, device=syn.device)
+    o = torch.zeros((1, big.n), dtype=torch.int32, device=syn.device)
+    with pytest.raises(ValueError, match="shared memory"):
+        gf2_cuda.osd0_cuda(tg_big, s, o, 1)
