@@ -3,12 +3,13 @@
 Usage: ``python chip_smoke.py`` from the repository root, on a machine with
 a CUDA device, ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``) and
 PyTorch built for CUDA. It builds the kernels from ``ldpc_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, drives the
-BP+OSD-0 main path through ``BpOsdDecoder.decode_batch`` and the device
-Monte-Carlo step at the d=13 surface-code workload, and checks the outputs.
-Every phase prints one line; any failure raises and exits non-zero. The
-second-to-last line is a JSON object describing each kernel; the last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
+holds each kernel against its plain PyTorch version on the card and times
+both, drives ``decode_batch`` of BP+OSD-0, BP+OSD-CS (order 5), BP+LSD-0
+and BP+LSD-CS (order 5) and the device Monte-Carlo step at the d=13
+surface-code workload, and checks the outputs. Every phase prints one line;
+any failure raises and exits non-zero. The second-to-last line is a JSON
+object describing each kernel; the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits 1.
 """
 
 import json
@@ -23,7 +24,7 @@ import torch
 import ldpc_tpu_torch
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step
-from ldpc_tpu_torch.ops import _build, bp_cuda, gf2, gf2_cuda
+from ldpc_tpu_torch.ops import _build, bp_cuda, gf2, gf2_cuda, lsd, osd, uf
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
@@ -35,6 +36,7 @@ BATCH = 65536  # the host-boundary workload (numpy seed 7)
 KERNEL_BATCH = 8192  # kernel-vs-plain comparisons
 CPU_ROWS = 4096  # rows also decoded on the CPU and compared
 TIMED_ROUNDS = 7
+SLICE_B_ROUNDS = 3  # timed decode_batch calls of each slice-B configuration
 MC_BATCH = 16384
 MC_ROUNDS = 8
 MC_CALLS = 3
@@ -110,6 +112,152 @@ def compare_osd(name, tg, H, syn, llr, rank):
     return err
 
 
+def _lanes_differ(ker, ref) -> torch.Tensor:
+    """Lanes on which any output of a GF(2) kernel differs from its plain
+    version's: (B,) bool."""
+    diff = torch.zeros(ker[0].shape[0], dtype=torch.bool, device=ker[0].device)
+    for a, b in zip(ker, ref):
+        diff |= (a != b).reshape(a.shape[0], -1).any(dim=1)
+    return diff
+
+
+def _max_abs_err(ker, ref) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in zip(ker, ref))
+
+
+def compare_elim(name, tg, graph, syn, llr):
+    """K3', K4' and K5' against their plain versions: K3' on the lanes'
+    reliability orders; K4' and K5' on the clusters after a real first
+    growth round, and with a random count 0..n per lane. Returns the
+    largest |kernel - plain| of each kernel's outputs."""
+    n = graph.n
+    rank = gf2.batched_rank(graph.dense)
+    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+    err = {}
+    ker = gf2_cuda.rref_export_cuda(tg, syn, order, rank)
+    ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
+    torch.cuda.synchronize()
+    nlanes = int(_lanes_differ(ker, ref).sum())
+    err["rref_export"] = _max_abs_err(ker, ref)
+    full_rank = bool((ker[2].sum(dim=1) == rank).all())
+    phase("k3_vs_plain", config=name, lanes=syn.shape[0], differing_lanes=nlanes,
+          full_rank=full_rank)
+    if nlanes or err["rref_export"] or not full_rank:
+        raise AssertionError(f"K3' differs from its plain version: {name}")
+
+    # a real first growth round: every cluster empty, then one grow_round
+    empty = torch.zeros(syn.shape[0], dtype=torch.int32, device=syn.device)
+    _, bad = gf2_cuda.masked_solve_cuda(tg, syn, order, empty)
+    in_bit, _ = uf.grow_round(tg, torch.zeros_like(llr, dtype=torch.bool), bad,
+                              uf.llr_rank(llr), 1)
+    key = torch.where(in_bit, llr, torch.inf)
+    grown = torch.argsort(key, dim=1, stable=True).to(torch.int32).contiguous()
+    rng = np.random.default_rng(5)
+    random = torch.from_numpy(rng.integers(0, n + 1, syn.shape[0]).astype(np.int32))
+    cases = (
+        ("growth_round", grown, in_bit.sum(dim=1).to(torch.int32)),
+        ("random_count", order, random.to(syn.device)),
+    )
+    err["masked_solve"] = err["masked_export"] = 0
+    for case, o, count in cases:
+        k4 = gf2_cuda.masked_solve_cuda(tg, syn, o, count)
+        r4 = gf2_cuda.masked_solve_reference(tg, syn, o, count)
+        k5 = gf2_cuda.masked_export_cuda(tg, syn, o, count)
+        r5 = gf2_cuda.masked_export_reference(tg, syn, o, count)
+        torch.cuda.synchronize()
+        n4, n5 = int(_lanes_differ(k4, r4).sum()), int(_lanes_differ(k5, r5).sum())
+        err["masked_solve"] = max(err["masked_solve"], _max_abs_err(k4, r4))
+        err["masked_export"] = max(err["masked_export"], _max_abs_err(k5, r5))
+        phase("k4_k5_vs_plain", config=name, case=case, lanes=syn.shape[0],
+              k4_differing_lanes=n4, k5_differing_lanes=n5,
+              mean_count=float(count.float().mean()))
+        if n4 or n5 or err["masked_solve"] or err["masked_export"]:
+            raise AssertionError(f"K4'/K5' differ from their plain versions: {name}/{case}")
+    return err
+
+
+def captured_calls(module, name, run):
+    """The arguments of every call ``run()`` makes to ``module.name``."""
+    calls = []
+    original = getattr(module, name)
+
+    def record(*args):
+        calls.append(args)
+        return original(*args)
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, original)
+    return calls
+
+
+def reset_counters() -> None:
+    bp_cuda.LAUNCHES = 0
+    gf2_cuda.LAUNCHES = 0
+    gf2_cuda.RREF_EXPORT_LAUNCHES = 0
+    gf2_cuda.MASKED_SOLVE_LAUNCHES = 0
+    gf2_cuda.MASKED_EXPORT_LAUNCHES = 0
+    uf.HOST_SYNCS = 0
+    uf.GROWTH_ROUNDS = 0
+
+
+def read_counters() -> dict:
+    return {
+        "bp_parallel": bp_cuda.LAUNCHES,
+        "osd0": gf2_cuda.LAUNCHES,
+        "rref_export": gf2_cuda.RREF_EXPORT_LAUNCHES,
+        "masked_solve": gf2_cuda.MASKED_SOLVE_LAUNCHES,
+        "masked_export": gf2_cuda.MASKED_EXPORT_LAUNCHES,
+        "host_syncs": uf.HOST_SYNCS,
+        "growth_rounds": uf.GROWTH_ROUNDS,
+    }
+
+
+def drive_decoder(label, make, H, syn_np, kernels, rounds):
+    """One path: ``make(device).decode_batch`` on the whole batch, with the
+    launch counters set to 0 just before the first call and read just
+    after it. Checks H x = s on every row, that each kernel in ``kernels``
+    launched, and that the first CPU_ROWS rows equal the CPU path's; then
+    times ``rounds`` calls after a settle call. Returns the counters."""
+    reset_counters()
+    dec = make("cuda")
+    t0 = time.perf_counter()
+    out = dec.decode_batch(syn_np)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = read_counters()
+    if not ((out.astype(np.int64) @ H.T) % 2 == syn_np).all():
+        raise AssertionError(f"{label}: decode_batch output does not satisfy H x = s")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: the path skipped kernels {missing}: {counts}")
+    conv, iters = dec.converge_batch.copy(), dec.iter_batch.copy()
+    cpu = make("cpu")
+    out_cpu = cpu.decode_batch(syn_np[:CPU_ROWS])
+    if not (
+        (out_cpu == out[:CPU_ROWS]).all()
+        and (cpu.converge_batch == conv[:CPU_ROWS]).all()
+        and (cpu.iter_batch == iters[:CPU_ROWS]).all()
+    ):
+        raise AssertionError(f"{label}: decode_batch on the card differs from the CPU")
+    dec.decode_batch(syn_np)  # settle
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        dec.decode_batch(syn_np)
+        times.append(time.perf_counter() - t0)
+    phase(
+        "decode_batch", config=label, syndromes=len(syn_np), warmup_s=round(warm_s, 3),
+        median_s=statistics.median(times), syndromes_per_s=len(syn_np) / statistics.median(times),
+        bp_failed_full_depth=int((~conv).sum()), cpu_rows_equal=CPU_ROWS,
+        launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")),
+    )
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -130,7 +278,7 @@ def main() -> int:
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3))
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
 
     code = surface_code(DISTANCE, compute_logicals=True)
@@ -191,47 +339,61 @@ def main() -> int:
     k2_plain_ms = cuda_ms(lambda: gf2_cuda.osd0_reference(tg, syn_f, order_f, rank13), 2)
     phase("k2_time", shape=f"B={failed.numel()}", ms=k2_ms, plain_ms=k2_plain_ms)
 
-    # ---- 5. main path: BpOsdDecoder.decode_batch -------------------------------
-    def decoder(device):
-        return ldpc_tpu_torch.BpOsdDecoder(
+    # ---- 4b. K3', K4', K5' against their plain versions ------------------------
+    elim_err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
+    for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
+        for k, v in compare_elim(cname, tgx, gx, syn, posteriors[cname]).items():
+            elim_err[k] = max(elim_err[k], v)
+
+    # times at the main paths' calls, captured from the slice-B decoders on
+    # the failed lanes: K3' on the OSD-CS bucket, K4' on the first growth
+    # round with nonempty clusters, K5' on LSD-CS's final export
+    llr_f = full.llr_posterior[failed].contiguous()
+    channel = np.full(graph.n, ERROR_RATE)
+    osd_cs = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, dev)
+    k3_args = captured_calls(gf2_cuda, "rref_export", lambda: osd_cs(syn_f, llr_f))[0]
+    lsd_cs = lsd.make_lsd_decoder(graph, lsd.LSD_CS, 5, 1, dev)
+    k4_calls = []
+    k5_args = captured_calls(
+        gf2_cuda, "masked_export",
+        lambda: k4_calls.extend(captured_calls(gf2_cuda, "masked_solve", lambda: lsd_cs(syn_f, llr_f))),
+    )[-1]
+    k4_args = k4_calls[1]
+    elim_ms = {}
+    for kname, cuda_fn, plain_fn, args in (
+        ("rref_export", gf2_cuda.rref_export_cuda, gf2_cuda.rref_export_reference, k3_args),
+        ("masked_solve", gf2_cuda.masked_solve_cuda, gf2_cuda.masked_solve_reference, k4_args),
+        ("masked_export", gf2_cuda.masked_export_cuda, gf2_cuda.masked_export_reference, k5_args),
+    ):
+        elim_ms[kname] = (cuda_ms(lambda: cuda_fn(*args), 5), cuda_ms(lambda: plain_fn(*args), 2))
+        shape = f"B={args[1].shape[0]}"
+        if kname != "rref_export":
+            shape += f",mean_count={float(args[3].float().mean()):.2f}"
+        phase(f"{kname}_time", shape=shape, ms=elim_ms[kname][0], plain_ms=elim_ms[kname][1])
+
+    # ---- 5. main paths: decode_batch -----------------------------------------
+    def bposd(**kw):
+        return lambda device: ldpc_tpu_torch.BpOsdDecoder(
             code.hx, error_rate=ERROR_RATE, max_iter=MAX_ITER,
-            bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR,
-            osd_method="osd_0", device=device,
+            bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR, device=device, **kw,
         )
 
-    bp_cuda.LAUNCHES = 0
-    gf2_cuda.LAUNCHES = 0
-    dec = decoder("cuda")
-    t0 = time.perf_counter()
-    out = dec.decode_batch(syn_np)  # warm-up
-    warm_s = time.perf_counter() - t0
-    if not ((out.astype(np.int64) @ H.T) % 2 == syn_np).all():
-        raise AssertionError("decode_batch output does not satisfy H x = s")
-    if bp_cuda.LAUNCHES == 0 or gf2_cuda.LAUNCHES == 0:
-        raise AssertionError(
-            f"main path skipped a kernel: K1' {bp_cuda.LAUNCHES}, K2' {gf2_cuda.LAUNCHES}"
+    def bplsd(**kw):
+        return lambda device: ldpc_tpu_torch.BpLsdDecoder(
+            code.hx, error_rate=ERROR_RATE, max_iter=MAX_ITER,
+            bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR, device=device, **kw,
         )
-    conv, iters = dec.converge_batch.copy(), dec.iter_batch.copy()
-    cpu = decoder("cpu")
-    out_cpu = cpu.decode_batch(syn_np[:CPU_ROWS])
-    if not (
-        (out_cpu == out[:CPU_ROWS]).all()
-        and (cpu.converge_batch == conv[:CPU_ROWS]).all()
-        and (cpu.iter_batch == iters[:CPU_ROWS]).all()
-    ):
-        raise AssertionError("decode_batch on the card differs from the CPU")
-    dec.decode_batch(syn_np)  # settle
-    times = []
-    for _ in range(TIMED_ROUNDS):
-        t0 = time.perf_counter()
-        dec.decode_batch(syn_np)
-        times.append(time.perf_counter() - t0)
-    rate = BATCH / statistics.median(times)
-    phase(
-        "decode_batch", syndromes=BATCH, warmup_s=round(warm_s, 3),
-        median_s=statistics.median(times), syndromes_per_s=rate,
-        bp_failed_full_depth=int((~conv).sum()), cpu_rows_equal=CPU_ROWS,
-    )
+
+    path = {}
+    path["osd0"] = drive_decoder("osd_0", bposd(osd_method="osd_0"), H, syn_np,
+                                 ["bp_parallel", "osd0"], TIMED_ROUNDS)
+    path["osd_cs5"] = drive_decoder("osd_cs-5", bposd(osd_method="osd_cs", osd_order=5), H,
+                                    syn_np, ["bp_parallel", "rref_export"], SLICE_B_ROUNDS)
+    path["lsd0"] = drive_decoder("lsd0", bplsd(lsd_method="lsd_0"), H, syn_np,
+                                 ["bp_parallel", "masked_solve"], SLICE_B_ROUNDS)
+    path["lsd_cs5"] = drive_decoder("lsd_cs-5", bplsd(lsd_method="lsd_cs", lsd_order=5), H,
+                                    syn_np, ["bp_parallel", "masked_solve", "masked_export"],
+                                    SLICE_B_ROUNDS)
 
     # ---- 6. device Monte-Carlo -----------------------------------------------
     step, runs_per_call = make_mc_decoder_step(
@@ -256,21 +418,26 @@ def main() -> int:
         osd_used=int(total[4]), bucket_overflow=int(total[5]),
         syndromes_per_s=runs_per_call / statistics.median(times),
     )
-    launches = {"bp_parallel": bp_cuda.LAUNCHES, "osd0": gf2_cuda.LAUNCHES}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"ldpc_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "bp_parallel", "route": "cuda",
-         "source": "ldpc_tpu_torch/csrc/bp_parallel.cu",
-         "replaces": "ldpc_tpu/ops/bp_pallas.py:69",
-         "launches": launches["bp_parallel"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "osd0", "route": "cuda",
-         "source": "ldpc_tpu_torch/csrc/osd0.cu",
-         "replaces": "ldpc_tpu/ops/gf2_pallas.py:46",
-         "launches": launches["osd0"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
+              path["osd0"]["bp_parallel"], k1_err, k1_ms, k1_plain_ms),
+        entry("osd0", "osd0.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
+              path["osd0"]["osd0"], k2_err, k2_ms, k2_plain_ms),
+        entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
+              path["osd_cs5"]["rref_export"], elim_err["rref_export"], *elim_ms["rref_export"]),
+        entry("masked_solve", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:163",
+              path["lsd0"]["masked_solve"], elim_err["masked_solve"], *elim_ms["masked_solve"]),
+        entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
+              path["lsd_cs5"]["masked_export"], elim_err["masked_export"],
+              *elim_ms["masked_export"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

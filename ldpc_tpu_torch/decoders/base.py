@@ -71,6 +71,7 @@ class BpDecoderBase:
         self.converge_batch = None
         self.iter_batch = None
         self._llr_batch = None  # device tensor, pulled on property access
+        self._bp_batch = None  # full-depth BP decodings of the last cascade
 
         self._bp_method = 0
         self._schedule = bp_ops.PARALLEL
@@ -169,6 +170,62 @@ class BpDecoderBase:
                 packed, axis=1, count=self.m, bitorder="little"
             )
         return np.atleast_2d(np.asarray(syndromes, dtype=np.uint8))
+
+    def _decode_cascade(self, syndromes: np.ndarray, post_fn=None) -> tuple:
+        """Decode a (B, m) uint8 batch with the two-phase BP cascade and
+        run ``post_fn`` on the lanes full-depth BP fails.
+
+        Port of ``_postprocess_cascade_batch`` (the JAX package's fused TPU
+        cascade computes the same):
+
+        1. phase-1 BP at ``_CASCADE_ITERS`` iterations over the whole batch;
+        2. the lanes that failed it are compacted (exactly: ``torch.nonzero``);
+        3. full-depth BP re-runs on those lanes only;
+        4. ``post_fn(syndromes_f, llrs_f)`` runs on the lanes that still
+           fail, with their full-depth posteriors, and returns a tuple of
+           (F, n) uint8 decodings;
+        5. each is merged into the BP decodings;
+        6. zero-syndrome rows decode to zero and count as converged.
+
+        Per-lane BP is deterministic, so the output equals one full-depth
+        run followed by ``post_fn`` on its failures. Each compaction costs
+        one host sync. Returns one (B, n) uint8 device tensor per decoding
+        ``post_fn`` returned, or the BP decodings alone (a one-tuple) when
+        ``post_fn`` is None or no lane needed it. Stores the batch
+        properties: ``converge_batch``, ``iter_batch``, the posteriors and
+        the full-depth BP decodings.
+        """
+        syn = torch.from_numpy(syndromes).to(self._device)
+        nonzero = (syn != 0).any(dim=1)
+        p1 = min(self._CASCADE_ITERS, self._max_iter)
+        bp = self._run_bp_batch(syn, p1)
+        dec, llr = bp.decoding, bp.llr_posterior
+        conv, iters = bp.converged | ~nonzero, bp.iterations
+        failed = torch.nonzero(~conv).squeeze(1)  # host sync
+        if failed.numel() and p1 < self._max_iter:
+            bp2 = self._run_bp_batch(syn[failed])
+            dec = dec.index_put((failed,), bp2.decoding)
+            llr = llr.index_put((failed,), bp2.llr_posterior)
+            conv = conv.index_put((failed,), bp2.converged)
+            iters = iters.index_put((failed,), bp2.iterations)
+            failed = failed[~bp2.converged]  # host sync
+        outs = (dec,)
+        if post_fn is not None and failed.numel():
+            post = post_fn(syn[failed], llr[failed])
+            outs = tuple(dec.index_put((failed,), p.to(dec.dtype)) for p in post)
+        self._store_batch(conv, iters, llr, dec)
+        keep = nonzero[:, None].to(dec.dtype)
+        return tuple(o * keep for o in outs)
+
+    def _store_batch(self, conv, iters, llr, bp_dec) -> None:
+        """Keep a batch's BP results for the properties (device tensors in)."""
+        self.converge_batch = _to_numpy(conv)
+        self.iter_batch = _to_numpy(iters)
+        self._llr_batch = llr
+        self._bp_batch = bp_dec
+        self._converge = bool(self.converge_batch[0])
+        self._iter = int(self.iter_batch[0])
+        self._log_prob_ratios = _to_numpy(llr[0])
 
     def _store_single_result(self, result: bp_ops.BpResult):
         self._converge = bool(result.converged[0])

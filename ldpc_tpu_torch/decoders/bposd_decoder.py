@@ -1,20 +1,10 @@
 """BpOsdDecoder: belief propagation + ordered-statistics fallback.
 
-Port of ``ldpc_tpu.decoders.bposd_decoder.BpOsdDecoder`` for OSD-0 and
-OSD off. ``decode_batch`` runs the two-phase cascade of the JAX package's
-fused TPU program:
-
-1. phase-1 BP at ``_CASCADE_ITERS`` iterations over the whole batch;
-2. the lanes that failed it are compacted (exactly: ``torch.nonzero``);
-3. full-depth BP re-runs on those lanes only;
-4. OSD-0 runs on the lanes that still fail;
-5. the results are merged back;
-6. zero-syndrome rows decode to zero and count as converged.
-
-Per-lane BP is deterministic, so the output equals a single full-depth run
-followed by OSD-0 on its failures. Each compaction costs one host sync;
-torch recompiles nothing, so no bucket sizes or overflow redispatch are
-needed.
+Port of ``ldpc_tpu.decoders.bposd_decoder.BpOsdDecoder`` for OSD-0, OSD-E,
+OSD-CS and OSD off. ``decode_batch`` runs the two-phase BP cascade of
+:meth:`BpDecoderBase._decode_cascade` and OSD on the lanes full-depth BP
+fails: kernel K2' at order 0, kernel K3' and the candidate sweep of
+:mod:`ldpc_tpu_torch.ops.osd` above it.
 """
 
 import warnings
@@ -22,7 +12,6 @@ from typing import List, Optional, Union
 
 import numpy as np
 import scipy.sparse
-import torch
 
 from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
 from ldpc_tpu_torch.ops import gf2
@@ -42,9 +31,8 @@ class BpOsdDecoder(BpDecoderBase):
     Runs belief propagation first; on non-convergence falls back to
     ordered-statistics decoding guided by the BP posterior LLRs.
     ``osd_method`` is one of 'OSD_0' | 'OSD_E' | 'OSD_CS' | 'OSD_OFF' (plus
-    the reference's aliases); only OSD_0 and OSD_OFF decode so far (higher
-    orders raise ``NotImplementedError``). ``device`` is where the
-    decoder's tensors live.
+    the reference's aliases) and ``osd_order`` the search depth of OSD-E
+    and OSD-CS. ``device`` is where the decoder's tensors live.
     """
 
     def __init__(
@@ -93,8 +81,8 @@ class BpOsdDecoder(BpDecoderBase):
         self.osd_order = osd_order
         self._osdw_decoding = np.zeros(self.n, dtype=np.uint8)
         self._bp_decoding = np.zeros(self.n, dtype=np.uint8)
-        self._bp_batch = None  # device tensors, pulled on property access
-        self._out_batch = None
+        self._osd0_batch = None  # device tensors, pulled on property access
+        self._osdw_batch = None
 
     # ------------------------------------------------------------------
     # OSD configuration
@@ -185,8 +173,8 @@ class BpOsdDecoder(BpDecoderBase):
         bit_packed_syndromes: bool = False,
         bit_packed_output: bool = False,
     ) -> np.ndarray:
-        """Decode a (B, m) batch: the two-phase BP cascade, then OSD-0 on
-        the lanes full-depth BP failed.
+        """Decode a (B, m) batch: the two-phase BP cascade, then OSD on the
+        lanes full-depth BP failed.
 
         ``bit_packed_syndromes`` accepts little-endian bit-packed input
         (``(B, ceil(m/8))`` uint8, stim b8 layout) and
@@ -200,38 +188,18 @@ class BpOsdDecoder(BpDecoderBase):
                 f"The syndromes must have shape (batch, {self.m}). "
                 f"Not {syndromes.shape}."
             )
-        run_osd = self._osd_method != osd_ops.OSD_OFF
-        osd_fn = self._osd_decode_fn() if run_osd else None
+        post_fn = None
+        if self._osd_method != osd_ops.OSD_OFF:
+            osd_fn = self._osd_decode_fn()
 
-        syn = torch.from_numpy(syndromes).to(self._device)
-        nonzero = (syn != 0).any(dim=1)
-        p1 = min(self._CASCADE_ITERS, self._max_iter)
-        bp = self._run_bp_batch(syn, p1)
-        dec, llr = bp.decoding, bp.llr_posterior
-        conv, iters = bp.converged | ~nonzero, bp.iterations
-        failed = torch.nonzero(~conv).squeeze(1)  # host sync
-        if failed.numel() and p1 < self._max_iter:
-            bp2 = self._run_bp_batch(syn[failed])
-            dec = dec.index_put((failed,), bp2.decoding)
-            llr = llr.index_put((failed,), bp2.llr_posterior)
-            conv = conv.index_put((failed,), bp2.converged)
-            iters = iters.index_put((failed,), bp2.iterations)
-            failed = failed[~bp2.converged]  # host sync
-        out = dec
-        if run_osd and failed.numel():
-            x0, _, _ = osd_fn(syn[failed], llr[failed])
-            out = dec.index_put((failed,), x0)
-        out = out * nonzero[:, None].to(out.dtype)
+            def post_fn(syn_f, llr_f):
+                osd0, osdw, _ = osd_fn(syn_f, llr_f)
+                return osd0, osdw
 
-        self.converge_batch = _to_numpy(conv)
-        self.iter_batch = _to_numpy(iters)
-        self._llr_batch = llr
-        self._bp_batch = dec
-        self._out_batch = out
-        self._converge = bool(self.converge_batch[0])
-        self._iter = int(self.iter_batch[0])
-        self._log_prob_ratios = _to_numpy(llr[0])
-        self._bp_decoding = _to_numpy(dec[0])
+        outs = self._decode_cascade(syndromes, post_fn)
+        self._osd0_batch, out = outs[0], outs[-1]
+        self._osdw_batch = out
+        self._bp_decoding = _to_numpy(self._bp_batch[0])
         if bit_packed_output:
             packed = _to_numpy(gf2.pack_bits_u8(out))
             row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
@@ -254,12 +222,12 @@ class BpOsdDecoder(BpDecoderBase):
     @property
     def osd0_decoding_batch(self) -> Optional[np.ndarray]:
         """OSD-0 decodings of the last batch (BP's where BP converged)."""
-        return None if self._out_batch is None else _to_numpy(self._out_batch)
+        return None if self._osd0_batch is None else _to_numpy(self._osd0_batch)
 
     @property
     def osdw_decoding_batch(self) -> Optional[np.ndarray]:
         """OSD-w decodings of the last batch; at order 0 equal to OSD-0's."""
-        return self.osd0_decoding_batch
+        return None if self._osdw_batch is None else _to_numpy(self._osdw_batch)
 
     @property
     def decoding(self) -> np.ndarray:
@@ -273,7 +241,7 @@ class BpOsdDecoder(BpDecoderBase):
     def osd0_decoding(self) -> np.ndarray:
         if self._converge:
             return self.bp_decoding
-        return np.asarray(self._osdw_decoding).astype(int)
+        return _to_numpy(self._osd0_batch[0]).astype(int)
 
     @property
     def osdw_decoding(self) -> np.ndarray:

@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-At first use every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under
+At first use every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``),
+one nvcc process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, under
 ``build/ldpc_tpu_torch/`` beside the package. The library's file name
 carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. A failed build raises with
-nvcc's error output. Nothing here runs at import time.
+and an unchanged one is loaded as it is. ptxas's register and spill report
+is written beside the library and read back when the library is loaded
+from there. A failed build raises with nvcc's error output. Nothing here
+runs at import time.
 """
 
 import ctypes
@@ -13,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -23,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ldpc_tpu_torch"
 # every operation where their plain PyTorch versions do
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -36,11 +40,19 @@ _SIGNATURES = {
                          ctypes.c_float, _P, _P, _P, _P, _P, _P],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, x0, valid, stream)
     "ldpc_osd0": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (syndromes, order, packed_h, m, n, Wp, rank, B, M, col_of_row, used,
+    #  stream)
+    "ldpc_rref_export": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (syndromes, order, count, packed_h, m, n, Wp, B, x0, bad_row, stream)
+    "ldpc_masked_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # (syndromes, order, count, packed_h, m, n, Wp, B, M, col_of_row, used,
+    #  stream)
+    "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
-build_log = ""  # ptxas's register and shared-memory report of the last build
+build_log = ""  # ptxas's register and shared-memory report of the library
 
 
 def _nvcc() -> str:
@@ -66,23 +78,45 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run nvcc commands concurrently; raise with the first failure's output."""
+    cmds = list(cmds)
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in cmds
+    ]
+    outs = [p.communicate() for p in procs]  # waits for every process
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {p.returncode}:\n"
+                f"{' '.join(cmd)}\n{err}{out}"
+            )
+    return "".join(err for _, err in outs)
+
+
 def _build() -> Path:
     global build_log
     out = BUILD_DIR / f"libldpc_tpu_torch_{_digest()}.so"
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
+        build_log = report.read_text() if report.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        log = _run(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
         )
-    build_log = proc.stderr
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+        lib = Path(tmp) / out.name
+        _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(lib), *map(str, objs)]])
+        report.write_text(log)
+        # atomic: concurrent builders never see half a file
+        os.replace(lib, out)
+    build_log = log
     return out
 
 

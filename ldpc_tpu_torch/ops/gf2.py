@@ -25,9 +25,14 @@ def pack_u32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_u32(words: torch.Tensor, n: int) -> torch.Tensor:
-    """Inverse of :func:`pack_u32`: (..., W) int32 words -> (..., n) uint8."""
-    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
-    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    """Inverse of :func:`pack_u32`: (..., W) int32 words -> (..., n) uint8.
+
+    int32 words are shifted as they are: an arithmetic shift by t keeps
+    bit t lowest even where bit 31 makes the word negative.
+    """
+    dtype = torch.int32 if words.dtype == torch.int32 else torch.int64
+    shifts = torch.arange(32, dtype=dtype, device=words.device)
+    bits = (words.to(dtype)[..., None] >> shifts) & 1
     return bits.reshape(words.shape[:-1] + (-1,))[..., :n].to(torch.uint8)
 
 

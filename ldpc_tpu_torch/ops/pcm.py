@@ -4,7 +4,8 @@ The JAX package compiles a PCM once into padded ELL index arrays
 (``ldpc_tpu.ops.pcm.compile_pcm``); this module moves that layout onto a
 torch device. Together with the channel LLRs it is the only state a
 decoder carries. The pad conventions are kept: a pad slot of ``chk_bits``
-points at bit ``n`` and a pad slot of ``var_edges`` at edge ``m * dc``.
+points at bit ``n``, a pad slot of ``var_edges`` at edge ``m * dc`` and a
+pad slot of ``var_chks`` at check ``m``.
 """
 
 from typing import NamedTuple
@@ -26,6 +27,7 @@ class TorchGraph(NamedTuple):
     chk_bits: torch.Tensor  # (m, dc) int32, bit of each slot, pad = n
     chk_mask: torch.Tensor  # (m, dc) bool
     var_edges: torch.Tensor  # (n, dv) int32, edge id check*dc+slot, pad = m*dc
+    var_chks: torch.Tensor  # (n, dv) int32, check of each slot, pad = m
     var_mask: torch.Tensor  # (n, dv) bool
     dense: torch.Tensor  # (m, n) uint8
     # [H | 0] packed LSB-first: (m, ceil((n+1)/32)) int32 words, so the
@@ -55,6 +57,7 @@ def graph_to_torch(graph: PcmGraph, device) -> TorchGraph:
         chk_bits=put(graph.chk_bits, torch.int32),
         chk_mask=put(graph.chk_mask, torch.bool),
         var_edges=put(graph.var_edges, torch.int32),
+        var_chks=put(graph.var_chks, torch.int32),
         var_mask=put(graph.var_mask, torch.bool),
         dense=dense.to(device),
         packed=pack_u32(aug).contiguous().to(device),

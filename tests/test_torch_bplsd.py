@@ -1,0 +1,217 @@
+"""BpLsdDecoder of the port held against the JAX package's, and the
+API-parity probes of the JAX package's LSD tests (tests/test_lsd_decoder.py)
+that need no statistics.
+
+Syndromes are made with numpy from a seed and fed to both decoders; the
+JAX side runs on the CPU. On the CPU the port runs each kernel's plain
+PyTorch version. LSD's candidate keys are integers, so the decodings must
+be equal, tie or not.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ldpc_tpu
+import ldpc_tpu_torch
+from ldpc_tpu.codes import hamming_code, rep_code, surface_code
+
+torch.set_num_threads(1)
+
+KW = dict(max_iter=30, bp_method="minimum_sum", ms_scaling_factor=0.625)
+
+
+def _all_syndromes(m):
+    return ((np.arange(2**m)[:, None] >> np.arange(m)[None, :]) & 1).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def d13():
+    hx = surface_code(13).hx
+    H = np.asarray(hx.todense(), np.uint8)
+    rng = np.random.default_rng(7)
+    errors = (rng.random((1024, H.shape[1])) < 0.01).astype(np.uint8)
+    syn = (errors @ H.T % 2).astype(np.uint8)
+    syn[3] = 0  # a zero-syndrome row
+    return hx, H, syn
+
+
+@pytest.mark.parametrize("kw", [dict(lsd_method="lsd_0"), dict(lsd_method="lsd_cs", lsd_order=5)],
+                         ids=["lsd0", "lsd_cs5"])
+def test_bplsd_decode_batch_matches_jax(d13, kw):
+    """The slice end to end: ``BpLsdDecoder`` on 1,024 d=13 syndromes,
+    against the JAX decoder, exactly."""
+    hx, H, syn = d13
+    jd = ldpc_tpu.BpLsdDecoder(hx, error_rate=0.01, **KW, **kw)
+    td = ldpc_tpu_torch.BpLsdDecoder(hx, error_rate=0.01, **KW, **kw)
+    want = jd.decode_batch(syn)
+    got = td.decode_batch(syn)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert (got == want).all()
+    assert (td.converge_batch == jd.converge_batch).all()
+    assert (td.iter_batch == jd.iter_batch).all()
+    assert ((got @ H.T) % 2 == syn).all()
+    assert (~td.converge_batch).sum() > 50  # LSD really ran
+    assert (td.decoding == want[0]).all()
+    assert td.converge == jd.converge and td.iter == jd.iter
+    assert (td.bp_decoding == jd.bp_decoding).all()
+    np.testing.assert_allclose(
+        td.log_prob_ratios_batch, np.asarray(jd.log_prob_ratios_batch), rtol=1e-6, atol=1e-6
+    )
+
+
+def test_bplsd_surface_code_and_bit_packed_io():
+    """tests/test_lsd_decoder.py's surface-code case, then bit-packed in
+    and out."""
+    code = surface_code(5)
+    H = np.asarray(code.hx.todense(), np.uint8)
+    rng = np.random.default_rng(149)
+    errors = (rng.random((128, H.shape[1])) < 0.05).astype(np.uint8)
+    syn = (errors @ H.T % 2).astype(np.uint8)
+    kw = dict(error_rate=0.05, max_iter=5, bp_method="minimum_sum", ms_scaling_factor=0.625,
+              bits_per_step=1, lsd_method="lsd_cs", lsd_order=3)
+    dec = ldpc_tpu_torch.BpLsdDecoder(code.hx, **kw)
+    out = dec.decode_batch(syn)
+    assert ((out @ H.T) % 2 == syn).all()
+    assert (~dec.converge_batch).any()
+    packed = np.packbits(syn, axis=1, bitorder="little")
+    assert (dec.decode_batch(packed, bit_packed_syndromes=True) == out).all()
+    got = dec.decode_batch(packed, bit_packed_syndromes=True, bit_packed_output=True)
+    assert (got == np.packbits(out, axis=1, bitorder="little")).all()
+    with pytest.raises(ValueError, match="Bit-packed"):
+        dec.decode_batch(np.zeros((4, 99), np.uint8), bit_packed_syndromes=True)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(lsd_method="lsd_cs", lsd_order=3),
+                                dict(lsd_method="lsd_e", lsd_order=3)],
+                         ids=["lsd0", "lsd_cs3", "lsd_e3"])
+def test_bplsd_hamming_exhaustive(kw):
+    """Every syndrome of the [7,4] Hamming code, through the LSD stage
+    (``always_run_lsd``), in one batch and one at a time: valid, and the
+    same either way (tests/test_torch_lsd.py holds the LSD stage to JAX
+    on the same sweep)."""
+    H = hamming_code(3)
+    Hd = np.asarray(H.todense(), np.uint8)
+    syn = _all_syndromes(3)
+    args = dict(error_rate=0.1, max_iter=5, bits_per_step=1, always_run_lsd=True, **kw)
+    td = ldpc_tpu_torch.BpLsdDecoder(H, **args)
+    out = td.decode_batch(syn)
+    assert ((out @ Hd.T) % 2 == syn).all()
+    assert td.converge_batch[0] and not out[0].any()
+    for s, row in zip(syn, out):
+        assert (td.decode(s) == row).all()
+
+
+def test_bplsd_osd_compat_kwargs():
+    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, osd_method="osd_cs", osd_order=2)
+    assert dec.lsd_method == "LSD_CS"
+    assert dec.lsd_order == 2
+    assert dec.bits_per_step == 1
+    assert ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, bits_per_step=0).bits_per_step == 10
+
+
+def test_bplsd_validation():
+    D = ldpc_tpu_torch.BpLsdDecoder
+    with pytest.raises(ValueError):
+        D(rep_code(10), error_rate=0.1, lsd_order=-1)
+    with pytest.raises(ValueError):
+        D(rep_code(10), error_rate=0.1, lsd_method="bogus")
+    with pytest.raises(TypeError):
+        D([[1, 1, 0], [0, 1, 1]], error_rate=0.1)
+    dec = D(rep_code(10), error_rate=0.1)
+    assert (dec.lsd_method, dec.lsd_order) == ("LSD_0", 0)
+    with pytest.raises(ValueError):
+        dec.lsd_order = 2  # method is LSD_0
+    for alias, name in (("lsd_e", "LSD_E"), ("e", "LSD_E"), ("cs", "LSD_CS"), ("osd_0", "LSD_0"),
+                        ("off", "LSD_OFF")):
+        assert D(rep_code(10), error_rate=0.1, lsd_method=alias).lsd_method == name
+    with pytest.warns(UserWarning):
+        D(rep_code(10), error_rate=0.1, lsd_method="lsd_e", lsd_order=16)
+    with pytest.raises(ValueError):
+        dec.decode(np.zeros(5, np.uint8))
+    with pytest.raises(ValueError):
+        dec.decode_batch(np.zeros((2, 5), np.uint8))
+
+
+def test_bplsd_always_run_lsd():
+    H = rep_code(10)
+    Hd = np.asarray(H.todense(), np.uint8)
+    dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20, always_run_lsd=True, bits_per_step=1)
+    e = np.zeros(10, np.uint8)
+    e[4] = 1
+    s = (Hd @ e % 2).astype(np.uint8)
+    out = dec.decode(s)
+    assert np.array_equal(Hd @ out % 2, s)
+    assert dec.converge  # BP converged; LSD ran all the same
+
+
+def test_bplsd_zero_syndrome():
+    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(5), error_rate=0.1)
+    x = dec.decode(np.zeros(4, np.uint8))
+    assert not x.any() and dec.converge
+
+
+def test_bplsd_stats_plumbing_without_cluster_stats():
+    """The statistics surface is ported; filling the per-cluster records is
+    not, so a decode whose LSD stage runs on the stats row raises."""
+    H = rep_code(5)
+    dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bp_method="min_sum",
+                                      ms_scaling_factor=1.0)
+    assert dec.do_stats is False
+    s = np.array([1, 1, 0, 1], np.uint8)
+    dec.decode(s)  # stats off: LSD runs and nothing is recorded
+    stats = dec.statistics
+    assert stats["lsd_order"] == 0 and stats["lsd_method"] == 1
+    assert stats.elapsed_time > 0
+    assert stats["individual_cluster_stats"] == {}
+    dec.set_do_stats(True)
+    assert dec.do_stats is True and dec.stats_row == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        dec.decode(s)
+    dec.set_additional_stat_fields([0], [1], [0])
+    assert dec.statistics.error == [0] and dec.statistics.syndrome == [1]
+    dec.reset_cluster_stats()
+    assert dec.statistics.syndrome == []
+    assert isinstance(dec.statistics.to_json(), str)
+    with pytest.raises(ValueError):
+        dec.set_do_stats(True, row=-1)
+    # a decode the BP stage converges on needs no statistics
+    dec2 = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20)
+    dec2.set_do_stats(True)
+    dec2.decode(np.array([1, 0, 0, 0], np.uint8))
+    assert dec2.statistics["individual_cluster_stats"] == {}
+
+
+def test_bplsd_imports_no_jax():
+    """A fresh process imports the port, decodes with BpLsdDecoder at order
+    0 and 3 on the CPU, and never imports jax."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        "import sys, numpy as np\n"
+        "import ldpc_tpu_torch\n"
+        "from ldpc_tpu_torch.codes import surface_code\n"
+        "code = surface_code(3)\n"
+        "H = np.asarray(code.hx.todense(), np.uint8)\n"
+        "s = (np.eye(1, H.shape[1], 4, dtype=np.uint8) @ H.T % 2)[0]\n"
+        "for kw in ({}, {'lsd_method': 'lsd_cs', 'lsd_order': 3}):\n"
+        "    d = ldpc_tpu_torch.BpLsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
+        "                                    always_run_lsd=True, **kw)\n"
+        "    x = d.decode(s)\n"
+        "    assert ((H @ x) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
+        "                                osd_method='osd_cs', osd_order=3)\n"
+        "assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        cwd=repo, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

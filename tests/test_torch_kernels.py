@@ -1,5 +1,6 @@
-"""The CUDA kernels K1' (csrc/bp_parallel.cu) and K2' (csrc/osd0.cu) held
-against their plain PyTorch versions on the card.
+"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2' (csrc/osd0.cu) and
+K3'-K5' (csrc/gf2_elim.cu) held against their plain PyTorch versions on the
+card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -117,6 +118,86 @@ def test_k2_invalid_lanes_match_plain_version(codes):
     assert not bool(v_k.all())
 
 
+def _orders(codes, name, lanes=None):
+    """Each lane's columns least-reliable-first, from 30 iterations of K1'."""
+    graph, tg, syn, llr0 = codes[name]
+    if lanes is not None:
+        syn = syn[:lanes].contiguous()
+    llr = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, 0.625).llr_posterior
+    return graph, tg, syn, torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+
+
+def _counts(graph, syn, kind, seed=5):
+    """Per-lane column counts: random 0..n, all 0, or all n."""
+    B = syn.shape[0]
+    if kind == "random":
+        c = np.random.default_rng(seed).integers(0, graph.n + 1, B)
+    else:
+        c = np.full(B, 0 if kind == "zero" else graph.n)
+    return torch.from_numpy(c.astype(np.int32)).to(syn.device)
+
+
+def _assert_exports_equal(ker, ref):
+    for a, b in zip(ker, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lanes", [None, 1001, 1])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k3_matches_plain_version(codes, name, lanes):
+    """Bit-identical words, pivot columns and used rows; every lane ends
+    with rank pivots; odd batch sizes."""
+    graph, tg, syn, order = _orders(codes, name, lanes)
+    rank = gf2.batched_rank(graph.dense)
+    before = gf2_cuda.RREF_EXPORT_LAUNCHES
+    ker = gf2_cuda.rref_export(tg, syn, order, rank)
+    assert gf2_cuda.RREF_EXPORT_LAUNCHES == before + 1
+    ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
+    torch.cuda.synchronize()
+    _assert_exports_equal(ker, ref)
+    assert bool((ker[2].sum(dim=1) == rank).all())
+
+
+@pytest.mark.parametrize("count", ["random", "zero", "full"])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k4_k5_match_plain_versions(codes, name, count):
+    graph, tg, syn, order = _orders(codes, name, 1001)
+    cnt = _counts(graph, syn, count)
+    before = (gf2_cuda.MASKED_SOLVE_LAUNCHES, gf2_cuda.MASKED_EXPORT_LAUNCHES)
+    x_k, bad_k = gf2_cuda.masked_solve(tg, syn, order, cnt)
+    ker = gf2_cuda.masked_export(tg, syn, order, cnt)
+    assert (gf2_cuda.MASKED_SOLVE_LAUNCHES, gf2_cuda.MASKED_EXPORT_LAUNCHES) == (
+        before[0] + 1, before[1] + 1,
+    )
+    x_r, bad_r = gf2_cuda.masked_solve_reference(tg, syn, order, cnt)
+    ref = gf2_cuda.masked_export_reference(tg, syn, order, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
+    _assert_exports_equal(ker, ref)
+    if count == "zero":
+        assert not bool(x_k.any()) and torch.equal(bad_k, syn.bool())
+
+
+def test_k4_first_growth_round_matches_plain_version(codes):
+    """The shapes of LSD's first growth rounds: K4' on real cluster masks."""
+    from ldpc_tpu_torch.ops import uf
+
+    graph, tg, syn, llr0 = codes["surface13"]
+    res = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
+    failed = torch.nonzero(~res.converged).squeeze(1)
+    s, llr = syn[failed].contiguous(), res.llr_posterior[failed]
+    in_bit = torch.zeros_like(llr, dtype=torch.bool)
+    for _ in range(3):
+        order = torch.argsort(torch.where(in_bit, llr, torch.inf), dim=1, stable=True)
+        order = order.to(torch.int32).contiguous()
+        cnt = in_bit.sum(dim=1).to(torch.int32)
+        x_k, bad_k = gf2_cuda.masked_solve_cuda(tg, s, order, cnt)
+        x_r, bad_r = gf2_cuda.masked_solve_reference(tg, s, order, cnt)
+        assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
+        in_bit, _ = uf.grow_round(tg, in_bit, bad_k, uf.llr_rank(llr), 1)
+
+
 def test_wrappers_validate_inputs(codes):
     graph, tg, syn, llr0 = codes["surface13"]
     with pytest.raises(ValueError, match="uint8"):
@@ -126,10 +207,29 @@ def test_wrappers_validate_inputs(codes):
     order = torch.zeros((syn.shape[0], graph.n), dtype=torch.int64, device=syn.device)
     with pytest.raises(ValueError, match="int32"):
         gf2_cuda.osd0_cuda(tg, syn, order, 1)
+    o32 = order.to(torch.int32)
+    cnt = torch.zeros(syn.shape[0], dtype=torch.int32, device=syn.device)
+    with pytest.raises(ValueError, match="rref_export_cuda: order must be int32"):
+        gf2_cuda.rref_export_cuda(tg, syn, order, 1)
+    with pytest.raises(ValueError, match="masked_solve_cuda: count must be int32"):
+        gf2_cuda.masked_solve_cuda(tg, syn, o32, cnt.long())
+    with pytest.raises(ValueError, match="masked_export_cuda: count must have shape"):
+        gf2_cuda.masked_export_cuda(tg, syn, o32, cnt[:-1])
+    with pytest.raises(ValueError, match="masked_solve_cuda: syndromes must be uint8"):
+        gf2_cuda.masked_solve_cuda(tg, syn.int(), o32, cnt)
+    with pytest.raises(ValueError, match="masked_export_cuda: count is on cpu"):
+        gf2_cuda.masked_export_cuda(tg, syn, o32, cnt.cpu())
     # a working matrix beyond the card's shared memory is refused up front
     big = compile_pcm(toric_code(60, compute_logicals=False).hx)  # m = 3600, n = 7200
     tg_big = graph_to_torch(big, syn.device)
     s = torch.zeros((1, big.m), dtype=torch.uint8, device=syn.device)
     o = torch.zeros((1, big.n), dtype=torch.int32, device=syn.device)
+    c = torch.zeros(1, dtype=torch.int32, device=syn.device)
     with pytest.raises(ValueError, match="shared memory"):
         gf2_cuda.osd0_cuda(tg_big, s, o, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        gf2_cuda.rref_export_cuda(tg_big, s, o, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        gf2_cuda.masked_solve_cuda(tg_big, s, o, c)
+    with pytest.raises(ValueError, match="shared memory"):
+        gf2_cuda.masked_export_cuda(tg_big, s, o, c)

@@ -59,12 +59,14 @@ def test_graph_to_torch_round_trips_compile_pcm(workloads, name):
     assert (tg.chk_bits.numpy() == graph.chk_bits).all()
     assert (tg.chk_mask.numpy() == graph.chk_mask).all()
     assert (tg.var_edges.numpy() == graph.var_edges).all()
+    assert (tg.var_chks.numpy() == graph.var_chks).all()
     assert (tg.var_mask.numpy() == graph.var_mask).all()
     assert (tg.dense.numpy() == graph.dense).all()
-    assert tg.chk_bits.dtype == tg.var_edges.dtype == torch.int32
+    assert tg.chk_bits.dtype == tg.var_edges.dtype == tg.var_chks.dtype == torch.int32
     # pad conventions: chk_bits pad = n, var_edges pad = m*dc
     assert (tg.chk_bits.numpy()[~graph.chk_mask] == graph.n).all()
     assert (tg.var_edges.numpy()[~graph.var_mask] == graph.num_edges).all()
+    assert (tg.var_chks.numpy()[~graph.var_mask] == graph.m).all()
     aug = np.concatenate([graph.dense, np.zeros((graph.m, 1), np.uint8)], axis=1)
     want = np.asarray(jgf2.pack_u32(jnp.asarray(aug)))
     assert tg.packed.shape == (graph.m, -(-(graph.n + 1) // 32))
@@ -249,10 +251,17 @@ def test_osd0_dispatch_and_higher_orders(workloads):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(ValueError, match="CUDA"):
         gf2_cuda.osd0_cuda(tg, s, order, rank)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tosd.make_osd_decoder(graph, np.full(graph.n, p), tosd.COMBINATION_SWEEP, 2, "cpu")
-    # order 0 of a higher method is plain OSD-0, as in the JAX package
-    tosd.make_osd_decoder(graph, np.full(graph.n, p), tosd.EXHAUSTIVE, 0, "cpu")
+    # higher orders run the sweep; order 0 of a higher method is plain
+    # OSD-0, as in the JAX package
+    x0, xw, _ = tosd.make_osd_decoder(
+        graph, np.full(graph.n, p), tosd.COMBINATION_SWEEP, 2, "cpu"
+    )(s, llrs)
+    assert torch.equal(x0, a[0])
+    assert ((xw.numpy() @ graph.dense.T) % 2 == syn).all()
+    e0, ew, _ = tosd.make_osd_decoder(
+        graph, np.full(graph.n, p), tosd.EXHAUSTIVE, 0, "cpu"
+    )(s, llrs)
+    assert torch.equal(e0, a[0]) and ew is e0
 
 
 def test_osd0_toric20_no_size_cliff():
