@@ -4,13 +4,19 @@ Usage: ``python chip_smoke.py`` from the repository root, on a machine with
 a CUDA device, ``nvcc`` (``CUDA_HOME``, default ``/usr/local/cuda``) and
 PyTorch built for CUDA. It builds the kernels from ``ldpc_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card and times
-both, drives ``decode_batch`` of BP+OSD-0, BP+OSD-CS (order 5), BP+LSD-0
-and BP+LSD-CS (order 5) and the device Monte-Carlo step at the d=13
-surface-code workload, and checks the outputs. Every phase prints one line;
-any failure raises and exits non-zero. The second-to-last line is a JSON
-object describing each kernel; the last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits 1.
+both, drives ``decode_batch`` of BP+OSD-0, BP+OSD-CS (order 5), BP+LSD-0,
+BP+LSD-CS (order 5) and the device Monte-Carlo step at the d=13
+surface-code workload, then the flip sweep against its plain version and
+``decode_batch`` of BeliefFind (inversion and peeling), standalone
+union-find (matrix and peeling), standalone LSD (order 0 and CS-5), flip
+and BP+flip on the same syndromes, and one BP+LSD statistics record on the
+card against the CPU's. Every phase prints one line; any failure raises
+and exits non-zero. The second-to-last line is a JSON object describing
+each kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits 1.
 """
+
+import dataclasses
 
 import json
 import statistics
@@ -24,7 +30,7 @@ import torch
 import ldpc_tpu_torch
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step
-from ldpc_tpu_torch.ops import _build, bp_cuda, gf2, gf2_cuda, lsd, osd, uf
+from ldpc_tpu_torch.ops import _build, bp_cuda, flip, gf2, gf2_cuda, lsd, osd, uf
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
@@ -37,6 +43,10 @@ KERNEL_BATCH = 8192  # kernel-vs-plain comparisons
 CPU_ROWS = 4096  # rows also decoded on the CPU and compared
 TIMED_ROUNDS = 7
 SLICE_B_ROUNDS = 3  # timed decode_batch calls of each slice-B configuration
+SLICE_C_ROUNDS = 3  # ... of each slice-C configuration
+PFLIP_SWEEPS = 20  # flip sweeps of the p-flip comparisons (the plain version
+# takes every sweep of a lane that never converges)
+STATS_ROWS = 256  # rows decoded by the statistics phase
 MC_BATCH = 16384
 MC_ROUNDS = 8
 MC_CALLS = 3
@@ -200,6 +210,7 @@ def reset_counters() -> None:
     gf2_cuda.RREF_EXPORT_LAUNCHES = 0
     gf2_cuda.MASKED_SOLVE_LAUNCHES = 0
     gf2_cuda.MASKED_EXPORT_LAUNCHES = 0
+    flip.FLIP_LAUNCHES = 0
     uf.HOST_SYNCS = 0
     uf.GROWTH_ROUNDS = 0
 
@@ -211,51 +222,93 @@ def read_counters() -> dict:
         "rref_export": gf2_cuda.RREF_EXPORT_LAUNCHES,
         "masked_solve": gf2_cuda.MASKED_SOLVE_LAUNCHES,
         "masked_export": gf2_cuda.MASKED_EXPORT_LAUNCHES,
+        "flip": flip.FLIP_LAUNCHES,
         "host_syncs": uf.HOST_SYNCS,
         "growth_rounds": uf.GROWTH_ROUNDS,
     }
 
 
-def drive_decoder(label, make, H, syn_np, kernels, rounds):
-    """One path: ``make(device).decode_batch`` on the whole batch, with the
-    launch counters set to 0 just before the first call and read just
-    after it. Checks H x = s on every row, that each kernel in ``kernels``
-    launched, and that the first CPU_ROWS rows equal the CPU path's; then
-    times ``rounds`` calls after a settle call. Returns the counters."""
+ROW_CHECKS = ("all", "valid", "converged")
+
+
+def drive_decoder(label, make, H, syn_np, kernels, rounds, args=(), solves="all"):
+    """One path: ``make(device).decode_batch(syn_np, *args)`` on the whole
+    batch, with the launch counters set to 0 just before the first call and
+    read just after it. Checks H x = s on the rows the decoder guarantees it
+    for (``solves``: every row, the rows ``valid_batch`` marks, or the rows
+    ``converge_batch`` marks), that each kernel in ``kernels`` launched, and
+    that the first CPU_ROWS rows equal the CPU path's, with
+    ``converge_batch``, ``iter_batch`` and ``valid_batch`` where the decoder
+    has them; then times ``rounds`` calls after a settle call. Returns the
+    counters."""
+    if solves not in ROW_CHECKS:
+        raise ValueError(f"solves must be one of {ROW_CHECKS}, not {solves!r}")
     reset_counters()
     dec = make("cuda")
     t0 = time.perf_counter()
-    out = dec.decode_batch(syn_np)
+    out = dec.decode_batch(syn_np, *args)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     counts = read_counters()
-    if not ((out.astype(np.int64) @ H.T) % 2 == syn_np).all():
-        raise AssertionError(f"{label}: decode_batch output does not satisfy H x = s")
+    flags = {a: getattr(dec, a).copy() for a in ("converge_batch", "iter_batch", "valid_batch")
+             if getattr(dec, a, None) is not None}
+    rows = {"all": np.ones(len(syn_np), bool), "valid": flags.get("valid_batch"),
+            "converged": flags.get("converge_batch")}[solves]
+    if not ((out.astype(np.int64) @ H.T) % 2 == syn_np)[rows].all():
+        raise AssertionError(f"{label}: decode_batch output does not satisfy H x = s "
+                             f"on the {solves} rows")
     missing = [k for k in kernels if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: the path skipped kernels {missing}: {counts}")
-    conv, iters = dec.converge_batch.copy(), dec.iter_batch.copy()
     cpu = make("cpu")
-    out_cpu = cpu.decode_batch(syn_np[:CPU_ROWS])
-    if not (
-        (out_cpu == out[:CPU_ROWS]).all()
-        and (cpu.converge_batch == conv[:CPU_ROWS]).all()
-        and (cpu.iter_batch == iters[:CPU_ROWS]).all()
+    out_cpu = cpu.decode_batch(syn_np[:CPU_ROWS], *args)
+    if not (out_cpu == out[:CPU_ROWS]).all() or any(
+        not (getattr(cpu, a) == f[:CPU_ROWS]).all() for a, f in flags.items()
     ):
         raise AssertionError(f"{label}: decode_batch on the card differs from the CPU")
-    dec.decode_batch(syn_np)  # settle
+    dec.decode_batch(syn_np, *args)  # settle
     times = []
     for _ in range(rounds):
         t0 = time.perf_counter()
-        dec.decode_batch(syn_np)
+        dec.decode_batch(syn_np, *args)
         times.append(time.perf_counter() - t0)
+    extra = {}
+    if "converge_batch" in flags:
+        extra["not_converged"] = int((~flags["converge_batch"]).sum())
+    if "valid_batch" in flags:
+        extra["invalid"] = int((~flags["valid_batch"]).sum())
     phase(
         "decode_batch", config=label, syndromes=len(syn_np), warmup_s=round(warm_s, 3),
         median_s=statistics.median(times), syndromes_per_s=len(syn_np) / statistics.median(times),
-        bp_failed_full_depth=int((~conv).sum()), cpu_rows_equal=CPU_ROWS,
+        **extra, hx_eq_s_rows=f"{solves}:{int(rows.sum())}", cpu_rows_equal=CPU_ROWS,
         launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")),
     )
     return counts
+
+
+def compare_flip(name, tg, syn, max_iter, pfreq):
+    """The flip kernel against its plain version: bit-identical decodings,
+    flags and iterations on every lane."""
+    ker = flip.flip_cuda(tg, syn, max_iter, pfreq, 7)
+    ref = flip.flip_reference(tg, syn, max_iter, pfreq, 7)
+    torch.cuda.synchronize()
+    nlanes = int(_lanes_differ(ker, ref).sum())
+    phase("flip_vs_plain", config=name, pfreq=pfreq, max_iter=max_iter, lanes=syn.shape[0],
+          differing_lanes=nlanes, converged=int(ker[1].sum()))
+    if nlanes:
+        raise AssertionError(f"the flip kernel differs from its plain version: {name}/{pfreq}")
+    return _max_abs_err(ker, ref)
+
+
+def stats_record(make, syn_np, row, device) -> dict:
+    """BpLsdDecoder statistics of ``row`` on ``device``, without the
+    elapsed time."""
+    dec = make(device)
+    dec.set_do_stats(True, row=row)
+    dec.decode_batch(syn_np)
+    record = dataclasses.asdict(dec.statistics)
+    record.pop("elapsed_time")
+    return record
 
 
 def main() -> int:
@@ -418,6 +471,70 @@ def main() -> int:
         osd_used=int(total[4]), bucket_overflow=int(total[5]),
         syndromes_per_s=runs_per_call / statistics.median(times),
     )
+    # ---- 7. the flip sweep against its plain version ----------------------------
+    flip_err = 0
+    for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
+        for pfreq, sweeps in ((0, gx.n), (3, PFLIP_SWEEPS)):
+            flip_err = max(flip_err, compare_flip(cname, tgx, syn, sweeps, pfreq))
+    # times at FlipDecoder's main-path call: the whole batch, max_iter = n
+    flip_ms = cuda_ms(lambda: flip.flip_cuda(tg, syn_all, graph.n, 0, 1), 5)
+    flip_plain_ms = cuda_ms(lambda: flip.flip_reference(tg, syn_all, graph.n, 0, 1), 1)
+    phase("flip_time", shape=f"B={BATCH},max_iter={graph.n}", ms=flip_ms, plain_ms=flip_plain_ms)
+
+    # ---- 8. slice C paths: decode_batch -----------------------------------------
+    common = dict(error_rate=ERROR_RATE, max_iter=MAX_ITER, bp_method="minimum_sum",
+                  ms_scaling_factor=MS_FACTOR)
+    llr1 = np.full(graph.n, np.log((1 - ERROR_RATE) / ERROR_RATE), np.float32)
+    for uf_method in ("inversion", "peeling"):
+        path[f"bf_{uf_method}"] = drive_decoder(
+            f"BeliefFindDecoder[{uf_method}]",
+            lambda device, m=uf_method: ldpc_tpu_torch.BeliefFindDecoder(
+                code.hx, uf_method=m, device=device, **common),
+            H, syn_np, ["bp_parallel", "masked_solve"], SLICE_C_ROUNDS,
+        )
+    for name, matrix in (("matrix", True), ("peeling", False)):
+        path[f"uf_{name}"] = drive_decoder(
+            f"UnionFindDecoder[{name}]",
+            lambda device, mm=matrix: ldpc_tpu_torch.UnionFindDecoder(
+                code.hx, uf_method=mm, device=device),
+            H, syn_np, ["masked_solve"], SLICE_C_ROUNDS, solves="valid",
+        )
+    path["lsd0_standalone"] = drive_decoder(
+        "LsdDecoder[standalone-lsd0]",
+        lambda device: ldpc_tpu_torch.LsdDecoder(
+            code.hx, lsd_method="lsd_0", lsd_order=0, device=device),
+        H, syn_np, ["masked_solve"], SLICE_C_ROUNDS, args=(llr1,), solves="valid",
+    )
+    path["lsd_cs5_standalone"] = drive_decoder(
+        "LsdDecoder[standalone-lsd_cs-5]",
+        lambda device: ldpc_tpu_torch.LsdDecoder(
+            code.hx, lsd_method="lsd_cs", lsd_order=5, device=device),
+        H, syn_np, ["masked_solve", "masked_export"], SLICE_C_ROUNDS, args=(llr1,),
+        solves="valid",
+    )
+    path["flip"] = drive_decoder(
+        "FlipDecoder",
+        lambda device: ldpc_tpu_torch.FlipDecoder(code.hx, max_iter=graph.n, device=device),
+        H, syn_np, ["flip"], SLICE_C_ROUNDS, solves="converged",
+    )
+    path["bp_flip"] = drive_decoder(
+        "BpFlipDecoder",
+        lambda device: ldpc_tpu_torch.BpFlipDecoder(
+            code.hx, flip_iterations=0, device=device, **common),
+        H, syn_np, ["flip", "bp_parallel"], SLICE_C_ROUNDS, solves="converged",
+    )
+
+    # ---- 9. one LSD statistics record: the card against the CPU ---------------
+    probe = bplsd(lsd_method="lsd_0")("cuda")
+    probe.decode_batch(syn_np[:STATS_ROWS])
+    row = int(np.flatnonzero(~probe.converge_batch)[0])  # a row LSD decodes
+    card = stats_record(bplsd(lsd_method="lsd_0"), syn_np[:STATS_ROWS], row, "cuda")
+    host = stats_record(bplsd(lsd_method="lsd_0"), syn_np[:STATS_ROWS], row, "cpu")
+    phase("lsd_stats", row=row, clusters=len(card["individual_cluster_stats"]),
+          timesteps=len(card["global_timestep_bit_history"]), equal_to_cpu=card == host)
+    if card != host or not card["individual_cluster_stats"]:
+        raise AssertionError("LSD statistics on the card differ from the CPU's")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -438,6 +555,8 @@ def main() -> int:
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
               path["lsd_cs5"]["masked_export"], elim_err["masked_export"],
               *elim_ms["masked_export"]),
+        entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"]["flip"], flip_err,
+              flip_ms, flip_plain_ms),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,18 @@ def _to_numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _device_llrs(llrs, B: int, n: int, device) -> torch.Tensor:
+    """(B, n) float32 LLRs on ``device`` for the standalone cluster
+    decoders: a 1-D vector is shared by every row and broadcast there, None
+    gives zeros made there."""
+    if llrs is None:
+        return torch.zeros((B, n), dtype=torch.float32, device=device)
+    llrs = torch.as_tensor(np.asarray(llrs, dtype=np.float32), device=device)
+    if llrs.dim() == 1:
+        return llrs.expand(B, n)
+    return llrs
+
+
 class BpDecoderBase:
     """Belief-propagation decoder base: owns the PCM, channel and BP config."""
 
@@ -197,10 +209,27 @@ class BpDecoderBase:
         """
         syn = torch.from_numpy(syndromes).to(self._device)
         nonzero = (syn != 0).any(dim=1)
+        bp, failed = self._run_bp_two_phase(syn, ~nonzero)
+        dec, llr, conv, iters = bp
+        outs = (dec,)
+        if post_fn is not None and failed.numel():
+            post = post_fn(syn[failed], llr[failed])
+            outs = tuple(dec.index_put((failed,), p.to(dec.dtype)) for p in post)
+        self._store_batch(conv, iters, llr, dec)
+        keep = nonzero[:, None].to(dec.dtype)
+        return tuple(o * keep for o in outs)
+
+    def _run_bp_two_phase(self, syn: torch.Tensor, done: torch.Tensor):
+        """BP on (B, m) device syndromes in two phases: ``_CASCADE_ITERS``
+        iterations on the whole batch, then full depth on the lanes that
+        failed it, compacted. Lanes flagged in ``done`` count as converged
+        after phase 1. Per-lane BP is deterministic, so the result equals
+        one full-depth run. Returns ``(BpResult with the merged results,
+        the indices of the lanes full-depth BP fails)``; two host syncs."""
         p1 = min(self._CASCADE_ITERS, self._max_iter)
         bp = self._run_bp_batch(syn, p1)
         dec, llr = bp.decoding, bp.llr_posterior
-        conv, iters = bp.converged | ~nonzero, bp.iterations
+        conv, iters = bp.converged | done, bp.iterations
         failed = torch.nonzero(~conv).squeeze(1)  # host sync
         if failed.numel() and p1 < self._max_iter:
             bp2 = self._run_bp_batch(syn[failed])
@@ -209,13 +238,7 @@ class BpDecoderBase:
             conv = conv.index_put((failed,), bp2.converged)
             iters = iters.index_put((failed,), bp2.iterations)
             failed = failed[~bp2.converged]  # host sync
-        outs = (dec,)
-        if post_fn is not None and failed.numel():
-            post = post_fn(syn[failed], llr[failed])
-            outs = tuple(dec.index_put((failed,), p.to(dec.dtype)) for p in post)
-        self._store_batch(conv, iters, llr, dec)
-        keep = nonzero[:, None].to(dec.dtype)
-        return tuple(o * keep for o in outs)
+        return bp_ops.BpResult(dec, llr, conv, iters), failed
 
     def _store_batch(self, conv, iters, llr, bp_dec) -> None:
         """Keep a batch's BP results for the properties (device tensors in)."""

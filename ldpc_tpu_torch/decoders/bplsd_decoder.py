@@ -9,9 +9,8 @@ non-convergence LSD guided by the BP posterior LLRs
 runs the two-phase BP cascade of :meth:`BpDecoderBase._decode_cascade`
 and :func:`ldpc_tpu_torch.ops.lsd.make_lsd_decoder` on the lanes
 full-depth BP fails (kernels K4' and, above order 0, K5').
-
-The per-cluster statistics (``ldpc_tpu.decoders.lsd_stats``) are not
-ported yet: a decode that would fill them raises ``NotImplementedError``.
+``set_do_stats(True)`` records the per-cluster growth statistics of one row
+(:func:`ldpc_tpu_torch.decoders.lsd_stats.compute_lsd_statistics`).
 """
 
 import time
@@ -28,13 +27,10 @@ from ldpc_tpu_torch.decoders.lsd_common import (
     Statistics,
     parse_lsd_method,
 )
+from ldpc_tpu_torch.decoders.lsd_stats import compute_lsd_statistics
 from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.ops import lsd as lsd_ops
-
-_STATS_NOT_PORTED = (
-    "per-cluster LSD statistics are not ported yet (ROADMAP queue 1 item 10, "
-    "lsd_stats)"
-)
+from ldpc_tpu_torch.ops.pcm import graph_to_torch
 
 
 class BpLsdDecoder(BpDecoderBase):
@@ -153,8 +149,8 @@ class BpLsdDecoder(BpDecoderBase):
 
     def set_do_stats(self, value: bool, row: int = 0) -> None:
         """Enable statistics collection for batch row ``row`` of later
-        decodes. Filling them is not ported yet: a decode whose LSD stage
-        runs on that row then raises ``NotImplementedError``."""
+        decodes: a decode whose LSD stage runs on that row replays its
+        growth and records it."""
         self._do_stats = bool(value)
         if row < 0:
             raise ValueError(f"stats row must be >= 0, not {row}")
@@ -240,7 +236,21 @@ class BpLsdDecoder(BpDecoderBase):
         )
         self._statistics.clear()
         if lsd_ran and self._do_stats:
-            raise NotImplementedError(_STATS_NOT_PORTED)
+            # the stats row's LSD decode, replayed with the decoder's own
+            # growth primitives on its device (lsd.hpp:652-816 semantics)
+            llr_r = _to_numpy(self._llr_batch[r])
+            self._statistics.stats_row = r
+            self._statistics.bit_llrs = list(map(float, llr_r))
+            self._statistics.syndrome = list(map(int, syndromes[r]))
+            compute_lsd_statistics(
+                graph_to_torch(self.graph, self._device),
+                self.graph.dense,
+                syndromes[r],
+                llr_r,
+                self.bits_per_step,
+                _to_numpy(out[r]),
+                stats=self._statistics,
+            )
         self._statistics.elapsed_time = (time.perf_counter() - t0) * 1e6
         self._statistics.lsd_order = self._lsd_order
         # stats carry the reference's OsdMethod enum value, where

@@ -48,6 +48,10 @@ _SIGNATURES = {
     # (syndromes, order, count, packed_h, m, n, Wp, B, M, col_of_row, used,
     #  stream)
     "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,
+    #  iters, stream)
+    "ldpc_flip": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P,
+                  _P],
 }
 
 _lock = threading.Lock()

@@ -69,10 +69,7 @@ def make_lsd_decoder(
 
     def masked_export(syndromes, llrs, in_bit):
         """K5' on the in-cluster columns, least reliable first."""
-        key = torch.where(in_bit, llrs, torch.inf)
-        order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
-        count = in_bit.sum(dim=1).to(torch.int32)
-        return gf2_cuda.masked_export(tg, syndromes, order.contiguous(), count)
+        return gf2_cuda.masked_export(tg, syndromes, *uf.cluster_columns(in_bit, llrs))
 
     def pivot_mask(col_of_row, used):
         ispiv = torch.zeros((used.shape[0], n + 1), dtype=torch.bool, device=device)

@@ -1,10 +1,10 @@
-"""Cluster growth for the cluster decoders (port of part of ``ldpc_tpu.ops.uf``).
+"""Cluster growth and the union-find decoders (port of ``ldpc_tpu.ops.uf``).
 
 A cluster is a connected component of the Tanner subgraph spanned by the
 in-cluster bits (``in_bit``, (B, n) bool) and the checks they touch, plus
-the flipped syndrome checks. The growth loop of LSD (and of the union-find
-decoders, ROADMAP queue 1 item 9) repeats one round until every cluster is
-valid, i.e. its syndrome lies in the image of its columns:
+the flipped syndrome checks. The growth loop of LSD and of the union-find
+decoders repeats one round until every cluster is valid, i.e. its syndrome
+lies in the image of its columns:
 
 1. kernel K4' (:func:`ldpc_tpu_torch.ops.gf2_cuda.masked_solve`) eliminates
    each lane's in-cluster columns, least reliable first; an unused row that
@@ -20,14 +20,23 @@ size applies. Fixpoint loops (label propagation, floodfills) test for
 convergence every ``_SWEEPS`` sweeps, since each test is a host sync and
 extra sweeps at a fixpoint change nothing. :data:`HOST_SYNCS` and
 :data:`GROWTH_ROUNDS` count the syncs and growth rounds for measurement.
+
+:func:`make_uf_decoder` (inversion mode) reads its decoding from the last
+round's K4' solve; :func:`make_peel_decoder` (peeling mode) solves the grown
+clusters once more in the JAX package's ``forest_solve`` column order. The
+JAX package's staged growth (``grow_staged_fast``, ``grow_staged_multi``)
+has no counterpart: :func:`grow_until_valid` already runs each round on the
+lanes still invalid only, which is what staging does on the TPU, with the
+same result lane for lane.
 """
 
 from typing import Optional, Tuple
 
 import torch
 
+from ldpc_tpu.ops.pcm import PcmGraph
 from ldpc_tpu_torch.ops import gf2_cuda
-from ldpc_tpu_torch.ops.pcm import TorchGraph
+from ldpc_tpu_torch.ops.pcm import TorchGraph, graph_to_torch
 
 INF = 2**30  # no label / no key: above every check index and LLR rank
 _SWEEPS = 4  # graph sweeps between two convergence tests
@@ -120,6 +129,17 @@ def llr_rank(llrs: torch.Tensor) -> torch.Tensor:
     return rank.scatter_(1, sub, iota)
 
 
+def cluster_columns(
+    in_bit: torch.Tensor, key: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K4'/K5' column order of each lane's in-cluster bits, ascending
+    ``key`` (stable), and their count: ``(order (B, n) int32, count (B,)
+    int32)``."""
+    masked = torch.where(in_bit, key, torch.inf)
+    order = torch.argsort(masked, dim=1, stable=True).to(torch.int32).contiguous()
+    return order, in_bit.sum(dim=1).to(torch.int32)
+
+
 def grow_round(
     tg: TorchGraph,
     in_bit: torch.Tensor,
@@ -184,12 +204,8 @@ def grow_until_valid(
         if not idx.numel():
             break
         lane_in = in_bit[idx]
-        key = torch.where(lane_in, llrs[idx], torch.inf)
-        order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
-        count = lane_in.sum(dim=1).to(torch.int32)
-        x, bad_row = gf2_cuda.masked_solve(
-            tg, syndromes[idx].contiguous(), order.contiguous(), count
-        )
+        order, count = cluster_columns(lane_in, llrs[idx])
+        x, bad_row = gf2_cuda.masked_solve(tg, syndromes[idx].contiguous(), order, count)
         new_in, any_invalid = grow_round(tg, lane_in, bad_row, rank[idx], bits_per_step)
         x0[idx] = x
         bad[idx] = bad_row
@@ -198,3 +214,76 @@ def grow_until_valid(
         HOST_SYNCS += 1
         GROWTH_ROUNDS += 1
     return in_bit, x0, ~bad.any(dim=1)
+
+
+def _decoder_inputs(syndromes, llrs, device):
+    syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device).contiguous()
+    llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
+    return syndromes, llrs
+
+
+def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
+    """Batched union-find decoder, inversion mode (``make_uf_decoder``;
+    reference union_find.hpp:485-532): grow until valid, K4' once per
+    round; the last round's solve is the decoding.
+
+    ``bits_per_step == 0`` grows every boundary bit of every invalid cluster
+    per round; otherwise each invalid cluster admits its ``bits_per_step``
+    lowest-LLR boundary bits per round (BeliefFind). ``bits_per_step >= n``
+    admits every boundary bit, the same as 0.
+
+    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n) float32) ->
+    (decoding: (B, n) uint8, valid: (B,) bool)``.
+    """
+    if bits_per_step >= graph.n:
+        bits_per_step = 0
+    tg = graph_to_torch(graph, device)
+    device = torch.device(device)
+
+    def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
+        _, x0, valid = grow_until_valid(tg, syndromes, llrs, bits_per_step)
+        return x0, valid
+
+    return decode
+
+
+def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
+    """Batched union-find decoder, peeling mode (``make_peel_decoder``;
+    reference union_find.hpp:428-480), for column degree <= 2.
+
+    Growth is the inversion decoder's: for column degree <= 2 a cluster's
+    syndrome lies in the image of its columns exactly when its parity is
+    even or it holds a degree-1 (boundary) column, the peeling validity
+    rule. The grown clusters are then solved by one more K4' elimination
+    over their columns in the order [interior ascending, boundary
+    ascending] (``forest_solve``): its greedy pivots are a spanning forest
+    of each cluster plus at most one boundary edge, and its solution is that
+    forest's tree solution, which peeling computes. Valid means no unused
+    row still holds a syndrome 1.
+
+    Returns ``decode(syndromes, llrs) -> (decoding (B, n) uint8, valid (B,)
+    bool)``.
+    """
+    if graph.dv > 2:
+        raise ValueError("peeling requires column degree <= 2")
+    if bits_per_step >= graph.n:
+        bits_per_step = 0
+    n = graph.n
+    tg = graph_to_torch(graph, device)
+    device = torch.device(device)
+    if graph.dv == 2:
+        interior = tg.var_mask[:, 1]  # two real endpoints
+    else:
+        interior = torch.zeros(n, dtype=torch.bool, device=device)
+    # interior columns first, boundary columns after, each ascending
+    col_key = (torch.arange(n, device=device) + torch.where(interior, 0, n)).float()
+
+    def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
+        in_bit, _, _ = grow_until_valid(tg, syndromes, llrs, bits_per_step)
+        order, count = cluster_columns(in_bit, col_key.expand_as(llrs))
+        x0, bad_row = gf2_cuda.masked_solve(tg, syndromes, order, count)
+        return x0, ~bad_row.any(dim=1)
+
+    return decode

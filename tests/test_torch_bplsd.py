@@ -156,8 +156,9 @@ def test_bplsd_zero_syndrome():
 
 
 def test_bplsd_stats_plumbing_without_cluster_stats():
-    """The statistics surface is ported; filling the per-cluster records is
-    not, so a decode whose LSD stage runs on the stats row raises."""
+    """The statistics surface with statistics off and on: off, a decode
+    whose LSD stage runs records nothing per cluster; on, it records the
+    clusters (tests/test_torch_lsd_standalone.py holds them to JAX's)."""
     H = rep_code(5)
     dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bp_method="min_sum",
                                       ms_scaling_factor=1.0)
@@ -170,8 +171,8 @@ def test_bplsd_stats_plumbing_without_cluster_stats():
     assert stats["individual_cluster_stats"] == {}
     dec.set_do_stats(True)
     assert dec.do_stats is True and dec.stats_row == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        dec.decode(s)
+    dec.decode(s)
+    assert set(dec.statistics["individual_cluster_stats"]) == {0, 1, 3}
     dec.set_additional_stat_fields([0], [1], [0])
     assert dec.statistics.error == [0] and dec.statistics.syndrome == [1]
     dec.reset_cluster_stats()
@@ -187,8 +188,11 @@ def test_bplsd_stats_plumbing_without_cluster_stats():
 
 
 def test_bplsd_imports_no_jax():
-    """A fresh process imports the port, decodes with BpLsdDecoder at order
-    0 and 3 on the CPU, and never imports jax."""
+    """A fresh process imports the port, decodes on the CPU with every
+    decoder of slices B and C (BpLsdDecoder at order 0 and 3 with
+    statistics, BpOsdDecoder, UnionFindDecoder in both modes,
+    BeliefFindDecoder, LsdDecoder, FlipDecoder, BpFlipDecoder), and never
+    imports jax."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
         "import sys, numpy as np\n"
@@ -200,8 +204,23 @@ def test_bplsd_imports_no_jax():
         "for kw in ({}, {'lsd_method': 'lsd_cs', 'lsd_order': 3}):\n"
         "    d = ldpc_tpu_torch.BpLsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
         "                                    always_run_lsd=True, **kw)\n"
+        "    d.set_do_stats(True)\n"
         "    x = d.decode(s)\n"
+        "    assert ((H @ x) % 2 == s).all() and d.statistics.individual_cluster_stats\n"
+        "for uf_method in (True, False):\n"
+        "    x = ldpc_tpu_torch.UnionFindDecoder(code.hx, uf_method=uf_method).decode(s)\n"
         "    assert ((H @ x) % 2 == s).all()\n"
+        "for uf_method in ('inversion', 'peeling'):\n"
+        "    d = ldpc_tpu_torch.BeliefFindDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
+        "                                         uf_method=uf_method)\n"
+        "    assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.LsdDecoder(code.hx, lsd_method='lsd_cs', lsd_order=2)\n"
+        "assert ((H @ d.decode(s, np.ones(H.shape[1]))) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.FlipDecoder(code.hx, pfreq=2, seed=1)\n"
+        "x = d.decode(s)\n"
+        "assert d.converge and ((H @ x) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.BpFlipDecoder(code.hx, error_rate=0.1, max_iter=5)\n"
+        "assert ((H @ d.decode(s)) % 2 == s).all()\n"
         "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
         "                                osd_method='osd_cs', osd_order=3)\n"
         "assert ((H @ d.decode(s)) % 2 == s).all()\n"

@@ -202,13 +202,13 @@ def test_unported_options_raise_not_implemented():
         ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, schedule="serial")
-    # OSD-CS is ported now; LSD's per-cluster statistics are not
+    # OSD-CS and LSD's per-cluster statistics are ported now
     d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, osd_method="osd_cs", osd_order=2)
     assert (d.decode_batch(np.array([[1, 0]], np.uint8)) == [[1, 0, 0]]).all()
     lsd = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, always_run_lsd=True)
     lsd.set_do_stats(True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        lsd.decode_batch(np.array([[1, 0]], np.uint8))
+    lsd.decode_batch(np.array([[1, 0]], np.uint8))
+    assert list(lsd.statistics.individual_cluster_stats) == [0]
 
 
 def test_osd_method_aliases_and_order_validation():

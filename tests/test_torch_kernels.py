@@ -1,6 +1,6 @@
-"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2' (csrc/osd0.cu) and
-K3'-K5' (csrc/gf2_elim.cu) held against their plain PyTorch versions on the
-card.
+"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2' (csrc/osd0.cu),
+K3'-K5' (csrc/gf2_elim.cu) and the flip sweep (csrc/flip.cu) held against
+their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.codes import surface_code, toric_code
-from ldpc_tpu_torch.ops import bp_cuda, gf2, gf2_cuda
+from ldpc_tpu_torch.ops import bp_cuda, flip, gf2, gf2_cuda
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
@@ -219,6 +219,8 @@ def test_wrappers_validate_inputs(codes):
         gf2_cuda.masked_solve_cuda(tg, syn.int(), o32, cnt)
     with pytest.raises(ValueError, match="masked_export_cuda: count is on cpu"):
         gf2_cuda.masked_export_cuda(tg, syn, o32, cnt.cpu())
+    with pytest.raises(ValueError, match="flip_cuda: syndromes must be uint8"):
+        flip.flip_cuda(tg, syn.int(), 5, 0, 1)
     # a working matrix beyond the card's shared memory is refused up front
     big = compile_pcm(toric_code(60, compute_logicals=False).hx)  # m = 3600, n = 7200
     tg_big = graph_to_torch(big, syn.device)
@@ -233,3 +235,63 @@ def test_wrappers_validate_inputs(codes):
         gf2_cuda.masked_solve_cuda(tg_big, s, o, c)
     with pytest.raises(ValueError, match="shared memory"):
         gf2_cuda.masked_export_cuda(tg_big, s, o, c)
+
+
+def test_k4_forest_solve_order_matches_plain_version(codes):
+    """K4' in the peeling decoder's final solve: each lane's grown cluster,
+    interior columns ascending, then boundary columns ascending."""
+    from ldpc_tpu_torch.ops import uf
+
+    graph, tg, syn, _ = codes["surface13"]
+    s = syn[:2001].contiguous()
+    llr = torch.zeros((s.shape[0], graph.n), dtype=torch.float32, device=s.device)
+    in_bit, _, _ = uf.grow_until_valid(tg, s, llr, 0)
+    interior = tg.var_mask[:, 1]
+    col_key = torch.arange(graph.n, device=s.device) + torch.where(interior, 0, graph.n)
+    key = torch.where(in_bit, col_key, 2 * graph.n)
+    order = torch.argsort(key, dim=1, stable=True).to(torch.int32).contiguous()
+    cnt = in_bit.sum(dim=1).to(torch.int32)
+    x_k, bad_k = gf2_cuda.masked_solve_cuda(tg, s, order, cnt)
+    x_r, bad_r = gf2_cuda.masked_solve_reference(tg, s, order, cnt)
+    assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
+    assert not bool(bad_k.any())
+    x = x_k.cpu().numpy()
+    assert ((x @ graph.dense.T) % 2 == s.cpu().numpy()).all()
+
+
+def _assert_flip_equal(tg, syn, max_iter, pfreq, seed=7):
+    before = flip.FLIP_LAUNCHES
+    ker = flip.flip(tg, syn, max_iter, pfreq, seed)
+    assert flip.FLIP_LAUNCHES == before + 1
+    ref = flip.flip_reference(tg, syn, max_iter, pfreq, seed)
+    torch.cuda.synchronize()
+    for a, b in zip(ker, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    return ker
+
+
+@pytest.mark.parametrize("pfreq,max_iter", [(0, "n"), (3, 12), (1, 5)])
+@pytest.mark.parametrize("lanes", [1001, 65, 1])
+def test_flip_matches_plain_version(codes, lanes, pfreq, max_iter):
+    """Bit-identical decodings, convergence flags and iterations, with and
+    without p-flip (both sides draw the same hashed coins); odd batches
+    that leave a block part empty."""
+    graph, tg, syn, _ = codes["surface13"]
+    iters = graph.n if max_iter == "n" else max_iter
+    dec, conv, _ = _assert_flip_equal(tg, syn[:lanes].contiguous(), iters, pfreq)
+    c = conv.cpu().numpy()
+    x = dec.cpu().numpy()
+    assert ((x @ graph.dense.T % 2)[c] == syn[:lanes].cpu().numpy()[c]).all()
+
+
+def test_flip_zero_syndromes_and_toric20(codes):
+    """Zero syndromes converge at sweep 0 with a zero decoding; toric d=20
+    (n=800, 13 syndrome words per lane) matches with and without p-flip."""
+    graph, tg, syn, _ = codes["surface13"]
+    zero = torch.zeros((129, graph.m), dtype=torch.uint8, device=syn.device)
+    dec, conv, iters = _assert_flip_equal(tg, zero, graph.n, 2)
+    assert not bool(dec.any()) and bool(conv.all()) and not bool(iters.any())
+    graph20, tg20, syn20, _ = codes["toric20"]
+    _assert_flip_equal(tg20, syn20, graph20.n, 0)
+    _assert_flip_equal(tg20, syn20[:2048].contiguous(), 10, 3, seed=0xFFFFFFFF)
