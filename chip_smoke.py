@@ -10,19 +10,22 @@ surface-code workload, then the flip sweep against its plain version and
 ``decode_batch`` of BeliefFind (inversion and peeling), standalone
 union-find (matrix and peeling), standalone LSD (order 0 and CS-5), flip
 and BP+flip on the same syndromes, and one BP+LSD statistics record on the
-card against the CPU's. Every phase prints one line; any failure raises
-and exits non-zero. The second-to-last line is a JSON object describing
-each kernel; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits 1.
+card against the CPU's. K1' (BP) is held against its plain version with
+its lane state in shared memory and in device memory, and timed at both of
+the main path's launch shapes. Every ``*_time`` phase prints the kernel's
+time, its plain version's and its bound (see ``bound``). Every phase prints
+one line; any failure raises and exits non-zero. The second-to-last line
+is a JSON object describing each kernel; the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits 1.
 """
 
 import dataclasses
-
 import json
 import statistics
 import subprocess
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,6 +40,7 @@ from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 DISTANCE = 13
 ERROR_RATE = 0.01
 MAX_ITER = 30
+PHASE1_ITERS = 6  # the cascade's first BP launch (BpDecoderBase._CASCADE_ITERS)
 MS_FACTOR = 0.625
 BATCH = 65536  # the host-boundary workload (numpy seed 7)
 KERNEL_BATCH = 8192  # kernel-vs-plain comparisons
@@ -70,34 +74,168 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The least time the card could take (NVIDIA's H100 SXM data sheet): bytes
+# over the HBM rate, operations over the float32 rate outside the tensor
+# cores counted per operation (67 TFLOP/s counts an FMA as two). The kernels
+# here do float32, integer and compare operations, all counted at that
+# rate, so the operation time is a floor too.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 33.5e12
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of ``tensors``, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float):
+    """``(bound_ms, bound_by)``: the larger of the two floors, and which."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_ops(graph, lane_iterations: int) -> float:
+    """Min-sum operations of K1' over ``lane_iterations``: per edge 7 in
+    the check update (subtract, abs, two min compares, sign test, scale,
+    sign select), 1 in the bit sum and 1 in the syndrome test; per bit the
+    hard-decision compare."""
+    return float(lane_iterations) * (9 * graph.nnz + graph.n)
+
+
+def gf2_ops(tg, steps: int, pivots: int) -> float:
+    """GF(2) elimination operations: each column step tests the column bit
+    of the m rows; each pivot reads its row's Wp words. A floor: the XORs
+    into the rows holding a 1 are not counted."""
+    return float(steps) * tg.m + float(pivots) * tg.packed.shape[1]
+
+
+def timed(name, shape, kernel, plain, bytes_moved, ops, reps=5, plain_reps=2, **extra):
+    """Time ``kernel`` and ``plain`` on the card and print them beside the
+    bound; returns the numbers the kernels line carries."""
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(plain, plain_reps)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    phase(name, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+          share_of_bound=bound_ms / ms, **extra)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def workload(H: np.ndarray, rows: int, seed: int = 7):
     rng = np.random.default_rng(seed)
     errors = (rng.random((rows, H.shape[1])) < ERROR_RATE).astype(np.uint8)
     return errors, (errors @ H.T % 2).astype(np.uint8)
 
 
-def compare_bp(name, tg, syn, llr0, method, alpha):
-    ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, method, MAX_ITER, alpha)
-    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, MAX_ITER, alpha)
-    torch.cuda.synchronize()
-    lane_diff = (
-        (ker.decoding != ref.decoding).any(dim=1)
-        | (ker.converged != ref.converged)
-        | (ker.iterations != ref.iterations)
+def main_workload():
+    """The d=13 surface code, its dense H and the BATCH syndromes every
+    ``decode_batch`` configuration decodes."""
+    code = surface_code(DISTANCE, compute_logicals=True)
+    H = np.asarray(code.hx.todense(), np.uint8)
+    return code, H, workload(H, BATCH)[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePath:
+    """One ``decode_batch`` configuration: ``make(device)`` builds the
+    decoder, ``decode_batch(syndromes, *args)`` runs it; ``kernels`` are
+    the launch counters that must move, ``solves`` the rows H x = s is
+    checked on (see :func:`drive_decoder`), ``rounds`` the timed calls."""
+
+    key: str
+    label: str
+    make: Callable[[str], object]
+    kernels: tuple
+    rounds: int
+    args: tuple = ()
+    solves: str = "all"
+
+
+def decode_paths(code) -> list:
+    """Every ``decode_batch`` configuration driven on the d=13 workload, in
+    the order this script drives them (``tools/profile_torch.py`` profiles
+    the same list)."""
+    hx, n = code.hx, code.hx.shape[1]
+    bp = dict(error_rate=ERROR_RATE, max_iter=MAX_ITER, bp_method="minimum_sum",
+              ms_scaling_factor=MS_FACTOR)
+    llr1 = np.full(n, np.log((1 - ERROR_RATE) / ERROR_RATE), np.float32)
+    T, P = ldpc_tpu_torch, DecodePath
+    B_ROUNDS, C_ROUNDS = SLICE_B_ROUNDS, SLICE_C_ROUNDS
+    return [
+        P("osd0", "osd_0", lambda d: T.BpOsdDecoder(hx, osd_method="osd_0", device=d, **bp),
+          ("bp_parallel", "osd0"), TIMED_ROUNDS),
+        P("osd_cs5", "osd_cs-5", lambda d: T.BpOsdDecoder(
+            hx, osd_method="osd_cs", osd_order=5, device=d, **bp),
+          ("bp_parallel", "rref_export"), B_ROUNDS),
+        P("lsd0", "lsd0", lambda d: T.BpLsdDecoder(hx, lsd_method="lsd_0", device=d, **bp),
+          ("bp_parallel", "masked_solve"), B_ROUNDS),
+        P("lsd_cs5", "lsd_cs-5", lambda d: T.BpLsdDecoder(
+            hx, lsd_method="lsd_cs", lsd_order=5, device=d, **bp),
+          ("bp_parallel", "masked_solve", "masked_export"), B_ROUNDS),
+        *(P(f"bf_{m}", f"BeliefFindDecoder[{m}]", lambda d, m=m: T.BeliefFindDecoder(
+            hx, uf_method=m, device=d, **bp), ("bp_parallel", "masked_solve"), C_ROUNDS)
+          for m in ("inversion", "peeling")),
+        *(P(f"uf_{name}", f"UnionFindDecoder[{name}]", lambda d, mm=matrix: T.UnionFindDecoder(
+            hx, uf_method=mm, device=d), ("masked_solve",), C_ROUNDS, solves="valid")
+          for name, matrix in (("matrix", True), ("peeling", False))),
+        P("lsd0_standalone", "LsdDecoder[standalone-lsd0]", lambda d: T.LsdDecoder(
+            hx, lsd_method="lsd_0", lsd_order=0, device=d),
+          ("masked_solve",), C_ROUNDS, args=(llr1,), solves="valid"),
+        P("lsd_cs5_standalone", "LsdDecoder[standalone-lsd_cs-5]", lambda d: T.LsdDecoder(
+            hx, lsd_method="lsd_cs", lsd_order=5, device=d),
+          ("masked_solve", "masked_export"), C_ROUNDS, args=(llr1,), solves="valid"),
+        P("flip", "FlipDecoder", lambda d: T.FlipDecoder(hx, max_iter=n, device=d),
+          ("flip",), C_ROUNDS, solves="converged"),
+        P("bp_flip", "BpFlipDecoder", lambda d: T.BpFlipDecoder(
+            hx, flip_iterations=0, device=d, **bp),
+          ("flip", "bp_parallel"), C_ROUNDS, solves="converged"),
+    ]
+
+
+def mc_step(code, device):
+    """The device Monte-Carlo step at the d=13 workload: ``(step,
+    runs_per_call)``."""
+    return make_mc_decoder_step(
+        code.hx, ERROR_RATE, logicals=code.lx, batch_size=MC_BATCH,
+        rounds_per_call=MC_ROUNDS, max_iter=MAX_ITER,
+        ms_scaling_factor=MS_FACTOR, device=device,
     )
-    nlanes = int(lane_diff.sum())
-    err = float((ker.llr_posterior - ref.llr_posterior).abs().max())
-    phase(
-        "k1_vs_plain", config=name, lanes=syn.shape[0], differing_lanes=nlanes,
-        max_abs_err=err, converged=int(ker.converged.sum()),
-    )
-    if method == MINIMUM_SUM:
-        # same operations in the same order on both sides: bit-exact
-        if nlanes or err != 0.0:
-            raise AssertionError(f"K1' min-sum differs from its plain version: {name}")
-    elif not torch.allclose(ker.llr_posterior, ref.llr_posterior, rtol=1e-4, atol=1e-5):
-        raise AssertionError(f"K1' product-sum posteriors beyond rtol 1e-4: {name}")
-    return ker, err
+
+
+def compare_bp(name, tg, syn, llr0, method, alpha, max_iter=MAX_ITER, states=(None, "device")):
+    """K1' against its plain version on the same inputs, once for each of
+    ``states``: where a lane's state lives, forced, or chosen by the
+    footprint when None. Min-sum must be bit-identical (decisions,
+    posteriors, flags, iterations), product-sum within rtol 1e-4. Returns
+    the first state's result and the largest |kernel - plain| posterior
+    difference."""
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, max_iter, alpha)
+    first, worst = None, 0.0
+    for state in states:
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, method, max_iter, alpha, state=state)
+        torch.cuda.synchronize()
+        lane_diff = (
+            (ker.decoding != ref.decoding).any(dim=1)
+            | (ker.converged != ref.converged)
+            | (ker.iterations != ref.iterations)
+        )
+        nlanes = int(lane_diff.sum())
+        err = float((ker.llr_posterior - ref.llr_posterior).abs().max()) if syn.shape[0] else 0.0
+        phase(
+            "k1_device_vs_plain" if state == "device" else "k1_vs_plain",
+            config=name, state=state or bp_cuda.state_variant(tg.m, tg.n, tg.dc),
+            lanes=syn.shape[0], max_iter=max_iter, differing_lanes=nlanes,
+            max_abs_err=err, converged=int(ker.converged.sum()),
+        )
+        if method == MINIMUM_SUM:
+            # same operations in the same order on both sides: bit-exact
+            if nlanes or err != 0.0:
+                raise AssertionError(f"K1' min-sum differs from its plain version: {name}")
+        elif not torch.allclose(ker.llr_posterior, ref.llr_posterior, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"K1' product-sum posteriors beyond rtol 1e-4: {name}")
+        first = ker if first is None else first
+        worst = max(worst, err)
+    return first, worst
 
 
 def compare_osd(name, tg, H, syn, llr, rank):
@@ -206,6 +344,7 @@ def captured_calls(module, name, run):
 
 def reset_counters() -> None:
     bp_cuda.LAUNCHES = 0
+    bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
     gf2_cuda.LAUNCHES = 0
     gf2_cuda.RREF_EXPORT_LAUNCHES = 0
     gf2_cuda.MASKED_SOLVE_LAUNCHES = 0
@@ -218,6 +357,8 @@ def reset_counters() -> None:
 def read_counters() -> dict:
     return {
         "bp_parallel": bp_cuda.LAUNCHES,
+        "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
+        "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
         "osd0": gf2_cuda.LAUNCHES,
         "rref_export": gf2_cuda.RREF_EXPORT_LAUNCHES,
         "masked_solve": gf2_cuda.MASKED_SOLVE_LAUNCHES,
@@ -231,8 +372,8 @@ def read_counters() -> dict:
 ROW_CHECKS = ("all", "valid", "converged")
 
 
-def drive_decoder(label, make, H, syn_np, kernels, rounds, args=(), solves="all"):
-    """One path: ``make(device).decode_batch(syn_np, *args)`` on the whole
+def drive_decoder(p: DecodePath, H, syn_np):
+    """One path: ``p.make(device).decode_batch(syn_np, *p.args)`` on the whole
     batch, with the launch counters set to 0 just before the first call and
     read just after it. Checks H x = s on the rows the decoder guarantees it
     for (``solves``: every row, the rows ``valid_batch`` marks, or the rows
@@ -241,6 +382,8 @@ def drive_decoder(label, make, H, syn_np, kernels, rounds, args=(), solves="all"
     ``converge_batch``, ``iter_batch`` and ``valid_batch`` where the decoder
     has them; then times ``rounds`` calls after a settle call. Returns the
     counters."""
+    label, make, kernels, rounds, args, solves = (
+        p.label, p.make, p.kernels, p.rounds, p.args, p.solves)
     if solves not in ROW_CHECKS:
         raise ValueError(f"solves must be one of {ROW_CHECKS}, not {solves!r}")
     reset_counters()
@@ -334,12 +477,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    code = surface_code(DISTANCE, compute_logicals=True)
-    H = np.asarray(code.hx.todense(), np.uint8)
+    code, H, syn_np = main_workload()
     graph = compile_pcm(code.hx)
     tg = graph_to_torch(graph, dev)
     llr0 = torch.from_numpy(channel_llr(np.full(graph.n, ERROR_RATE))).to(dev)
-    _, syn_np = workload(H, BATCH)
     syn_all = torch.from_numpy(syn_np).to(dev)
     syn_k = syn_all[:KERNEL_BATCH].contiguous()
 
@@ -351,6 +492,8 @@ def main() -> int:
     syn20 = torch.from_numpy(workload(H20, KERNEL_BATCH)[1]).to(dev)
 
     # ---- 3. K1' against its plain version ------------------------------------
+    # each in the place the footprint chooses for a lane's state, then in
+    # device memory, forced
     k1_err = 0.0
     posteriors = {}
     for cname, tgx, syn, l0 in (("surface13", tg, syn_k, llr0), ("toric20", tg20, syn20, llr20)):
@@ -363,17 +506,40 @@ def main() -> int:
             k1_err = max(k1_err, err)
             if mname == "ms0.625":
                 posteriors[cname] = res.llr_posterior.contiguous()
+    # a code whose lane state exceeds the shared-memory budget takes the
+    # device-memory variant by itself
+    tor31 = toric_code(31, compute_logicals=False)
+    graph31 = compile_pcm(tor31.hx)
+    if bp_cuda.state_variant(graph31.m, graph31.n, graph31.dc) != "device":
+        raise AssertionError("toric d=31 should keep its K1' state in device memory")
+    syn31 = torch.from_numpy(workload(np.asarray(tor31.hx.todense(), np.uint8), 400)[1]).to(dev)
+    llr31 = torch.from_numpy(channel_llr(np.full(graph31.n, ERROR_RATE))).to(dev)
+    k1_err = max(k1_err, compare_bp("toric31/ms0.625", graph_to_torch(graph31, dev), syn31,
+                                    llr31, MINIMUM_SUM, MS_FACTOR, states=(None,))[1])
 
-    # times at the main path's largest K1' call: phase-1 BP on the whole batch
-    def k1_kernel():
-        bp_cuda.bp_parallel_cuda(tg, syn_all, llr0, MINIMUM_SUM, 6, MS_FACTOR)
+    # times at the main path's two K1' calls: phase-1 BP on the whole batch,
+    # then full depth on the lanes phase 1 leaves unconverged (the bucket);
+    # beside them the device-memory state variant at the same shape. Both
+    # variants are first held against the plain version at that shape,
+    # where the last block of lanes is part-filled.
+    def k1_timed(name, syn, iters):
+        out, err = compare_bp("surface13/ms0.625", tg, syn, llr0, MINIMUM_SUM, MS_FACTOR, iters)
+        lane_iterations = int(out.iterations.sum())
+        device_state_ms = cuda_ms(lambda: bp_cuda.bp_parallel_cuda(
+            tg, syn, llr0, MINIMUM_SUM, iters, MS_FACTOR, state="device"), 5)
+        numbers = timed(
+            name, f"B={syn.shape[0]},max_iter={iters}",
+            lambda: bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, iters, MS_FACTOR),
+            lambda: bp_cuda.bp_parallel_reference(tg, syn, llr0, MINIMUM_SUM, iters, MS_FACTOR),
+            nbytes(syn, llr0, tg.chk_bits_t, tg.var_edges_t, *out), k1_ops(graph, lane_iterations),
+            plain_reps=3, lane_iterations=lane_iterations,
+            state=bp_cuda.state_variant(tg.m, tg.n, tg.dc), device_state_ms=device_state_ms,
+        )
+        return out, numbers, err
 
-    def k1_plain():
-        bp_cuda.bp_parallel_reference(tg, syn_all, llr0, MINIMUM_SUM, 6, MS_FACTOR)
-
-    k1_ms = cuda_ms(k1_kernel, 5)
-    k1_plain_ms = cuda_ms(k1_plain, 3)
-    phase("k1_time", shape=f"B={BATCH},max_iter=6", ms=k1_ms, plain_ms=k1_plain_ms)
+    phase1, k1_numbers, err = k1_timed("k1_time", syn_all, PHASE1_ITERS)
+    bucket = syn_all[~phase1.converged].contiguous()
+    k1_err = max(k1_err, err, k1_timed("k1_bucket_time", bucket, MAX_ITER)[2])
 
     # ---- 4. K2' against its plain version ------------------------------------
     rank13 = gf2.batched_rank(graph.dense)
@@ -388,9 +554,15 @@ def main() -> int:
     syn_f = syn_all[failed].contiguous()
     order_f = torch.argsort(full.llr_posterior[failed], dim=1, stable=True)
     order_f = order_f.to(torch.int32).contiguous()
-    k2_ms = cuda_ms(lambda: gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13), 5)
-    k2_plain_ms = cuda_ms(lambda: gf2_cuda.osd0_reference(tg, syn_f, order_f, rank13), 2)
-    phase("k2_time", shape=f"B={failed.numel()}", ms=k2_ms, plain_ms=k2_plain_ms)
+    all_cols = torch.full((syn_f.shape[0],), graph.n, dtype=torch.int32, device=dev)
+    pivots = int(gf2_cuda.pivots_taken(tg, syn_f, order_f, all_cols, rank13, True).sum())
+    k2_numbers = timed(
+        "k2_time", f"B={failed.numel()}",
+        lambda: gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13),
+        lambda: gf2_cuda.osd0_reference(tg, syn_f, order_f, rank13),
+        nbytes(syn_f, order_f, tg.packed, *gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13)),
+        gf2_ops(tg, pivots, pivots), pivots=pivots,
+    )
 
     # ---- 4b. K3', K4', K5' against their plain versions ------------------------
     elim_err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
@@ -412,48 +584,59 @@ def main() -> int:
         lambda: k4_calls.extend(captured_calls(gf2_cuda, "masked_solve", lambda: lsd_cs(syn_f, llr_f))),
     )[-1]
     k4_args = k4_calls[1]
-    elim_ms = {}
+    elim_numbers = {}
     for kname, cuda_fn, plain_fn, args in (
         ("rref_export", gf2_cuda.rref_export_cuda, gf2_cuda.rref_export_reference, k3_args),
         ("masked_solve", gf2_cuda.masked_solve_cuda, gf2_cuda.masked_solve_reference, k4_args),
         ("masked_export", gf2_cuda.masked_export_cuda, gf2_cuda.masked_export_reference, k5_args),
     ):
-        elim_ms[kname] = (cuda_ms(lambda: cuda_fn(*args), 5), cuda_ms(lambda: plain_fn(*args), 2))
-        shape = f"B={args[1].shape[0]}"
-        if kname != "rref_export":
-            shape += f",mean_count={float(args[3].float().mean()):.2f}"
-        phase(f"{kname}_time", shape=shape, ms=elim_ms[kname][0], plain_ms=elim_ms[kname][1])
-
-    # ---- 5. main paths: decode_batch -----------------------------------------
-    def bposd(**kw):
-        return lambda device: ldpc_tpu_torch.BpOsdDecoder(
-            code.hx, error_rate=ERROR_RATE, max_iter=MAX_ITER,
-            bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR, device=device, **kw,
+        tgx, syn, order = args[:3]
+        B = syn.shape[0]
+        shape = f"B={B}"
+        if kname == "rref_export":
+            # K3' walks to its rank pivots; the columns it steps over are
+            # at least as many
+            limit = torch.full((B,), graph.n, dtype=torch.int32, device=dev)
+            pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, args[3], False).sum())
+            steps = pivots
+        else:
+            # K4' and K5' step over exactly their count columns
+            limit = args[3]
+            pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, tgx.m + 1, False).sum())
+            steps = int(limit.sum())
+            shape += f",mean_count={float(limit.float().mean()):.2f}"
+        elim_numbers[kname] = timed(
+            f"{kname}_time", shape, lambda: cuda_fn(*args), lambda: plain_fn(*args),
+            nbytes(*(a for a in args if torch.is_tensor(a)), tgx.packed, *cuda_fn(*args)),
+            gf2_ops(tgx, steps, pivots), steps=steps, pivots=pivots,
         )
 
-    def bplsd(**kw):
-        return lambda device: ldpc_tpu_torch.BpLsdDecoder(
-            code.hx, error_rate=ERROR_RATE, max_iter=MAX_ITER,
-            bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR, device=device, **kw,
-        )
-
-    path = {}
-    path["osd0"] = drive_decoder("osd_0", bposd(osd_method="osd_0"), H, syn_np,
-                                 ["bp_parallel", "osd0"], TIMED_ROUNDS)
-    path["osd_cs5"] = drive_decoder("osd_cs-5", bposd(osd_method="osd_cs", osd_order=5), H,
-                                    syn_np, ["bp_parallel", "rref_export"], SLICE_B_ROUNDS)
-    path["lsd0"] = drive_decoder("lsd0", bplsd(lsd_method="lsd_0"), H, syn_np,
-                                 ["bp_parallel", "masked_solve"], SLICE_B_ROUNDS)
-    path["lsd_cs5"] = drive_decoder("lsd_cs-5", bplsd(lsd_method="lsd_cs", lsd_order=5), H,
-                                    syn_np, ["bp_parallel", "masked_solve", "masked_export"],
-                                    SLICE_B_ROUNDS)
-
-    # ---- 6. device Monte-Carlo -----------------------------------------------
-    step, runs_per_call = make_mc_decoder_step(
-        code.hx, ERROR_RATE, logicals=code.lx, batch_size=MC_BATCH,
-        rounds_per_call=MC_ROUNDS, max_iter=MAX_ITER,
-        ms_scaling_factor=MS_FACTOR, device="cuda",
+    # ---- 5. the flip sweep against its plain version -------------------------
+    flip_err = 0
+    for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
+        for pfreq, sweeps in ((0, gx.n), (3, PFLIP_SWEEPS)):
+            flip_err = max(flip_err, compare_flip(cname, tgx, syn, sweeps, pfreq))
+    # times at FlipDecoder's main-path call: the whole batch, max_iter = n
+    flip_out = flip.flip_cuda(tg, syn_all, graph.n, 0, 1)
+    _, conv_f, iters_f = flip_out
+    # sweeps a lane surely completes: all but its last on a converged lane
+    # (it may stop mid-sweep), one on a lane that stops at its fixpoint;
+    # each tests the dv checks of every bit and compares
+    sweeps = int(torch.where(conv_f, iters_f - 1, 1).clamp(min=0).sum())
+    flip_numbers = timed(
+        "flip_time", f"B={BATCH},max_iter={graph.n}",
+        lambda: flip.flip_cuda(tg, syn_all, graph.n, 0, 1),
+        lambda: flip.flip_reference(tg, syn_all, graph.n, 0, 1),
+        nbytes(syn_all, tg.var_chks, *flip_out), float(sweeps) * (graph.nnz + graph.n),
+        plain_reps=1, full_sweeps=sweeps,
     )
+
+    # ---- 6. main paths: decode_batch -----------------------------------------
+    paths = {p.key: p for p in decode_paths(code)}
+    path = {key: drive_decoder(p, H, syn_np) for key, p in paths.items()}
+
+    # ---- 7. device Monte-Carlo -----------------------------------------------
+    step, runs_per_call = mc_step(code, "cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     total = step(gen).cpu().numpy()  # warm-up
@@ -471,92 +654,47 @@ def main() -> int:
         osd_used=int(total[4]), bucket_overflow=int(total[5]),
         syndromes_per_s=runs_per_call / statistics.median(times),
     )
-    # ---- 7. the flip sweep against its plain version ----------------------------
-    flip_err = 0
-    for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
-        for pfreq, sweeps in ((0, gx.n), (3, PFLIP_SWEEPS)):
-            flip_err = max(flip_err, compare_flip(cname, tgx, syn, sweeps, pfreq))
-    # times at FlipDecoder's main-path call: the whole batch, max_iter = n
-    flip_ms = cuda_ms(lambda: flip.flip_cuda(tg, syn_all, graph.n, 0, 1), 5)
-    flip_plain_ms = cuda_ms(lambda: flip.flip_reference(tg, syn_all, graph.n, 0, 1), 1)
-    phase("flip_time", shape=f"B={BATCH},max_iter={graph.n}", ms=flip_ms, plain_ms=flip_plain_ms)
 
-    # ---- 8. slice C paths: decode_batch -----------------------------------------
-    common = dict(error_rate=ERROR_RATE, max_iter=MAX_ITER, bp_method="minimum_sum",
-                  ms_scaling_factor=MS_FACTOR)
-    llr1 = np.full(graph.n, np.log((1 - ERROR_RATE) / ERROR_RATE), np.float32)
-    for uf_method in ("inversion", "peeling"):
-        path[f"bf_{uf_method}"] = drive_decoder(
-            f"BeliefFindDecoder[{uf_method}]",
-            lambda device, m=uf_method: ldpc_tpu_torch.BeliefFindDecoder(
-                code.hx, uf_method=m, device=device, **common),
-            H, syn_np, ["bp_parallel", "masked_solve"], SLICE_C_ROUNDS,
-        )
-    for name, matrix in (("matrix", True), ("peeling", False)):
-        path[f"uf_{name}"] = drive_decoder(
-            f"UnionFindDecoder[{name}]",
-            lambda device, mm=matrix: ldpc_tpu_torch.UnionFindDecoder(
-                code.hx, uf_method=mm, device=device),
-            H, syn_np, ["masked_solve"], SLICE_C_ROUNDS, solves="valid",
-        )
-    path["lsd0_standalone"] = drive_decoder(
-        "LsdDecoder[standalone-lsd0]",
-        lambda device: ldpc_tpu_torch.LsdDecoder(
-            code.hx, lsd_method="lsd_0", lsd_order=0, device=device),
-        H, syn_np, ["masked_solve"], SLICE_C_ROUNDS, args=(llr1,), solves="valid",
-    )
-    path["lsd_cs5_standalone"] = drive_decoder(
-        "LsdDecoder[standalone-lsd_cs-5]",
-        lambda device: ldpc_tpu_torch.LsdDecoder(
-            code.hx, lsd_method="lsd_cs", lsd_order=5, device=device),
-        H, syn_np, ["masked_solve", "masked_export"], SLICE_C_ROUNDS, args=(llr1,),
-        solves="valid",
-    )
-    path["flip"] = drive_decoder(
-        "FlipDecoder",
-        lambda device: ldpc_tpu_torch.FlipDecoder(code.hx, max_iter=graph.n, device=device),
-        H, syn_np, ["flip"], SLICE_C_ROUNDS, solves="converged",
-    )
-    path["bp_flip"] = drive_decoder(
-        "BpFlipDecoder",
-        lambda device: ldpc_tpu_torch.BpFlipDecoder(
-            code.hx, flip_iterations=0, device=device, **common),
-        H, syn_np, ["flip", "bp_parallel"], SLICE_C_ROUNDS, solves="converged",
-    )
-
-    # ---- 9. one LSD statistics record: the card against the CPU ---------------
-    probe = bplsd(lsd_method="lsd_0")("cuda")
+    # ---- 8. one LSD statistics record: the card against the CPU ---------------
+    make_lsd0 = paths["lsd0"].make
+    probe = make_lsd0("cuda")
     probe.decode_batch(syn_np[:STATS_ROWS])
     row = int(np.flatnonzero(~probe.converge_batch)[0])  # a row LSD decodes
-    card = stats_record(bplsd(lsd_method="lsd_0"), syn_np[:STATS_ROWS], row, "cuda")
-    host = stats_record(bplsd(lsd_method="lsd_0"), syn_np[:STATS_ROWS], row, "cpu")
+    card = stats_record(make_lsd0, syn_np[:STATS_ROWS], row, "cuda")
+    host = stats_record(make_lsd0, syn_np[:STATS_ROWS], row, "cpu")
     phase("lsd_stats", row=row, clusters=len(card["individual_cluster_stats"]),
           timesteps=len(card["global_timestep_bit_history"]), equal_to_cpu=card == host)
     if card != host or not card["individual_cluster_stats"]:
         raise AssertionError("LSD statistics on the card differ from the CPU's")
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "ldpc_tpu"))
+    if imported:
+        raise AssertionError(f"the port imported the JAX side: {imported}")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    # No PyTorch call computes BP, a GF(2) elimination or a flip sweep in
+    # one call, so library_ms is null on every kernel.
+    def entry(name, source, replaces, launches, err, numbers):
         return {"name": name, "route": "cuda", "source": f"ldpc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+                **numbers, "library_ms": None}
 
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
-              path["osd0"]["bp_parallel"], k1_err, k1_ms, k1_plain_ms),
+              path["osd0"]["bp_parallel"], k1_err, k1_numbers),
         entry("osd0", "osd0.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
-              path["osd0"]["osd0"], k2_err, k2_ms, k2_plain_ms),
+              path["osd0"]["osd0"], k2_err, k2_numbers),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
-              path["osd_cs5"]["rref_export"], elim_err["rref_export"], *elim_ms["rref_export"]),
+              path["osd_cs5"]["rref_export"], elim_err["rref_export"],
+              elim_numbers["rref_export"]),
         entry("masked_solve", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:163",
-              path["lsd0"]["masked_solve"], elim_err["masked_solve"], *elim_ms["masked_solve"]),
+              path["lsd0"]["masked_solve"], elim_err["masked_solve"],
+              elim_numbers["masked_solve"]),
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
               path["lsd_cs5"]["masked_export"], elim_err["masked_export"],
-              *elim_ms["masked_export"]),
+              elim_numbers["masked_export"]),
         entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"]["flip"], flip_err,
-              flip_ms, flip_plain_ms),
+              flip_numbers),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,17 @@ A second package beside the JAX one, with the same public decoder API.
 Plain tensor code is PyTorch; every kernel (BP, the GF(2) eliminations of
 OSD-0, OSD-E/CS, LSD and union-find, and the flip sweep) is hand-written
 CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first use and
-launched through ``ctypes``. Tensors on the CPU run each kernel's plain
-PyTorch version instead.
+launched through ``ctypes``.
+
+Every decoder and factory runs on the CUDA device unless the caller passes
+``device="cpu"``, which runs each kernel's plain PyTorch version instead;
+without a CUDA device the default raises (:mod:`ldpc_tpu_torch.device`).
 
 Importing the package builds nothing and initialises no CUDA context. The
-JAX-free host modules of ``ldpc_tpu`` (codes, helpers, mod2, the PCM
-compiler) are imported, not copied; ``jax`` is never imported.
+package imports nothing of ``ldpc_tpu`` and never ``jax``: the host modules
+it needs (code constructions, input validation, host GF(2) rank and kernel,
+the PCM compiler) are its own copies, in ``codes/``, ``helpers.py``,
+``mod2.py`` and ``ops/pcm.py``.
 """
 
 __version__ = "0.1.0"

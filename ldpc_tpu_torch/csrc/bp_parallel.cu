@@ -17,22 +17,42 @@
 // A lane stops at its first convergence, so its state when it stops is its
 // output: decision, posterior and iteration count freeze there.
 //
-// What bounds it on the H100: memory traffic, not arithmetic. One thread
-// owns one syndrome lane; per iteration it reads every edge's c2v and its
-// bit's posterior and writes c2v back (m*dc*12 bytes), then reads dv c2v per
-// bit and writes the posterior and decision (n*(4*dv+5) bytes), then reads
-// the decisions again for the syndrome test. At d=13 that is about 13 KB
-// per lane per iteration against a handful of flops per byte.
+// What bounds it on the H100: neither bytes nor operations. A lane-iteration
+// at d=13 is about 7k scalar operations on 4 KB of state, and the state
+// never has to leave the SM; the work is a chain of dependent gathers
+// (posterior -> message -> posterior) whose latency is what a lane waits on.
+// The compulsory traffic is the syndromes in and the (B, n) posteriors and
+// decisions out.
 //
-// What the design does about it: all state is batch-minor ((edge, lane) and
-// (bit, lane)), so the 32 lanes of a warp touch 32 consecutive words on
-// every access and each access is one coalesced transaction. The graph's
-// index arrays are read through __ldg and are the same address for every
-// lane of a warp (a broadcast). A lane leaves the iteration loop as soon as
-// it converges, so the ~90% of lanes that converge in a few iterations stop
-// moving bytes. The TPU kernel's one-hot MXU gathers, (8,128) padding and
-// f32 blends are not carried over: the kernel indexes the ELL arrays
-// directly. Shared-memory tiling is left for later work.
+// What the design does about it:
+//   - One warp per lane. The warp's threads stride over the checks for the
+//     check update (one thread per check, its slots in slot order), over the
+//     bits for the bit sum (one thread per bit, in var_edges slot order) and
+//     over the checks again for the syndrome test, whose verdict is one
+//     __all_sync. Each sum and each min is done by one thread in the plain
+//     version's order and the build uses -fmad=false, so min-sum is
+//     bit-identical to the plain version.
+//   - The lane's state stays on chip for all its iterations: c2v (m*dc f32),
+//     the posterior (n f32), the hard decisions (n u8) and the syndrome
+//     (m u8), 4.2 KB at d=13 and 10.5 KB for the toric d=20 code. c2v is kept
+//     slot-major (slot*m + check) so the threads of a warp, which own
+//     consecutive checks, touch consecutive words. A block holds 4 lanes
+//     (128 threads): every SM then keeps about 48 lanes resident at d=13, so
+//     a bucket of about 6,000 lanes is one wave, and a block's lanes come
+//     free together soon enough when lanes converge at different
+//     iterations. Lanes never wait on each other: a converged lane leaves at
+//     once, and there is no __syncthreads anywhere.
+//   - The graph arrays (chk_bits and var_edges, both slot-major, and llr0)
+//     are read through __ldg rather than staged into shared memory: every
+//     warp of an SM reads the same 6 KB, which stays in L1, short-lived
+//     blocks pay no staging, and the shared memory is left to lane state.
+//   - No size cliff: when a lane's state exceeds kLaneBudget the same
+//     template keeps c2v and the posterior in a lane-major scratch in
+//     device memory (and the decisions in the output, the syndrome in the
+//     input), still one warp per lane. ldpc_bp_shared_state tells the
+//     wrapper which variant a code takes.
+//   - I/O is lane-major: syndromes are read as (B, m) and the outputs are
+//     written as (B, n), each warp on consecutive bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,197 +60,285 @@
 namespace {
 
 constexpr float kBig = 1e30f;  // absent slots' magnitude (ldpc_tpu.ops.bp._BIG)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanesPerBlock = 4;  // lanes (warps) per block
+// A lane's state lives in shared memory up to this many bytes: at the
+// budget a block takes 96 KB and two blocks (8 warps) still fit an SM;
+// larger lanes keep c2v and the posterior in device memory.
+constexpr size_t kLaneBudget = 24 * 1024;
 
-template <int CAP>
-__global__ void bp_parallel_kernel(
-    const uint8_t* __restrict__ synd,      // (m, B) 0/1
-    const float* __restrict__ llr0,        // (n,)
-    const int* __restrict__ chk_bits,      // (m*dc,) pad = n
-    const int* __restrict__ var_edges,     // (n*dv,) pad = m*dc
-    int m, int n, int dc, int dv, int B, int max_iter, int min_sum,
-    float ms_scaling,
-    float* __restrict__ c2v,               // (m*dc, B) scratch
-    float* __restrict__ llr,               // (n, B) posterior (state = output)
-    uint8_t* __restrict__ dec,             // (n, B) hard decisions
-    bool* __restrict__ conv,               // (B,)
-    int* __restrict__ iters) {             // (B,)
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t sB = (size_t)B;
+// byte offsets of a lane's state in shared memory, each piece 16-aligned
+struct LaneLayout {
+  size_t post, hard, synd, total;
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+__host__ __device__ inline LaneLayout lane_layout(int m, int n, int E) {
+  LaneLayout L;
+  L.post = align16((size_t)E * sizeof(float));      // c2v at offset 0
+  L.hard = L.post + align16((size_t)n * sizeof(float));
+  L.synd = L.hard + align16((size_t)n);
+  L.total = L.synd + align16((size_t)m);
+  return L;
+}
+
+struct Args {
+  const uint8_t* synd;     // (B, m) 0/1
+  const float* llr0;       // (n,)
+  const int* chk_bits_t;   // (dc, m) slot-major, pad = n
+  const int* var_edges_t;  // (dv, n) slot-major edge ids slot*m + check, pad = m*dc
+  int m, n, dc, dv, B, max_iter;
+  float ms_scaling;
+  float* c2v;              // (B, m*dc) scratch of the device-memory variant
+  float* post;             // (B, n) posterior
+  uint8_t* dec;            // (B, n) hard decisions
+  bool* conv;              // (B,)
+  int* iters;              // (B,)
+};
+
+// Registers: at CAP <= 8 the compiler is held to 40 a thread so that 48
+// warps (12 blocks of 4 lanes) fit an SM; wider rows get more.
+template <int CAP, bool kMinSum, bool kShared>
+__global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 16 ? 6 : 1)))
+    bp_warp_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b >= a.B) return;  // whole warps only; no block barrier follows
+  const int m = a.m, n = a.n, dc = a.dc, dv = a.dv;
   const int E = m * dc;
 
-  for (int j = 0; j < n; ++j) {
-    llr[j * sB + b] = __ldg(llr0 + j);
-    dec[j * sB + b] = 0;
+  float* c2v;
+  float* post;
+  uint8_t* hard;
+  const uint8_t* syn;
+  if (kShared) {
+    const LaneLayout L = lane_layout(m, n, E);
+    unsigned char* base = smem + (size_t)w * L.total;
+    c2v = reinterpret_cast<float*>(base);
+    post = reinterpret_cast<float*>(base + L.post);
+    hard = base + L.hard;
+    uint8_t* s = base + L.synd;
+    const uint8_t* src = a.synd + (size_t)b * m;
+    for (int i = t; i < m; i += 32) s[i] = src[i];
+    syn = s;
+  } else {
+    c2v = a.c2v + (size_t)b * E;
+    post = a.post + (size_t)b * n;
+    hard = a.dec + (size_t)b * n;
+    syn = a.synd + (size_t)b * m;
   }
+  for (int j = t; j < n; j += 32) {
+    post[j] = __ldg(a.llr0 + j);
+    hard[j] = 0;
+  }
+  __syncwarp();
 
   bool converged = false;
   int it = 0;
-  while (it < max_iter && !converged) {
+  while (it < a.max_iter) {
     ++it;
-    const float alpha = (min_sum && ms_scaling == 0.0f)
+    const float alpha = (kMinSum && a.ms_scaling == 0.0f)
                             ? 1.0f - ldexpf(1.0f, -it)
-                            : ms_scaling;
+                            : a.ms_scaling;
 
-    // ---- check -> bit ------------------------------------------------
-    for (int i = 0; i < m; ++i) {
-      const int s = synd[i * sB + b];
-      int bit[CAP];
-      float v[CAP];
-#pragma unroll
-      for (int k = 0; k < CAP; ++k) {
-        bit[k] = (k < dc) ? __ldg(chk_bits + i * dc + k) : n;
-        v[k] = 0.0f;
-        if (bit[k] < n) {
-          const float old = (it > 1) ? c2v[(size_t)(i * dc + k) * sB + b] : 0.0f;
-          v[k] = llr[(size_t)bit[k] * sB + b] - old;
-        }
-      }
-      float out[CAP];
-      if (min_sum) {
-        float a[CAP];
-        int neg[CAP];
-        int negsum = 0;
+    // ---- check -> bit: one thread per check, slots in order -------------
+    for (int i = t; i < m; i += 32) {
+      const int s = syn[i];
+      unsigned on = 0;  // bit k: slot k holds an edge
+      if (kMinSum) {
+        float mag[CAP];
+        unsigned neg = 0;
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          const bool on = bit[k] < n;
-          a[k] = on ? fabsf(v[k]) : kBig;
-          neg[k] = (on && v[k] <= 0.0f) ? 1 : 0;
-          negsum += neg[k];
+          mag[k] = kBig;
+          if (k < dc) {
+            const int j = __ldg(a.chk_bits_t + k * m + i);
+            if (j < n) {
+              const float old = (it > 1) ? c2v[k * m + i] : 0.0f;
+              const float v = __fsub_rn(post[j], old);
+              mag[k] = fabsf(v);
+              on |= 1u << k;
+              if (v <= 0.0f) neg |= 1u << k;
+            }
+          }
         }
         // first-occurrence argmin over the dc slots, then the minimum of
         // the other slots (kBig when there are none)
-        float min1 = a[0];
+        float min1 = mag[0];
         int amin = 0;
 #pragma unroll
         for (int k = 1; k < CAP; ++k) {
-          if (k < dc && a[k] < min1) {
-            min1 = a[k];
+          if (k < dc && mag[k] < min1) {
+            min1 = mag[k];
             amin = k;
           }
         }
         float min2 = kBig;
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          if (k < dc && k != amin && a[k] < min2) min2 = a[k];
+          if (k < dc && k != amin && mag[k] < min2) min2 = mag[k];
         }
+        const int base_par = s + __popc(neg);
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          const float excl = (k == amin) ? min2 : min1;
-          const int par = (s + negsum + neg[k]) & 1;
-          // alpha * sign * excl with sign = +-1: the product rounds once
-          const float r = __fmul_rn(alpha, excl);
-          out[k] = par ? -r : r;
+          if ((on >> k) & 1u) {
+            // alpha * sign * excl with sign = +-1: the product rounds once
+            const float r = __fmul_rn(alpha, (k == amin) ? min2 : min1);
+            c2v[k * m + i] = ((base_par + (int)((neg >> k) & 1u)) & 1) ? -r : r;
+          }
         }
       } else {
-        float t[CAP];
+        float th[CAP];
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          t[k] = (bit[k] < n) ? tanhf(__fmul_rn(v[k], 0.5f)) : 1.0f;
+          th[k] = 1.0f;
+          if (k < dc) {
+            const int j = __ldg(a.chk_bits_t + k * m + i);
+            if (j < n) {
+              const float old = (it > 1) ? c2v[k * m + i] : 0.0f;
+              th[k] = tanhf(__fmul_rn(__fsub_rn(post[j], old), 0.5f));
+              on |= 1u << k;
+            }
+          }
         }
         float pre[CAP], suf[CAP];
         float acc = 1.0f;
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
           pre[k] = acc;
-          if (k < dc) acc = __fmul_rn(acc, t[k]);
+          if (k < dc) acc = __fmul_rn(acc, th[k]);
         }
         acc = 1.0f;
 #pragma unroll
         for (int k = CAP - 1; k >= 0; --k) {
           suf[k] = acc;
-          if (k < dc) acc = __fmul_rn(acc, t[k]);
+          if (k < dc) acc = __fmul_rn(acc, th[k]);
         }
         const float lo = -1.0f + 1e-7f, hi = 1.0f - 1e-7f;
         const float sgn = s ? -1.0f : 1.0f;
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          const float p = fminf(fmaxf(__fmul_rn(pre[k], suf[k]), lo), hi);
-          const float mag = logf(__fdiv_rn(__fadd_rn(1.0f, p), __fsub_rn(1.0f, p)));
-          out[k] = __fmul_rn(sgn, mag);
+          if ((on >> k) & 1u) {
+            const float p = fminf(fmaxf(__fmul_rn(pre[k], suf[k]), lo), hi);
+            const float mag = logf(__fdiv_rn(__fadd_rn(1.0f, p), __fsub_rn(1.0f, p)));
+            c2v[k * m + i] = __fmul_rn(sgn, mag);
+          }
         }
       }
-#pragma unroll
-      for (int k = 0; k < CAP; ++k) {
-        if (bit[k] < n) c2v[(size_t)(i * dc + k) * sB + b] = out[k];
-      }
     }
+    __syncwarp();
 
-    // ---- bit update and hard decision ----------------------------------
-    for (int j = 0; j < n; ++j) {
+    // ---- bit update and hard decision: one thread per bit ----------------
+    for (int j = t; j < n; j += 32) {
       float acc = 0.0f;
       for (int k = 0; k < dv; ++k) {
-        const int e = __ldg(var_edges + j * dv + k);
-        const float val = (e < E) ? c2v[(size_t)e * sB + b] : 0.0f;
+        const int e = __ldg(a.var_edges_t + k * n + j);
+        const float val = (e < E) ? c2v[e] : 0.0f;
         acc = (k == 0) ? val : __fadd_rn(acc, val);
       }
-      const float l = __fadd_rn(__ldg(llr0 + j), acc);
-      llr[j * sB + b] = l;
-      dec[j * sB + b] = (l <= 0.0f) ? 1 : 0;
+      const float l = __fadd_rn(__ldg(a.llr0 + j), acc);
+      post[j] = l;
+      hard[j] = (l <= 0.0f) ? 1 : 0;
     }
+    __syncwarp();
 
-    // ---- syndrome test on the new decisions ----------------------------
+    // ---- syndrome test on the new decisions -------------------------------
     bool ok = true;
-    for (int i = 0; i < m && ok; ++i) {
-      int par = synd[i * sB + b];
+    for (int i = t; i < m && ok; i += 32) {
+      int par = syn[i];
       for (int k = 0; k < dc; ++k) {
-        const int j = __ldg(chk_bits + i * dc + k);
-        if (j < n) par ^= dec[(size_t)j * sB + b];
+        const int j = __ldg(a.chk_bits_t + k * m + i);
+        if (j < n) par ^= hard[j];
       }
       ok = (par == 0);
     }
-    converged = ok;
+    converged = __all_sync(kFull, ok);
+    if (converged) break;
   }
-  conv[b] = converged;
-  iters[b] = it;
+
+  if (kShared) {
+    float* po = a.post + (size_t)b * n;
+    uint8_t* de = a.dec + (size_t)b * n;
+    for (int j = t; j < n; j += 32) {
+      po[j] = post[j];
+      de[j] = hard[j];
+    }
+  }
+  if (t == 0) {
+    a.conv[b] = converged;
+    a.iters[b] = it;
+  }
+}
+
+template <int CAP, bool kMinSum, bool kShared>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = bp_warp_kernel<CAP, kMinSum, kShared>;
+  // a forced shared-state block above the card's opt-in limit fails here
+  const size_t smem =
+      kShared ? (size_t)kLanesPerBlock * lane_layout(a.m, a.n, a.m * a.dc).total : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (a.B + kLanesPerBlock - 1) / kLanesPerBlock;
+  kernel<<<blocks, 32 * kLanesPerBlock, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <int CAP>
-void launch(const uint8_t* synd, const float* llr0, const int* chk_bits,
-            const int* var_edges, int m, int n, int dc, int dv, int B,
-            int max_iter, int min_sum, float ms_scaling, float* c2v,
-            float* llr, uint8_t* dec, bool* conv, int* iters,
-            cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  bp_parallel_kernel<CAP><<<blocks, threads, 0, stream>>>(
-      synd, llr0, chk_bits, var_edges, m, n, dc, dv, B, max_iter, min_sum,
-      ms_scaling, c2v, llr, dec, conv, iters);
+int launch_cap(const Args& a, int min_sum, int shared, cudaStream_t st) {
+  if (min_sum) {
+    return shared ? launch<CAP, true, true>(a, st) : launch<CAP, true, false>(a, st);
+  }
+  return shared ? launch<CAP, false, true>(a, st) : launch<CAP, false, false>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success). The caller
-// checks dc <= 32 and allocates every buffer; nothing synchronises.
-int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits,
-                     const void* var_edges, int m, int n, int dc, int dv,
+// 1 when a lane's state of an (m, n, dc) code fits kLaneBudget, so the
+// shared-memory variant is the default; 0 for the device-memory variant.
+int ldpc_bp_shared_state(int m, int n, int dc) {
+  return lane_layout(m, n, m * dc).total <= kLaneBudget ? 1 : 0;
+}
+
+// Returns cudaGetLastError() after the launch (0 on success), or the error
+// of raising the block's shared-memory limit. The caller checks dc <= 32
+// and allocates every buffer; c2v is read only by the device-memory variant
+// (shared == 0). Nothing synchronises.
+int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
+                     const void* var_edges_t, int m, int n, int dc, int dv,
                      int B, int max_iter, int min_sum, float ms_scaling,
-                     void* c2v, void* llr, void* dec, void* conv, void* iters,
-                     void* stream) {
-  auto s = static_cast<const uint8_t*>(synd);
-  auto l0 = static_cast<const float*>(llr0);
-  auto cb = static_cast<const int*>(chk_bits);
-  auto ve = static_cast<const int*>(var_edges);
+                     int shared, void* c2v, void* post, void* dec,
+                     void* conv, void* iters, void* stream) {
+  Args a;
+  a.synd = static_cast<const uint8_t*>(synd);
+  a.llr0 = static_cast<const float*>(llr0);
+  a.chk_bits_t = static_cast<const int*>(chk_bits_t);
+  a.var_edges_t = static_cast<const int*>(var_edges_t);
+  a.m = m;
+  a.n = n;
+  a.dc = dc;
+  a.dv = dv;
+  a.B = B;
+  a.max_iter = max_iter;
+  a.ms_scaling = ms_scaling;
+  a.c2v = static_cast<float*>(c2v);
+  a.post = static_cast<float*>(post);
+  a.dec = static_cast<uint8_t*>(dec);
+  a.conv = static_cast<bool*>(conv);
+  a.iters = static_cast<int*>(iters);
   auto st = static_cast<cudaStream_t>(stream);
-  auto c = static_cast<float*>(c2v);
-  auto l = static_cast<float*>(llr);
-  auto d = static_cast<uint8_t*>(dec);
-  auto cv = static_cast<bool*>(conv);
-  auto itr = static_cast<int*>(iters);
-  if (dc <= 4) {
-    launch<4>(s, l0, cb, ve, m, n, dc, dv, B, max_iter, min_sum, ms_scaling, c, l, d, cv, itr, st);
-  } else if (dc <= 8) {
-    launch<8>(s, l0, cb, ve, m, n, dc, dv, B, max_iter, min_sum, ms_scaling, c, l, d, cv, itr, st);
-  } else if (dc <= 16) {
-    launch<16>(s, l0, cb, ve, m, n, dc, dv, B, max_iter, min_sum, ms_scaling, c, l, d, cv, itr, st);
-  } else if (dc <= 32) {
-    launch<32>(s, l0, cb, ve, m, n, dc, dv, B, max_iter, min_sum, ms_scaling, c, l, d, cv, itr, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dc <= 4) return launch_cap<4>(a, min_sum, shared, st);
+  if (dc <= 8) return launch_cap<8>(a, min_sum, shared, st);
+  if (dc <= 16) return launch_cap<16>(a, min_sum, shared, st);
+  if (dc <= 32) return launch_cap<32>(a, min_sum, shared, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* ldpc_error_string(int code) {

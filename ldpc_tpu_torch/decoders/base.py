@@ -14,8 +14,9 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu.helpers import convert_to_binary_sparse
-from ldpc_tpu.ops.pcm import PcmGraph, compile_pcm
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.helpers import convert_to_binary_sparse
+from ldpc_tpu_torch.ops.pcm import PcmGraph, compile_pcm
 from ldpc_tpu_torch.ops import bp as bp_ops
 
 _SYNDROME = 0
@@ -61,7 +62,7 @@ class BpDecoderBase:
         serial_schedule_order = kwargs.pop("serial_schedule_order", None)
         channel_probs = kwargs.pop("channel_probs", [None])
         dtype = kwargs.pop("dtype", torch.float32)
-        self._device = torch.device(kwargs.pop("device", "cpu"))
+        self._device = resolve_device(kwargs.pop("device", "cuda"))
         if dtype not in (torch.float32, np.float32, "float32"):
             raise NotImplementedError(f"dtype={dtype} is {_NOT_PORTED}")
 

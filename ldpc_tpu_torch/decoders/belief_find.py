@@ -45,7 +45,7 @@ class BeliefFindDecoder(BpDecoderBase):
         uf_method: str = "peeling",
         bits_per_step: int = 0,
         input_vector_type: str = "syndrome",
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         super().__init__(

@@ -25,7 +25,8 @@ class BpDecoder(BpDecoderBase):
     ``omp_thread_count`` (unused), ``random_schedule_seed``,
     ``serial_schedule_order``, ``input_vector_type``,
     ``random_serial_schedule``; plus ``device``, where the decoder's
-    tensors live (``"cpu"`` runs the kernels' plain versions).
+    tensors live: ``"cuda"`` by default, ``"cpu"`` runs the kernels' plain
+    versions.
     """
 
     def __init__(
@@ -42,7 +43,7 @@ class BpDecoder(BpDecoderBase):
         serial_schedule_order: Optional[List[int]] = None,
         input_vector_type: str = "auto",
         random_serial_schedule: bool = False,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         for key in kwargs.keys():

@@ -16,11 +16,11 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu.helpers import convert_to_binary_sparse
-from ldpc_tpu.ops.pcm import compile_pcm
 from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.helpers import convert_to_binary_sparse
 from ldpc_tpu_torch.ops import flip as flip_ops
-from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
 
 class FlipDecoder:
@@ -35,7 +35,7 @@ class FlipDecoder:
     """
 
     def __init__(
-        self, pcm, max_iter: int = 0, pfreq: int = 0, seed: int = 0, device="cpu"
+        self, pcm, max_iter: int = 0, pfreq: int = 0, seed: int = 0, device="cuda"
     ):
         if not isinstance(pcm, (np.ndarray, scipy.sparse.spmatrix)):
             raise TypeError(
@@ -47,7 +47,7 @@ class FlipDecoder:
         self.max_iter = max_iter if max_iter != 0 else self.n
         self.pfreq = pfreq
         self.seed = seed
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._graph = compile_pcm(self._pcm)
         self._fn = flip_ops.make_flip_decoder(
             self._graph, self.max_iter, self.pfreq, self._device
@@ -124,7 +124,7 @@ class BpFlipDecoder(BpDecoderBase):
         flip_iterations: int = 0,
         pflip_frequency: int = 0,
         pflip_seed: int = 0,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         super().__init__(

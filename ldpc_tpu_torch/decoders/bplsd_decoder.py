@@ -61,7 +61,7 @@ class BpLsdDecoder(BpDecoderBase):
         lsd_order: int = 0,
         lsd_method: Union[str, int] = 0,
         always_run_lsd: bool = False,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         # osd_method / osd_order compatibility (_bplsd_decoder.pyx:69-78)

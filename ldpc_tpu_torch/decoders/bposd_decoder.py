@@ -51,7 +51,7 @@ class BpOsdDecoder(BpDecoderBase):
         osd_order: int = 0,
         input_vector_type: str = "syndrome",
         random_serial_schedule: bool = False,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         for key in kwargs.keys():

@@ -15,8 +15,9 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu.helpers import convert_to_binary_sparse
-from ldpc_tpu.ops.pcm import compile_pcm
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.helpers import convert_to_binary_sparse
+from ldpc_tpu_torch.ops.pcm import compile_pcm
 from ldpc_tpu_torch.decoders.base import _device_llrs, _to_numpy
 from ldpc_tpu_torch.decoders.lsd_common import METHOD_NAMES, parse_lsd_method
 from ldpc_tpu_torch.ops import lsd as lsd_ops
@@ -37,7 +38,7 @@ class LsdDecoder:
         bits_per_step: int = 1,
         lsd_order: int = 0,
         lsd_method: Union[str, int] = 0,
-        device="cpu",
+        device="cuda",
     ):
         if not isinstance(pcm, (np.ndarray, scipy.sparse.spmatrix)):
             raise TypeError(
@@ -47,7 +48,7 @@ class LsdDecoder:
         self._pcm = convert_to_binary_sparse(pcm)
         self.m, self.n = self._pcm.shape
         self.bits_per_step = bits_per_step if bits_per_step != 0 else self.n
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._lsd_method = 0
         self._lsd_order = 0
         self.lsd_method = lsd_method

@@ -15,8 +15,9 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu.helpers import convert_to_binary_sparse
-from ldpc_tpu.ops.pcm import compile_pcm
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.helpers import convert_to_binary_sparse
+from ldpc_tpu_torch.ops.pcm import compile_pcm
 from ldpc_tpu_torch.decoders.base import _device_llrs, _to_numpy
 from ldpc_tpu_torch.ops import uf as uf_ops
 
@@ -27,10 +28,11 @@ class UnionFindDecoder:
     ``uf_method=True`` is the matrix (inversion) mode and works on any PCM;
     ``uf_method=False`` (default) is the peeling mode, which requires column
     degree <= 2 (point-like syndromes). ``device`` is where the decoder's
-    tensors live (``"cpu"`` runs the kernels' plain versions).
+    tensors live: ``"cuda"`` by default, ``"cpu"`` runs the kernels' plain
+    versions.
     """
 
-    def __init__(self, pcm, uf_method: Union[bool, str] = False, device="cpu"):
+    def __init__(self, pcm, uf_method: Union[bool, str] = False, device="cuda"):
         if not isinstance(pcm, (np.ndarray, scipy.sparse.spmatrix)):
             raise TypeError(
                 "The input matrix is of an invalid type. Please input "
@@ -49,7 +51,7 @@ class UnionFindDecoder:
                 "Peel decoder only works for planar codes. Use the "
                 "matrix_decode method for more general codes."
             )
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._graph = compile_pcm(self._pcm)
         self._cache = {}
         self._decoding = np.zeros(self.n, dtype=np.uint8)

@@ -19,8 +19,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ldpc_tpu.helpers import convert_to_binary_sparse
-from ldpc_tpu.ops.pcm import compile_pcm
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.helpers import convert_to_binary_sparse
+from ldpc_tpu_torch.ops.pcm import compile_pcm
 from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops import osd as osd_ops
 
@@ -61,7 +62,7 @@ class McDecoderStep:
     ):
         pcm = convert_to_binary_sparse(pcm)
         graph = compile_pcm(pcm)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n = graph.n
         self.batch = _round_up(batch_size, 512)
         self.rounds_per_call = rounds_per_call
@@ -190,7 +191,7 @@ def make_mc_decoder_step(
     osd_method: str = "osd_0",
     bucket_fraction: int = 8,
     phase1_iters=None,
-    device="cpu",
+    device="cuda",
 ):
     """Build a Monte-Carlo step ``fn(generator) -> counters`` on ``device``.
 
@@ -233,8 +234,8 @@ class DeviceMonteCarlo:
     counters and the call index for an exact resume.
     """
 
-    def __init__(self, pcm, error_rate: float, seed: int = 0, device="cpu", **kwargs):
-        self.device = torch.device(device)
+    def __init__(self, pcm, error_rate: float, seed: int = 0, device="cuda", **kwargs):
+        self.device = resolve_device(device)
         self._step, self.runs_per_call = make_mc_decoder_step(
             pcm, error_rate, device=self.device, **kwargs
         )

@@ -34,10 +34,12 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (syndromes_t, llr0, chk_bits, var_edges, m, n, dc, dv, B, max_iter,
-    #  min_sum, ms_scaling, c2v, llr, dec, conv, iters, stream)
+    # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
+    #  min_sum, ms_scaling, shared, c2v, post, dec, conv, iters, stream)
     "ldpc_bp_parallel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _P, _P, _P, _P, _P, _P],
+                         ctypes.c_float, _I, _P, _P, _P, _P, _P, _P],
+    # (m, n, dc) -> 1 when K1 keeps a lane's state in shared memory
+    "ldpc_bp_shared_state": [_I, _I, _I],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, x0, valid, stream)
     "ldpc_osd0": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, M, col_of_row, used,

@@ -11,7 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ldpc_tpu.ops.pcm import PcmGraph
+from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.ops.pcm import PcmGraph
 
 PRODUCT_SUM = 0
 MINIMUM_SUM = 1
@@ -55,8 +56,8 @@ def make_parallel_decoder(
     from ldpc_tpu_torch.ops import bp_cuda
     from ldpc_tpu_torch.ops.pcm import graph_to_torch
 
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
 
     def decode(syndromes: torch.Tensor, init_llr: torch.Tensor) -> BpResult:
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device)

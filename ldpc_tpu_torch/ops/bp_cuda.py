@@ -4,10 +4,13 @@
   gather-only engine of ``ldpc_tpu/ops/bp.py`` (``_make_parallel_decoder_
   fast``), op for op.
 - :func:`bp_parallel_cuda` launches ``csrc/bp_parallel.cu`` on a CUDA
-  tensor and counts the launch in :data:`LAUNCHES`.
+  tensor and counts the launch in :data:`LAUNCHES`, and by where the
+  lanes' state lived in :data:`STATE_LAUNCHES`.
 - :func:`bp_parallel` picks by the tensors' device: the CPU runs the plain
   version, a CUDA device runs the kernel, anything else raises.
 """
+
+from typing import Optional
 
 import torch
 
@@ -16,6 +19,8 @@ from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, BpResult
 from ldpc_tpu_torch.ops.pcm import TorchGraph
 
 LAUNCHES = 0  # kernel launches made by bp_parallel_cuda
+# ... of them by where the lanes' state lived (see state_variant)
+STATE_LAUNCHES = {"shared": 0, "device": 0}
 
 _BIG = 1e30  # magnitude of absent slots in the min-sum reduction
 _MAX_DC = 32  # largest row degree the kernel is instantiated for
@@ -124,6 +129,15 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(f"bp_parallel_cuda: {what}")
 
 
+def state_variant(m: int, n: int, dc: int) -> str:
+    """Where K1 keeps a lane's state by default: ``"shared"`` memory while
+    it fits the kernel's per-lane budget, else a lane-major scratch in
+    ``"device"`` memory (same kernel template, still one warp per lane).
+    The layout and the budget live in ``csrc/bp_parallel.cu``, so this
+    builds the kernels' library."""
+    return "shared" if _build.library().ldpc_bp_shared_state(m, n, dc) else "device"
+
+
 def bp_parallel_cuda(
     tg: TorchGraph,
     syndromes: torch.Tensor,
@@ -131,16 +145,21 @@ def bp_parallel_cuda(
     bp_method: int,
     max_iter: int,
     ms_scaling_factor: float,
+    state: Optional[str] = None,
 ) -> BpResult:
-    """Launch K1' (``csrc/bp_parallel.cu``) on CUDA tensors."""
+    """Launch K1' (``csrc/bp_parallel.cu``) on CUDA tensors: one warp per
+    lane, several lanes per block. ``state`` forces where a lane's state
+    lives (``"shared"`` or ``"device"``; tests only); by default
+    :func:`state_variant` chooses by footprint."""
     global LAUNCHES
     dev = syndromes.device
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
     for name, t in (
+        ("syndromes", syndromes),
         ("init_llr", init_llr),
-        ("chk_bits", tg.chk_bits),
-        ("var_edges", tg.var_edges),
+        ("chk_bits_t", tg.chk_bits_t),
+        ("var_edges_t", tg.var_edges_t),
     ):
         _require(t.device == dev, f"{name} is on {t.device}, syndromes on {dev}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
@@ -151,34 +170,37 @@ def bp_parallel_cuda(
     )
     _require(init_llr.dtype == torch.float32, "init_llr must be float32")
     _require(init_llr.shape == (n,), f"init_llr must have shape ({n},)")
-    _require(tg.chk_bits.dtype == torch.int32, "chk_bits must be int32")
-    _require(tg.var_edges.dtype == torch.int32, "var_edges must be int32")
+    _require(tg.chk_bits_t.dtype == torch.int32, "chk_bits_t must be int32")
+    _require(tg.var_edges_t.dtype == torch.int32, "var_edges_t must be int32")
     _require(dc <= _MAX_DC, f"row degree {dc} exceeds {_MAX_DC}")
     _require(max_iter >= 0, "max_iter must be >= 0")
+    state = state_variant(m, n, dc) if state is None else state
+    _require(state in STATE_LAUNCHES, f"state must be one of {tuple(STATE_LAUNCHES)}")
+    shared = state == "shared"
     B = syndromes.shape[0]
-    synd_t = syndromes.t().contiguous()  # (m, B): coalesced per check
-    c2v = torch.empty((m * dc, B), dtype=torch.float32, device=dev)
-    llr = torch.empty((n, B), dtype=torch.float32, device=dev)
-    dec = torch.empty((n, B), dtype=torch.uint8, device=dev)
+    # the device-memory variant's c2v scratch, lane-major (B, m*dc)
+    c2v = torch.empty((0 if shared else B, m * dc), dtype=torch.float32, device=dev)
+    llr = torch.empty((B, n), dtype=torch.float32, device=dev)
+    dec = torch.empty((B, n), dtype=torch.uint8, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         lib = _build.library()
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_parallel(
-                synd_t.data_ptr(), init_llr.data_ptr(),
-                tg.chk_bits.data_ptr(), tg.var_edges.data_ptr(),
+                syndromes.data_ptr(), init_llr.data_ptr(),
+                tg.chk_bits_t.data_ptr(), tg.var_edges_t.data_ptr(),
                 m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), float(ms_scaling_factor),
+                int(shared),
                 c2v.data_ptr(), llr.data_ptr(), dec.data_ptr(),
                 conv.data_ptr(), iters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "bp_parallel")
         LAUNCHES += 1
-    return BpResult(
-        decoding=dec.t(), llr_posterior=llr.t(), converged=conv, iterations=iters
-    )
+        STATE_LAUNCHES[state] += 1
+    return BpResult(decoding=dec, llr_posterior=llr, converged=conv, iterations=iters)
 
 
 def bp_parallel(

@@ -33,10 +33,10 @@ from typing import Tuple
 
 import torch
 
-from ldpc_tpu.ops.pcm import PcmGraph
+from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.gf2_cuda import SMEM_LIMIT
-from ldpc_tpu_torch.ops.pcm import TorchGraph, graph_to_torch
+from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
 
 FLIP_LAUNCHES = 0  # kernel launches made by flip_cuda
 
@@ -183,7 +183,7 @@ def syndrome_of(tg: TorchGraph, x: torch.Tensor) -> torch.Tensor:
     return (x_pad[:, tg.chk_bits.long()].sum(dim=2) & 1).to(torch.uint8)
 
 
-def make_flip_decoder(graph: PcmGraph, max_iter: int, pfreq: int, device="cpu"):
+def make_flip_decoder(graph: PcmGraph, max_iter: int, pfreq: int, device="cuda"):
     """Build a batched flip decoder on ``device``.
 
     ``pfreq == 0`` turns the p-flip tie break off (the reference maps 0 to
@@ -191,8 +191,8 @@ def make_flip_decoder(graph: PcmGraph, max_iter: int, pfreq: int, device="cpu"):
     seed: int) -> (decoding (B, n) uint8, converged (B,) bool, iterations
     (B,) int32)``; the coin of row ``b`` is keyed by ``(seed, b)``.
     """
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
 
     def decode(syndromes: torch.Tensor, seed: int) -> FlipResult:
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device)

@@ -9,6 +9,8 @@ negative number); the CUDA kernels read the same memory as ``uint32_t``.
 import numpy as np
 import torch
 
+from ldpc_tpu_torch import mod2
+
 
 def pack_u32(bits: torch.Tensor) -> torch.Tensor:
     """Pack a (..., n) 0/1 tensor into (..., ceil(n/32)) int32 words."""
@@ -66,8 +68,4 @@ def unpack_bits_u8_device(packed: torch.Tensor, n: int) -> torch.Tensor:
 
 def batched_rank(dense: np.ndarray) -> int:
     """GF(2) rank of a dense 0/1 matrix (host, order-invariant)."""
-    from ldpc_tpu.mod2._gf2core import pack_rows, packed_row_reduce
-
-    packed = pack_rows(np.asarray(dense, dtype=np.uint8))
-    _, rank, _, _ = packed_row_reduce(packed, dense.shape[1])
-    return rank
+    return mod2.rank(np.asarray(dense, dtype=np.uint8))

@@ -155,6 +155,18 @@ def masked_export_reference(
     )
 
 
+def pivots_taken(
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor,
+    limit: torch.Tensor, rank: int, fast_exit: bool,
+) -> torch.Tensor:
+    """Pivots each lane's elimination takes, (B,) int64, counted by the
+    plain elimination: the data-dependent work of a kernel's bound. ``limit``
+    is each lane's column count (``n`` for K2' and K3', ``count`` for K4'
+    and K5'); ``rank`` and ``fast_exit`` are as the kernel takes them."""
+    _, used, _ = _eliminate(tg, syndromes, order, limit.long(), rank, fast_exit)
+    return used.sum(dim=1)
+
+
 def _check(
     kernel: str,
     tg: TorchGraph,

@@ -27,10 +27,10 @@ columns by index where the JAX package used one-hot contractions.
 import numpy as np
 import torch
 
-from ldpc_tpu.ops.pcm import PcmGraph
+from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import gf2, gf2_cuda, uf
 from ldpc_tpu_torch.ops.osd import pattern_table
-from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.ops.pcm import PcmGraph, graph_to_torch
 
 LSD_0 = 0
 LSD_E = 1
@@ -46,7 +46,7 @@ def make_lsd_decoder(
     lsd_method: int = LSD_0,
     lsd_order: int = 0,
     bits_per_step: int = 1,
-    device="cpu",
+    device="cuda",
 ):
     """Build a batched LSD decoder on ``device``.
 
@@ -58,8 +58,8 @@ def make_lsd_decoder(
         bits_per_step = 0  # every boundary bit joins: the grow-all rule
     order0 = lsd_order == 0 or lsd_method == LSD_0
     W = lsd_order
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
     pats_np = pattern_table(lsd_method, W).astype(bool) if not order0 else np.zeros((0, 1), bool)
     pats = torch.from_numpy(pats_np).to(device)
     P = pats_np.shape[0]

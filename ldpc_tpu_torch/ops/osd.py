@@ -25,9 +25,9 @@ broken the same way on the CPU and on the card.
 import numpy as np
 import torch
 
-from ldpc_tpu.ops.pcm import PcmGraph
+from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import gf2, gf2_cuda
-from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.ops.pcm import PcmGraph, graph_to_torch
 
 OSD_OFF = -1
 OSD_0 = 0
@@ -113,8 +113,8 @@ def make_osd_decoder(
     rank = gf2.batched_rank(graph.dense)
     k = n - rank
     order0 = osd_method in (OSD_0, OSD_OFF) or osd_order == 0 or k == 0
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
     W = min(osd_order, k)
     use_singles = osd_method == COMBINATION_SWEEP
     pats = torch.from_numpy(pattern_table(osd_method, W).astype(bool)).to(device)

@@ -34,9 +34,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ldpc_tpu.ops.pcm import PcmGraph
+from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import gf2_cuda
-from ldpc_tpu_torch.ops.pcm import TorchGraph, graph_to_torch
+from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
 
 INF = 2**30  # no label / no key: above every check index and LLR rank
 _SWEEPS = 4  # graph sweeps between two convergence tests
@@ -222,7 +222,7 @@ def _decoder_inputs(syndromes, llrs, device):
     return syndromes, llrs
 
 
-def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
+def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     """Batched union-find decoder, inversion mode (``make_uf_decoder``;
     reference union_find.hpp:485-532): grow until valid, K4' once per
     round; the last round's solve is the decoding.
@@ -237,8 +237,8 @@ def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
     """
     if bits_per_step >= graph.n:
         bits_per_step = 0
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
@@ -248,7 +248,7 @@ def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
     return decode
 
 
-def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
+def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     """Batched union-find decoder, peeling mode (``make_peel_decoder``;
     reference union_find.hpp:428-480), for column degree <= 2.
 
@@ -270,8 +270,8 @@ def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cpu"):
     if bits_per_step >= graph.n:
         bits_per_step = 0
     n = graph.n
+    device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    device = torch.device(device)
     if graph.dv == 2:
         interior = tg.var_mask[:, 1]  # two real endpoints
     else:

@@ -8,6 +8,7 @@ PyTorch version. LSD's candidate keys are integers, so the decodings must
 be equal, tie or not.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -47,7 +48,7 @@ def test_bplsd_decode_batch_matches_jax(d13, kw):
     against the JAX decoder, exactly."""
     hx, H, syn = d13
     jd = ldpc_tpu.BpLsdDecoder(hx, error_rate=0.01, **KW, **kw)
-    td = ldpc_tpu_torch.BpLsdDecoder(hx, error_rate=0.01, **KW, **kw)
+    td = ldpc_tpu_torch.BpLsdDecoder(hx, error_rate=0.01, **KW, **kw, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert got.dtype == np.uint8 and got.shape == want.shape
@@ -74,7 +75,7 @@ def test_bplsd_surface_code_and_bit_packed_io():
     syn = (errors @ H.T % 2).astype(np.uint8)
     kw = dict(error_rate=0.05, max_iter=5, bp_method="minimum_sum", ms_scaling_factor=0.625,
               bits_per_step=1, lsd_method="lsd_cs", lsd_order=3)
-    dec = ldpc_tpu_torch.BpLsdDecoder(code.hx, **kw)
+    dec = ldpc_tpu_torch.BpLsdDecoder(code.hx, **kw, device="cpu")
     out = dec.decode_batch(syn)
     assert ((out @ H.T) % 2 == syn).all()
     assert (~dec.converge_batch).any()
@@ -98,7 +99,7 @@ def test_bplsd_hamming_exhaustive(kw):
     Hd = np.asarray(H.todense(), np.uint8)
     syn = _all_syndromes(3)
     args = dict(error_rate=0.1, max_iter=5, bits_per_step=1, always_run_lsd=True, **kw)
-    td = ldpc_tpu_torch.BpLsdDecoder(H, **args)
+    td = ldpc_tpu_torch.BpLsdDecoder(H, **args, device="cpu")
     out = td.decode_batch(syn)
     assert ((out @ Hd.T) % 2 == syn).all()
     assert td.converge_batch[0] and not out[0].any()
@@ -107,15 +108,15 @@ def test_bplsd_hamming_exhaustive(kw):
 
 
 def test_bplsd_osd_compat_kwargs():
-    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, osd_method="osd_cs", osd_order=2)
+    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, osd_method="osd_cs", osd_order=2, device="cpu")
     assert dec.lsd_method == "LSD_CS"
     assert dec.lsd_order == 2
     assert dec.bits_per_step == 1
-    assert ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, bits_per_step=0).bits_per_step == 10
+    assert ldpc_tpu_torch.BpLsdDecoder(rep_code(10), error_rate=0.1, bits_per_step=0, device="cpu").bits_per_step == 10
 
 
 def test_bplsd_validation():
-    D = ldpc_tpu_torch.BpLsdDecoder
+    D = functools.partial(ldpc_tpu_torch.BpLsdDecoder, device="cpu")
     with pytest.raises(ValueError):
         D(rep_code(10), error_rate=0.1, lsd_order=-1)
     with pytest.raises(ValueError):
@@ -140,7 +141,7 @@ def test_bplsd_validation():
 def test_bplsd_always_run_lsd():
     H = rep_code(10)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20, always_run_lsd=True, bits_per_step=1)
+    dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20, always_run_lsd=True, bits_per_step=1, device="cpu")
     e = np.zeros(10, np.uint8)
     e[4] = 1
     s = (Hd @ e % 2).astype(np.uint8)
@@ -150,7 +151,7 @@ def test_bplsd_always_run_lsd():
 
 
 def test_bplsd_zero_syndrome():
-    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(5), error_rate=0.1)
+    dec = ldpc_tpu_torch.BpLsdDecoder(rep_code(5), error_rate=0.1, device="cpu")
     x = dec.decode(np.zeros(4, np.uint8))
     assert not x.any() and dec.converge
 
@@ -161,7 +162,7 @@ def test_bplsd_stats_plumbing_without_cluster_stats():
     clusters (tests/test_torch_lsd_standalone.py holds them to JAX's)."""
     H = rep_code(5)
     dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bp_method="min_sum",
-                                      ms_scaling_factor=1.0)
+                                      ms_scaling_factor=1.0, device="cpu")
     assert dec.do_stats is False
     s = np.array([1, 1, 0, 1], np.uint8)
     dec.decode(s)  # stats off: LSD runs and nothing is recorded
@@ -181,7 +182,7 @@ def test_bplsd_stats_plumbing_without_cluster_stats():
     with pytest.raises(ValueError):
         dec.set_do_stats(True, row=-1)
     # a decode the BP stage converges on needs no statistics
-    dec2 = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20)
+    dec2 = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20, device="cpu")
     dec2.set_do_stats(True)
     dec2.decode(np.array([1, 0, 0, 0], np.uint8))
     assert dec2.statistics["individual_cluster_stats"] == {}
@@ -189,10 +190,11 @@ def test_bplsd_stats_plumbing_without_cluster_stats():
 
 def test_bplsd_imports_no_jax():
     """A fresh process imports the port, decodes on the CPU with every
-    decoder of slices B and C (BpLsdDecoder at order 0 and 3 with
-    statistics, BpOsdDecoder, UnionFindDecoder in both modes,
-    BeliefFindDecoder, LsdDecoder, FlipDecoder, BpFlipDecoder), and never
-    imports jax."""
+    decoder of the port (BpLsdDecoder at order 0 and 3 with statistics,
+    BpOsdDecoder, UnionFindDecoder in both modes, BeliefFindDecoder,
+    LsdDecoder, FlipDecoder, BpFlipDecoder, BpDecoder, one device
+    Monte-Carlo step), and never
+    imports jax or any module of the JAX package ``ldpc_tpu``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
         "import sys, numpy as np\n"
@@ -203,28 +205,39 @@ def test_bplsd_imports_no_jax():
         "s = (np.eye(1, H.shape[1], 4, dtype=np.uint8) @ H.T % 2)[0]\n"
         "for kw in ({}, {'lsd_method': 'lsd_cs', 'lsd_order': 3}):\n"
         "    d = ldpc_tpu_torch.BpLsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
-        "                                    always_run_lsd=True, **kw)\n"
+        "                                    always_run_lsd=True, device='cpu', **kw)\n"
         "    d.set_do_stats(True)\n"
         "    x = d.decode(s)\n"
         "    assert ((H @ x) % 2 == s).all() and d.statistics.individual_cluster_stats\n"
         "for uf_method in (True, False):\n"
-        "    x = ldpc_tpu_torch.UnionFindDecoder(code.hx, uf_method=uf_method).decode(s)\n"
+        "    x = ldpc_tpu_torch.UnionFindDecoder(code.hx, uf_method=uf_method,\n"
+        "                                     device='cpu').decode(s)\n"
         "    assert ((H @ x) % 2 == s).all()\n"
         "for uf_method in ('inversion', 'peeling'):\n"
         "    d = ldpc_tpu_torch.BeliefFindDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
-        "                                         uf_method=uf_method)\n"
+        "                                         uf_method=uf_method, device='cpu')\n"
         "    assert ((H @ d.decode(s)) % 2 == s).all()\n"
-        "d = ldpc_tpu_torch.LsdDecoder(code.hx, lsd_method='lsd_cs', lsd_order=2)\n"
+        "d = ldpc_tpu_torch.LsdDecoder(code.hx, lsd_method='lsd_cs', lsd_order=2,\n"
+        "                              device='cpu')\n"
         "assert ((H @ d.decode(s, np.ones(H.shape[1]))) % 2 == s).all()\n"
-        "d = ldpc_tpu_torch.FlipDecoder(code.hx, pfreq=2, seed=1)\n"
+        "d = ldpc_tpu_torch.FlipDecoder(code.hx, pfreq=2, seed=1, device='cpu')\n"
         "x = d.decode(s)\n"
         "assert d.converge and ((H @ x) % 2 == s).all()\n"
-        "d = ldpc_tpu_torch.BpFlipDecoder(code.hx, error_rate=0.1, max_iter=5)\n"
+        "d = ldpc_tpu_torch.BpFlipDecoder(code.hx, error_rate=0.1, max_iter=5, device='cpu')\n"
         "assert ((H @ d.decode(s)) % 2 == s).all()\n"
         "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
-        "                                osd_method='osd_cs', osd_order=3)\n"
+        "                                osd_method='osd_cs', osd_order=3, device='cpu')\n"
         "assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.BpDecoder(code.hx, error_rate=0.1, max_iter=5, device='cpu')\n"
+        "d.decode(s)\n"
+        "import torch\n"
+        "from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step\n"
+        "step, runs = make_mc_decoder_step(code.hx, 0.05, batch_size=512, max_iter=5,\n"
+        "                                  device='cpu')\n"
+        "assert int(step(torch.Generator())[0]) == runs\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules if m == 'ldpc_tpu' or m.startswith('ldpc_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=repo)

@@ -2,6 +2,7 @@
 JAX package's, on the same syndromes (made with numpy from a seed), and
 the API-parity probes of the JAX package's own decoder tests."""
 
+import functools
 import itertools
 import os
 import subprocess
@@ -45,7 +46,7 @@ def test_bposd_decode_batch_matches_jax(cases, d, osd_method):
     hx, H, syn, p = cases[d]
     kw = dict(error_rate=p, osd_method=osd_method, **KW)
     jd = ldpc_tpu.BpOsdDecoder(hx, **kw)
-    td = ldpc_tpu_torch.BpOsdDecoder(hx, **kw)
+    td = ldpc_tpu_torch.BpOsdDecoder(hx, **kw, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert got.dtype == np.uint8 and got.shape == want.shape
@@ -65,9 +66,9 @@ def test_bposd_batch_properties_equal_full_depth_bp(cases):
     """Posteriors and BP decodings of the batch are the full-depth BP
     values of every row, as one single-phase BP run gives them."""
     hx, H, syn, p = cases[5]
-    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=p, **KW)
+    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=p, **KW, device="cpu")
     td.decode_batch(syn)
-    bd = ldpc_tpu_torch.BpDecoder(hx, error_rate=p, **KW)
+    bd = ldpc_tpu_torch.BpDecoder(hx, error_rate=p, **KW, device="cpu")
     bp_out = bd.decode_batch(syn)
     np.testing.assert_array_equal(td.log_prob_ratios_batch, bd.log_prob_ratios_batch)
     assert (td.bp_decoding_batch == bp_out).all()
@@ -80,7 +81,7 @@ def test_bposd_batch_properties_equal_full_depth_bp(cases):
 def test_bp_decode_batch_matches_jax(cases, d):
     hx, H, syn, p = cases[d]
     jd = ldpc_tpu.BpDecoder(hx, error_rate=p, **KW)
-    td = ldpc_tpu_torch.BpDecoder(hx, error_rate=p, **KW)
+    td = ldpc_tpu_torch.BpDecoder(hx, error_rate=p, **KW, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert (got == want).all()
@@ -97,7 +98,7 @@ def test_bp_single_decode_matches_jax_exhaustive_hamming(bp_method):
     H = hamming_code(3)
     kw = dict(error_rate=0.05, max_iter=10, bp_method=bp_method, ms_scaling_factor=0.0)
     jd = ldpc_tpu.BpDecoder(H, **kw)
-    td = ldpc_tpu_torch.BpDecoder(H, **kw)
+    td = ldpc_tpu_torch.BpDecoder(H, **kw, device="cpu")
     for bits in itertools.product([0, 1], repeat=3):
         s = np.array(bits, dtype=np.uint8)
         assert (td.decode(s) == jd.decode(s)).all()
@@ -107,7 +108,7 @@ def test_bp_single_decode_matches_jax_exhaustive_hamming(bp_method):
 def test_received_vector_mode_matches_jax():
     H = rep_code(5)
     jd = ldpc_tpu.BpDecoder(H, error_rate=0.1, input_vector_type="received_vector")
-    td = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, input_vector_type="received_vector")
+    td = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, input_vector_type="received_vector", device="cpu")
     for rv in ([0, 1, 0, 0, 0], [1, 1, 0, 1, 1], [0, 0, 0, 0, 0]):
         rv = np.array(rv, dtype=np.uint8)
         assert (td.decode(rv) == jd.decode(rv)).all()
@@ -116,7 +117,7 @@ def test_received_vector_mode_matches_jax():
 
 def test_bposd_single_decode_matches_batch_rows(cases):
     hx, H, syn, p = cases[5]
-    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=p, **KW)
+    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=p, **KW, device="cpu")
     batch = td.decode_batch(syn[:24])
     for i in range(24):
         assert (td.decode(syn[i]) == batch[i]).all(), i
@@ -124,7 +125,7 @@ def test_bposd_single_decode_matches_batch_rows(cases):
 
 def test_bposd_hamming_exhaustive_always_valid():
     H = hamming_code(3)
-    d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.05, max_iter=8, osd_method="osd_0")
+    d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.05, max_iter=8, osd_method="osd_0", device="cpu")
     for bits in itertools.product([0, 1], repeat=3):
         s = np.array(bits, dtype=np.uint8)
         out = d.decode(s)
@@ -140,7 +141,7 @@ def test_bit_packed_io_kwargs(cls):
     code = surface_code(5)
     H, syn = _syndromes(code.hx, 32, 0.04, seed=3)
     packed = np.packbits(syn, axis=1, bitorder="little")
-    dec = getattr(ldpc_tpu_torch, cls)(code.hx, error_rate=0.04, max_iter=12)
+    dec = getattr(ldpc_tpu_torch, cls)(code.hx, error_rate=0.04, max_iter=12, device="cpu")
     want = dec.decode_batch(syn)
     got = dec.decode_batch(packed, bit_packed_syndromes=True)
     assert np.array_equal(want, got)
@@ -156,12 +157,12 @@ def test_bit_packed_io_kwargs(cls):
 @pytest.mark.parametrize("cls", ["BpDecoder", "BpOsdDecoder"])
 def test_plain_list_matrix_raises_type_error(cls):
     with pytest.raises(TypeError):
-        getattr(ldpc_tpu_torch, cls)([[1, 1, 0], [0, 1, 1]], error_rate=0.1)
+        getattr(ldpc_tpu_torch, cls)([[1, 1, 0], [0, 1, 1]], error_rate=0.1, device="cpu")
 
 
 def test_constructor_defaults_and_validation():
     H = rep_code(3)
-    d = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1)
+    d = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, device="cpu")
     assert (d.check_count, d.bit_count) == (2, 3)
     assert d.bp_method == "minimum_sum" and d.schedule == "parallel"
     assert d.max_iter == 3  # 0 -> block length
@@ -178,34 +179,34 @@ def test_constructor_defaults_and_validation():
         dict(error_rate=0.1, unknown_kwarg=1),
     ):
         with pytest.raises(ValueError):
-            ldpc_tpu_torch.BpDecoder(H, **bad)
+            ldpc_tpu_torch.BpDecoder(H, **bad, device="cpu")
     for alias in ("ps", "product_sum", "prod_sum", "0"):
-        assert ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, bp_method=alias).bp_method == "product_sum"
+        assert ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, bp_method=alias, device="cpu").bp_method == "product_sum"
     for alias in ("ms", "minimum_sum", "min_sum", "1"):
-        assert ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, bp_method=alias).bp_method == "minimum_sum"
-    v1 = ldpc_tpu_torch.BpDecoder(H, channel_probs=[0.1, 0.2, 0.3])
+        assert ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, bp_method=alias, device="cpu").bp_method == "minimum_sum"
+    v1 = ldpc_tpu_torch.BpDecoder(H, channel_probs=[0.1, 0.2, 0.3], device="cpu")
     assert np.allclose(v1.error_channel, [0.1, 0.2, 0.3])
     v1.update_channel_probs([0.3, 0.2, 0.1])
     assert np.allclose(v1.channel_probs, [0.3, 0.2, 0.1])
     with pytest.raises(ValueError):
-        ldpc_tpu_torch.BpDecoder(np.eye(3, dtype=np.uint8), error_rate=0.1)  # square: auto
+        ldpc_tpu_torch.BpDecoder(np.eye(3, dtype=np.uint8), error_rate=0.1, device="cpu")  # square: auto
     with pytest.warns(UserWarning):
-        ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, omp_thread_count=4)
+        ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, omp_thread_count=4, device="cpu")
 
 
 def test_unported_options_raise_not_implemented():
     H = rep_code(3)
     for schedule in ("serial", "serial_relative"):
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, schedule=schedule)
+            ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, schedule=schedule, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, dtype=torch.float64)
+        ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, schedule="serial")
+        ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, schedule="serial", device="cpu")
     # OSD-CS and LSD's per-cluster statistics are ported now
-    d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, osd_method="osd_cs", osd_order=2)
+    d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, osd_method="osd_cs", osd_order=2, device="cpu")
     assert (d.decode_batch(np.array([[1, 0]], np.uint8)) == [[1, 0, 0]]).all()
-    lsd = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, always_run_lsd=True)
+    lsd = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, always_run_lsd=True, device="cpu")
     lsd.set_do_stats(True)
     lsd.decode_batch(np.array([[1, 0]], np.uint8))
     assert list(lsd.statistics.individual_cluster_stats) == [0]
@@ -213,7 +214,7 @@ def test_unported_options_raise_not_implemented():
 
 def test_osd_method_aliases_and_order_validation():
     H = rep_code(3)
-    D = ldpc_tpu_torch.BpOsdDecoder
+    D = functools.partial(ldpc_tpu_torch.BpOsdDecoder, device="cpu")
     d = D(H, error_rate=0.1)
     assert (d.osd_method, d.osd_order, d.input_vector_type) == ("OSD_0", 0, "syndrome")
     for alias in ("osd_0", "0", "osd0"):
@@ -237,7 +238,7 @@ def test_osd_method_aliases_and_order_validation():
 @pytest.mark.parametrize("cls", ["BpDecoder", "BpOsdDecoder"])
 def test_zero_syndrome_converges_to_zeros(cls):
     H = rep_code(5)
-    d = getattr(ldpc_tpu_torch, cls)(H, error_rate=0.1, input_vector_type="syndrome")
+    d = getattr(ldpc_tpu_torch, cls)(H, error_rate=0.1, input_vector_type="syndrome", device="cpu")
     out = d.decode(np.zeros(4, dtype=np.uint8))
     assert not out.any()
     assert d.converge
@@ -245,7 +246,7 @@ def test_zero_syndrome_converges_to_zeros(cls):
 
 @pytest.mark.parametrize("cls", ["BpDecoder", "BpOsdDecoder"])
 def test_length_validation(cls):
-    d = getattr(ldpc_tpu_torch, cls)(rep_code(5), error_rate=0.1, input_vector_type="syndrome")
+    d = getattr(ldpc_tpu_torch, cls)(rep_code(5), error_rate=0.1, input_vector_type="syndrome", device="cpu")
     with pytest.raises(ValueError):
         d.decode(np.zeros(5, dtype=np.uint8))
     with pytest.raises(ValueError):
@@ -256,8 +257,8 @@ def test_length_validation(cls):
 def test_scipy_and_numpy_inputs_identical(cls):
     code = surface_code(5)
     H, syn = _syndromes(code.hx, 64, 0.05, seed=5)
-    a = getattr(ldpc_tpu_torch, cls)(scipy.sparse.csr_matrix(H), error_rate=0.05, **KW)
-    b = getattr(ldpc_tpu_torch, cls)(H, error_rate=0.05, **KW)
+    a = getattr(ldpc_tpu_torch, cls)(scipy.sparse.csr_matrix(H), error_rate=0.05, **KW, device="cpu")
+    b = getattr(ldpc_tpu_torch, cls)(H, error_rate=0.05, **KW, device="cpu")
     assert (a.decode_batch(syn) == b.decode_batch(syn)).all()
     assert (a.converge_batch == b.converge_batch).all()
     assert (a.iter_batch == b.iter_batch).all()
@@ -265,7 +266,7 @@ def test_scipy_and_numpy_inputs_identical(cls):
 
 def test_port_imports_no_jax():
     """A fresh process imports the port, decodes on the CPU and never
-    imports jax."""
+    imports jax or the JAX package."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
         "import sys, numpy as np\n"
@@ -273,12 +274,14 @@ def test_port_imports_no_jax():
         "from ldpc_tpu_torch.codes import surface_code\n"
         "from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step\n"
         "code = surface_code(3)\n"
-        "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=10)\n"
+        "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=10,\n"
+        "                                device='cpu')\n"
         "H = np.asarray(code.hx.todense(), np.uint8)\n"
         "s = (np.eye(1, H.shape[1], 4, dtype=np.uint8) @ H.T % 2)[0]\n"
         "x = d.decode(s)\n"
         "assert ((H @ x) % 2 == s).all()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'ldpc_tpu']\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=repo)

@@ -30,7 +30,7 @@ def test_decode_round_matches_jax_decode_batch(d, p, batch):
     errors = (np.random.default_rng(7).random((batch, H.shape[1])) < p).astype(np.uint8)
     step, runs = make_mc_decoder_step(
         code.hx, p, logicals=code.lx, batch_size=batch, rounds_per_call=1,
-        max_iter=30, ms_scaling_factor=0.625, bucket_fraction=2,
+        max_iter=30, ms_scaling_factor=0.625, bucket_fraction=2, device="cpu",
     )
     assert runs == batch
     got = step.decode_round(errors).numpy()
@@ -61,7 +61,7 @@ def test_ler_within_monte_carlo_error_of_jax():
     )
     jstep, jruns = jax_mc_step(code.hx, 0.05, **kw)
     j = np.asarray(jstep(jax.random.key(3)))
-    tstep, truns = make_mc_decoder_step(code.hx, 0.05, **kw)
+    tstep, truns = make_mc_decoder_step(code.hx, 0.05, **kw, device="cpu")
     gen = torch.Generator()
     gen.manual_seed(3)
     t = tstep(gen).numpy()
@@ -78,12 +78,12 @@ def test_ler_within_monte_carlo_error_of_jax():
 def test_checkpoint_resume_is_exact():
     code = surface_code(3, compute_logicals=True)
     kwargs = dict(logicals=code.lx, batch_size=256, rounds_per_call=1, max_iter=8)
-    mc1 = DeviceMonteCarlo(code.hx, 0.04, seed=7, **kwargs)
+    mc1 = DeviceMonteCarlo(code.hx, 0.04, seed=7, **kwargs, device="cpu")
     mc1.run(512)
     state = mc1.checkpoint()
     res_a = mc1.run(1024)
 
-    mc2 = DeviceMonteCarlo(code.hx, 0.04, seed=7, **kwargs)
+    mc2 = DeviceMonteCarlo(code.hx, 0.04, seed=7, **kwargs, device="cpu")
     mc2.restore(state)
     res_b = mc2.run(1024)
     assert res_a == res_b
@@ -92,7 +92,7 @@ def test_checkpoint_resume_is_exact():
 
 def test_classical_word_error_counters_and_osd_off():
     step, runs = make_mc_decoder_step(
-        rep_code(20), 0.05, batch_size=512, rounds_per_call=2, max_iter=10
+        rep_code(20), 0.05, batch_size=512, rounds_per_call=2, max_iter=10, device="cpu"
     )
     gen = torch.Generator()
     gen.manual_seed(0)
@@ -103,7 +103,7 @@ def test_classical_word_error_counters_and_osd_off():
     assert out[5] == 0
     off, runs_off = make_mc_decoder_step(
         rep_code(15), 0.05, batch_size=256, rounds_per_call=1, max_iter=10,
-        osd_method="osd_off",
+        osd_method="osd_off", device="cpu",
     )
     gen.manual_seed(1)
     assert off(gen).numpy()[0] == runs_off == 512  # padded to 512
@@ -124,8 +124,8 @@ def test_two_phase_matches_single_phase_counters(builder, p, seed, phase1):
         logicals=code.lx, batch_size=512, rounds_per_call=2, max_iter=20,
         ms_scaling_factor=0.625, bucket_fraction=2,
     )
-    single, _ = make_mc_decoder_step(code.hx, p, phase1_iters=20, **kw)
-    two, _ = make_mc_decoder_step(code.hx, p, phase1_iters=phase1, **kw)
+    single, _ = make_mc_decoder_step(code.hx, p, phase1_iters=20, **kw, device="cpu")
+    two, _ = make_mc_decoder_step(code.hx, p, phase1_iters=phase1, **kw, device="cpu")
     ga, gb = torch.Generator(), torch.Generator()
     ga.manual_seed(seed)
     gb.manual_seed(seed)
@@ -140,7 +140,7 @@ def test_bucket_overflow_is_counted():
     code = surface_code(5, compute_logicals=True)
     step, _ = make_mc_decoder_step(
         code.hx, 0.08, logicals=code.lx, batch_size=512, rounds_per_call=1,
-        max_iter=20, bucket_fraction=8, phase1_iters=1,
+        max_iter=20, bucket_fraction=8, phase1_iters=1, device="cpu",
     )
     gen = torch.Generator()
     gen.manual_seed(5)

@@ -57,7 +57,7 @@ def test_flip_reference_matches_jax(code, max_iter):
     graph = compile_pcm(H)
     iters = graph.n if max_iter == "n" else max_iter
     want = jflip.make_flip_decoder(graph, iters, 0)(jnp.asarray(syn), jax.random.key(0))
-    got = tflip.make_flip_decoder(graph, iters, 0)(torch.from_numpy(syn), 123)
+    got = tflip.make_flip_decoder(graph, iters, 0, device="cpu")(torch.from_numpy(syn), 123)
     assert got[0].dtype == torch.uint8 and got[1].dtype == torch.bool
     assert got[2].dtype == torch.int32
     for a, b in zip(got, want):
@@ -90,7 +90,7 @@ def test_pflip_invariants(pfreq):
     H = surface_code(5).hx
     graph = compile_pcm(H)
     syn = _random_syndromes(H, 256, 0.08, 9)
-    dec_fn = tflip.make_flip_decoder(graph, 12, pfreq)
+    dec_fn = tflip.make_flip_decoder(graph, 12, pfreq, device="cpu")
     dec, conv, iters = (t.numpy() for t in dec_fn(torch.from_numpy(syn), 5))
     assert ((dec @ graph.dense.T % 2)[conv] == syn[conv]).all()
     zero = ~syn.any(axis=1)
@@ -115,7 +115,7 @@ def test_flip_decoder_matches_jax():
     H = surface_code(5).hx
     syn = _random_syndromes(H, 256, 0.05, 4)
     jd = ldpc_tpu.FlipDecoder(H, max_iter=0, seed=3)
-    td = ldpc_tpu_torch.FlipDecoder(H, max_iter=0, seed=3)
+    td = ldpc_tpu_torch.FlipDecoder(H, max_iter=0, seed=3, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert (got == want).all()
@@ -141,7 +141,7 @@ def test_bp_flip_decode_batch_matches_jax(d13, flip_iterations):
     hx, H, syn = d13
     kw = dict(error_rate=0.01, flip_iterations=flip_iterations, **KW)
     jd = ldpc_tpu.BpFlipDecoder(hx, **kw)
-    td = ldpc_tpu_torch.BpFlipDecoder(hx, **kw)
+    td = ldpc_tpu_torch.BpFlipDecoder(hx, **kw, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert got.dtype == np.uint8 and (got == want).all()
@@ -162,7 +162,7 @@ def test_flip_rep_code_single_errors():
     """Weight-1 errors on a rep code flip back exactly."""
     H = rep_code(10)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.FlipDecoder(H, max_iter=20, seed=3)
+    dec = ldpc_tpu_torch.FlipDecoder(H, max_iter=20, seed=3, device="cpu")
     for j in range(10):
         e = np.zeros(10, np.uint8)
         e[j] = 1
@@ -175,7 +175,7 @@ def test_flip_rep_code_single_errors():
 def test_flip_converged_solutions_reproduce_syndrome():
     H = hamming_code(3)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.FlipDecoder(H, max_iter=50, pfreq=2, seed=42)
+    dec = ldpc_tpu_torch.FlipDecoder(H, max_iter=50, pfreq=2, seed=42, device="cpu")
     syn = _all_syndromes(3)
     out = dec.decode_batch(syn)
     conv = dec.converge_batch
@@ -184,7 +184,7 @@ def test_flip_converged_solutions_reproduce_syndrome():
 
 
 def test_flip_zero_syndrome():
-    dec = ldpc_tpu_torch.FlipDecoder(rep_code(5), max_iter=10)
+    dec = ldpc_tpu_torch.FlipDecoder(rep_code(5), max_iter=10, device="cpu")
     x = dec.decode(np.zeros(4, np.uint8))
     assert not x.any()
     assert dec.converge and dec.iterations == 0
@@ -198,8 +198,8 @@ def test_flip_pfreq_helps_on_ties():
     rng = np.random.default_rng(5)
     errors = (rng.random((64, 9)) < 0.15).astype(np.uint8)
     syn = errors @ Hd.T % 2
-    plain = ldpc_tpu_torch.FlipDecoder(H, max_iter=60, pfreq=0, seed=11)
-    pflip = ldpc_tpu_torch.FlipDecoder(H, max_iter=60, pfreq=1, seed=11)
+    plain = ldpc_tpu_torch.FlipDecoder(H, max_iter=60, pfreq=0, seed=11, device="cpu")
+    pflip = ldpc_tpu_torch.FlipDecoder(H, max_iter=60, pfreq=1, seed=11, device="cpu")
     plain.decode_batch(syn)
     pflip.decode_batch(syn)
     assert pflip.converge_batch.sum() >= plain.converge_batch.sum()
@@ -212,8 +212,8 @@ def test_flip_pfreq_helps_on_ties():
 
 def test_flip_invalid_inputs():
     with pytest.raises(TypeError):
-        ldpc_tpu_torch.FlipDecoder([[1, 0], [0, 1]])
-    dec = ldpc_tpu_torch.FlipDecoder(rep_code(5))
+        ldpc_tpu_torch.FlipDecoder([[1, 0], [0, 1]], device="cpu")
+    dec = ldpc_tpu_torch.FlipDecoder(rep_code(5), device="cpu")
     with pytest.raises(ValueError):
         dec.decode(np.zeros(7, np.uint8))
 
@@ -222,7 +222,7 @@ def test_bp_flip_decoder():
     H = rep_code(20)
     Hd = np.asarray(H.todense(), np.uint8)
     dec = ldpc_tpu_torch.BpFlipDecoder(
-        H, error_rate=0.1, max_iter=20, flip_iterations=5, pflip_seed=1
+        H, error_rate=0.1, max_iter=20, flip_iterations=5, pflip_seed=1, device="cpu"
     )
     rng = np.random.default_rng(0)
     errors = (rng.random((32, 20)) < 0.1).astype(np.uint8)

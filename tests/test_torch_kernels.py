@@ -48,21 +48,11 @@ def codes(dev):
     return out
 
 
-@pytest.mark.parametrize(
-    "method,alpha", [(MINIMUM_SUM, 0.625), (MINIMUM_SUM, 0.0), (PRODUCT_SUM, 1.0)]
-)
-@pytest.mark.parametrize("name", ["surface13", "toric20"])
-def test_k1_matches_plain_version(codes, name, method, alpha):
+def _assert_k1_equal(ker, ref, method):
     """Min-sum: bit-exact (same operations in the same order, no FMA
     contraction). Product-sum: posteriors within rtol 1e-4 (tanh/log of
     the CUDA math library on both sides; a cumulative product may round
     differently)."""
-    _, tg, syn, llr0 = codes[name]
-    before = bp_cuda.LAUNCHES
-    ker = bp_cuda.bp_parallel(tg, syn, llr0, method, 30, alpha)
-    assert bp_cuda.LAUNCHES == before + 1
-    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, 30, alpha)
-    torch.cuda.synchronize()
     assert torch.equal(ker.converged, ref.converged)
     assert torch.equal(ker.iterations, ref.iterations)
     if method == MINIMUM_SUM:
@@ -74,14 +64,64 @@ def test_k1_matches_plain_version(codes, name, method, alpha):
         )
 
 
-@pytest.mark.parametrize("max_iter", [0, 1, 6])
-def test_k1_short_runs_and_odd_batches(codes, max_iter):
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize(
+    "method,alpha", [(MINIMUM_SUM, 0.625), (MINIMUM_SUM, 0.0), (PRODUCT_SUM, 1.0)]
+)
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k1_matches_plain_version(codes, name, method, alpha, state):
+    """Both places a lane's state can live, each against the plain version;
+    the bare ``bp_parallel`` takes the variant its footprint chooses."""
+    _, tg, syn, llr0 = codes[name]
+    before = bp_cuda.LAUNCHES
+    if state == bp_cuda.state_variant(tg.m, tg.n, tg.dc):
+        ker = bp_cuda.bp_parallel(tg, syn, llr0, method, 30, alpha)
+    else:
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, method, 30, alpha, state=state)
+    assert bp_cuda.LAUNCHES == before + 1
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, 30, alpha)
+    torch.cuda.synchronize()
+    _assert_k1_equal(ker, ref, method)
+    assert ker.decoding.is_contiguous() and ker.llr_posterior.is_contiguous()
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 6, 30])
+@pytest.mark.parametrize("lanes", [1, 31, 33, 1001])
+def test_k1_short_runs_and_odd_batches(codes, lanes, max_iter):
+    """Odd batches leave a block part empty and its lanes stop at different
+    iterations; max_iter 0 returns llr0, zeros, not converged, 0 iterations."""
     _, tg, syn, llr0 = codes["surface13"]
-    s = syn[:1001].contiguous()
-    ker = bp_cuda.bp_parallel_cuda(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625)
-    ref = bp_cuda.bp_parallel_reference(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625)
-    for a, b in zip(ker, ref):
-        assert torch.equal(a, b)
+    s = syn[:lanes].contiguous()
+    for state in ("shared", "device"):
+        ker = bp_cuda.bp_parallel_cuda(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625, state=state)
+        ref = bp_cuda.bp_parallel_reference(tg, s, llr0, MINIMUM_SUM, max_iter, 0.625)
+        for a, b in zip(ker, ref):
+            assert torch.equal(a, b)
+    if max_iter == 0:
+        assert torch.equal(ker.llr_posterior, llr0.expand(lanes, -1))
+        assert not bool(ker.decoding.any() or ker.converged.any() or ker.iterations.any())
+
+
+@pytest.mark.parametrize("distance", [24, 31])
+def test_k1_large_codes(dev, distance):
+    """Toric d=24 keeps its state in shared memory above 48 KB a block (the
+    opt-in); d=31 is above the per-lane budget and takes the device-memory
+    variant by itself. Both bit-identical to the plain version."""
+    graph = compile_pcm(toric_code(distance, compute_logicals=False).hx)
+    tg = graph_to_torch(graph, dev)
+    rng = np.random.default_rng(distance)
+    errors = (rng.random((300, graph.n)) < 0.03).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    llr0 = torch.from_numpy(channel_llr(np.full(graph.n, 0.03))).to(dev)
+    state = bp_cuda.state_variant(graph.m, graph.n, graph.dc)
+    assert state == ("shared" if distance == 24 else "device")
+    before = dict(bp_cuda.STATE_LAUNCHES)
+    ker = bp_cuda.bp_parallel(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
+    assert bp_cuda.STATE_LAUNCHES[state] == before[state] + 1
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
+    torch.cuda.synchronize()
+    _assert_k1_equal(ker, ref, MINIMUM_SUM)
+    assert ker.iterations.unique().numel() > 1  # lanes stop apart
 
 
 @pytest.mark.parametrize("name", ["surface13", "toric20"])

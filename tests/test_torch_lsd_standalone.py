@@ -11,6 +11,7 @@ wall-clock reading) is left out.
 """
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -54,7 +55,7 @@ def test_lsd_decoder_hamming_exhaustive_matches_jax(kw):
     syn = _all_syndromes(3)
     weights = 0.3 + 0.1 * np.arange(Hd.shape[1])
     jd = ldpc_tpu.LsdDecoder(H, bits_per_step=1, **kw)
-    td = ldpc_tpu_torch.LsdDecoder(H, bits_per_step=1, **kw)
+    td = ldpc_tpu_torch.LsdDecoder(H, bits_per_step=1, **kw, device="cpu")
     want = jd.decode_batch(syn, weights)
     got = td.decode_batch(syn, weights)
     assert got.dtype == np.uint8 and (got == want).all()
@@ -77,7 +78,7 @@ def test_lsd_decoder_surface5_matches_jax(kw, shared):
     w = rng.random(Hd.shape[1]) + 0.5
     weights = w if shared else rng.random((64, Hd.shape[1])) + 0.5
     jd = ldpc_tpu.LsdDecoder(code.hx, bits_per_step=1, **kw)
-    td = ldpc_tpu_torch.LsdDecoder(code.hx, bits_per_step=1, **kw)
+    td = ldpc_tpu_torch.LsdDecoder(code.hx, bits_per_step=1, **kw, device="cpu")
     want = jd.decode_batch(syn, weights)
     got = td.decode_batch(syn, weights)
     assert (got == want).all()
@@ -88,7 +89,7 @@ def test_lsd_decoder_surface5_matches_jax(kw, shared):
 def test_lsd0_hamming_exhaustive():
     H = hamming_code(3)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.LsdDecoder(H, bits_per_step=1)
+    dec = ldpc_tpu_torch.LsdDecoder(H, bits_per_step=1, device="cpu")
     syn = _all_syndromes(3)
     out = dec.decode_batch(syn, np.ones(Hd.shape[1]))
     assert dec.valid_batch.all()
@@ -103,9 +104,9 @@ def test_lsdw_not_heavier_than_lsd0():
     errors = (rng.random((64, Hd.shape[1])) < 0.08).astype(np.uint8)
     syn = (errors @ Hd.T % 2).astype(np.uint8)
     w = rng.random(Hd.shape[1]) + 0.5
-    out0 = ldpc_tpu_torch.LsdDecoder(code.hx, bits_per_step=1).decode_batch(syn, w)
+    out0 = ldpc_tpu_torch.LsdDecoder(code.hx, bits_per_step=1, device="cpu").decode_batch(syn, w)
     out5 = ldpc_tpu_torch.LsdDecoder(
-        code.hx, bits_per_step=1, lsd_method="lsd_cs", lsd_order=5
+        code.hx, bits_per_step=1, lsd_method="lsd_cs", lsd_order=5, device="cpu"
     ).decode_batch(syn, w)
     assert np.array_equal((out0 @ Hd.T) % 2, syn)
     assert np.array_equal((out5 @ Hd.T) % 2, syn)
@@ -114,7 +115,7 @@ def test_lsdw_not_heavier_than_lsd0():
 
 
 def test_lsd_decoder_validation_and_single_decode():
-    D = ldpc_tpu_torch.LsdDecoder
+    D = functools.partial(ldpc_tpu_torch.LsdDecoder, device="cpu")
     with pytest.raises(TypeError):
         D([[1, 1, 0], [0, 1, 1]])
     dec = D(rep_code(10))
@@ -187,7 +188,7 @@ def test_bplsd_statistics_match_jax(surface5_rows, kw):
     code, graph, syn, _ = surface5_rows
     args = dict(error_rate=0.08, max_iter=2, bp_method="minimum_sum", ms_scaling_factor=0.625, **kw)
     jd = ldpc_tpu.BpLsdDecoder(code.hx, **args)
-    td = ldpc_tpu_torch.BpLsdDecoder(code.hx, **args)
+    td = ldpc_tpu_torch.BpLsdDecoder(code.hx, **args, device="cpu")
     jd.decode_batch(syn)
     rows = np.flatnonzero(~jd.converge_batch)[:2]
     assert rows.size
@@ -208,7 +209,7 @@ def test_bplsd_stats_plumbing():
     LSD, stats fill; a converged decode clears them."""
     H = rep_code(5)
     dec = ldpc_tpu_torch.BpLsdDecoder(
-        H, error_rate=0.1, max_iter=1, bp_method="min_sum", ms_scaling_factor=1.0,
+        H, error_rate=0.1, max_iter=1, bp_method="min_sum", ms_scaling_factor=1.0, device="cpu",
     )
     assert dec.do_stats is False
     dec.set_do_stats(True)
@@ -230,7 +231,7 @@ def test_bplsd_stats_plumbing():
     assert isinstance(dec.statistics.to_json(), str)
     # a decode the BP stage converges on resets the stats
     # (_bplsd_decoder.pyx:146-150)
-    dec2 = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20)
+    dec2 = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=20, device="cpu")
     dec2.set_do_stats(True)
     dec2.decode(np.array([1, 0, 0, 0], np.uint8))
     assert dec2.statistics["individual_cluster_stats"] == {}
@@ -244,7 +245,7 @@ def test_bplsd_stats_content():
     H = rep_code(12)
     Hd = np.asarray(H.todense(), np.uint8)
     dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bits_per_step=1,
-                                      always_run_lsd=True)
+                                      always_run_lsd=True, device="cpu")
     dec.set_do_stats(True)
     e = np.zeros(12, np.uint8)
     e[3] = 1
@@ -289,7 +290,7 @@ def test_bplsd_stats_row_selection():
     H = rep_code(12)
     Hd = np.asarray(H.todense(), np.uint8)
     dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bits_per_step=1,
-                                      always_run_lsd=True)
+                                      always_run_lsd=True, device="cpu")
     dec.set_do_stats(True, row=2)
     assert dec.stats_row == 2
     errs = np.zeros((3, 12), np.uint8)
@@ -317,7 +318,7 @@ def test_stats_json_global_history_shape():
     H = rep_code(10)
     Hd = np.asarray(H.todense(), np.uint8)
     dec = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=1, bits_per_step=1,
-                                      always_run_lsd=True)
+                                      always_run_lsd=True, device="cpu")
     dec.set_do_stats(True)
     e = np.zeros(10, np.uint8)
     e[4] = 1

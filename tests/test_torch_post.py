@@ -293,7 +293,7 @@ def test_bposd_cs5_decode_batch_matches_jax(d13):
     hx, H, syn = d13
     kw = dict(error_rate=0.01, osd_method="osd_cs", osd_order=5, **KW)
     jd = ldpc_tpu.BpOsdDecoder(hx, **kw)
-    td = ldpc_tpu_torch.BpOsdDecoder(hx, **kw)
+    td = ldpc_tpu_torch.BpOsdDecoder(hx, **kw, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert got.dtype == np.uint8 and got.shape == want.shape
@@ -319,9 +319,9 @@ def test_cascade_keeps_the_osd0_output(d13):
     BpOsdDecoder's OSD-0 output as before: one full-depth BP run, then
     OSD-0 on exactly the lanes it fails, zeros on zero syndromes."""
     hx, H, syn = d13
-    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=0.01, osd_method="osd_0", **KW)
+    td = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=0.01, osd_method="osd_0", **KW, device="cpu")
     got = td.decode_batch(syn)
-    bd = ldpc_tpu_torch.BpDecoder(hx, error_rate=0.01, **KW)
+    bd = ldpc_tpu_torch.BpDecoder(hx, error_rate=0.01, **KW, device="cpu")
     bp_out = bd.decode_batch(syn)
     want = bp_out.copy()
     failed = np.flatnonzero(~bd.converge_batch & syn.any(axis=1))

@@ -16,6 +16,8 @@ interpret-mode Pallas solver makes the JAX package take that path on the
 CPU, and there the port must equal it bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -64,7 +66,7 @@ def surface5():
 
 
 def _port(maker, graph, bits_per_step, syn, llrs):
-    dec, valid = maker(graph, bits_per_step)(torch.from_numpy(syn), torch.from_numpy(llrs))
+    dec, valid = maker(graph, bits_per_step, "cpu")(torch.from_numpy(syn), torch.from_numpy(llrs))
     assert dec.dtype == torch.uint8 and valid.dtype == torch.bool
     return dec.numpy(), valid.numpy()
 
@@ -114,7 +116,7 @@ def test_make_peel_decoder_against_jax_cpu_peeling(surface5, bits_per_step):
 
 def test_make_peel_decoder_rejects_high_degree():
     with pytest.raises(ValueError, match="column degree <= 2"):
-        tuf.make_peel_decoder(compile_pcm(hamming_code(3)))
+        tuf.make_peel_decoder(compile_pcm(hamming_code(3)), device="cpu")
 
 
 def test_peel_ring_code_odd_parity_is_invalid():
@@ -141,7 +143,7 @@ def test_union_find_decoder_matches_jax(surface5, fused_jax, uf_method, guided):
     code = surface_code(5)
     kw = dict(llrs=llrs[0], bits_per_step=1) if guided else {}
     jd = ldpc_tpu.UnionFindDecoder(code.hx, uf_method=uf_method)
-    td = ldpc_tpu_torch.UnionFindDecoder(code.hx, uf_method=uf_method)
+    td = ldpc_tpu_torch.UnionFindDecoder(code.hx, uf_method=uf_method, device="cpu")
     syn = syn.copy()
     syn[5] = 0
     want = jd.decode_batch(syn, **kw)
@@ -155,7 +157,7 @@ def test_union_find_decoder_matches_jax(surface5, fused_jax, uf_method, guided):
 def test_uf_matrix_exhaustive_hamming():
     H = hamming_code(3)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True)
+    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True, device="cpu")
     syn = _all_syndromes(3)
     out = dec.decode_batch(syn)
     assert dec.valid_batch.all()
@@ -166,7 +168,7 @@ def test_uf_matrix_exhaustive_hamming():
 def test_uf_peel_rep_code_exhaustive():
     H = rep_code(6)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=False)
+    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=False, device="cpu")
     syn = _all_syndromes(5)
     out = dec.decode_batch(syn)
     assert dec.valid_batch.all()
@@ -176,7 +178,7 @@ def test_uf_peel_rep_code_exhaustive():
 def test_uf_peel_ring_code():
     H = ring_code(7)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=False)
+    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=False, device="cpu")
     syn = _all_syndromes(7)
     even = syn[syn.sum(axis=1) % 2 == 0]
     out = dec.decode_batch(even)
@@ -185,7 +187,7 @@ def test_uf_peel_ring_code():
 
 
 def test_uf_validation():
-    D = ldpc_tpu_torch.UnionFindDecoder
+    D = functools.partial(ldpc_tpu_torch.UnionFindDecoder, device="cpu")
     with pytest.raises(ValueError, match="planar codes"):
         D(hamming_code(3), uf_method=False)
     with pytest.raises(ValueError, match="Column weight is zero"):
@@ -202,7 +204,7 @@ def test_uf_validation():
 def test_uf_matrix_guided_by_llrs():
     H = rep_code(8)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True)
+    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True, device="cpu")
     e = np.zeros(8, np.uint8)
     e[3] = 1
     s = Hd @ e % 2
@@ -215,7 +217,7 @@ def test_uf_matrix_guided_by_llrs():
 
 def test_uf_single_vs_batch():
     H = hamming_code(3)
-    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True)
+    dec = ldpc_tpu_torch.UnionFindDecoder(H, uf_method=True, device="cpu")
     syn = _all_syndromes(3)
     batch = dec.decode_batch(syn)
     for i, s in enumerate(syn):
@@ -223,7 +225,7 @@ def test_uf_single_vs_batch():
 
 
 def test_uf_zero_syndrome():
-    dec = ldpc_tpu_torch.UnionFindDecoder(rep_code(5))
+    dec = ldpc_tpu_torch.UnionFindDecoder(rep_code(5), device="cpu")
     x = dec.decode(np.zeros(4, np.uint8))
     assert not x.any() and dec.valid_batch.all()
 
@@ -248,7 +250,7 @@ def test_belief_find_decode_batch_matches_jax(d13, fused_jax, uf_method):
     against the JAX decoder (fused cluster-solver path), exactly."""
     hx, H, syn = d13
     jd = ldpc_tpu.BeliefFindDecoder(hx, error_rate=0.01, uf_method=uf_method, **KW)
-    td = ldpc_tpu_torch.BeliefFindDecoder(hx, error_rate=0.01, uf_method=uf_method, **KW)
+    td = ldpc_tpu_torch.BeliefFindDecoder(hx, error_rate=0.01, uf_method=uf_method, **KW, device="cpu")
     want = jd.decode_batch(syn)
     got = td.decode_batch(syn)
     assert got.dtype == np.uint8 and (got == want).all()
@@ -266,7 +268,7 @@ def test_belief_find_surface_code(uf_method):
     Hd = np.asarray(code.hx.todense(), np.uint8)
     dec = ldpc_tpu_torch.BeliefFindDecoder(
         code.hx, error_rate=0.05, max_iter=5, bp_method="minimum_sum",
-        ms_scaling_factor=0.625, uf_method=uf_method, bits_per_step=1,
+        ms_scaling_factor=0.625, uf_method=uf_method, bits_per_step=1, device="cpu",
     )
     rng = np.random.default_rng(149)
     errors = (rng.random((128, Hd.shape[1])) < 0.05).astype(np.uint8)
@@ -280,7 +282,7 @@ def test_belief_find_surface_code(uf_method):
 
 
 def test_belief_find_validation():
-    D = ldpc_tpu_torch.BeliefFindDecoder
+    D = functools.partial(ldpc_tpu_torch.BeliefFindDecoder, device="cpu")
     with pytest.raises(ValueError, match="point like"):
         D(hamming_code(3), error_rate=0.1, uf_method="peeling")
     with pytest.raises(ValueError, match="Invalid UF method"):
@@ -295,13 +297,13 @@ def test_belief_find_validation():
 def test_belief_find_inversion_hamming_exhaustive():
     H = hamming_code(3)
     Hd = np.asarray(H.todense(), np.uint8)
-    dec = ldpc_tpu_torch.BeliefFindDecoder(H, error_rate=0.1, max_iter=2, uf_method="inversion")
+    dec = ldpc_tpu_torch.BeliefFindDecoder(H, error_rate=0.1, max_iter=2, uf_method="inversion", device="cpu")
     syn = _all_syndromes(3)
     out = dec.decode_batch(syn)
     assert np.array_equal((out @ Hd.T) % 2, syn)
 
 
 def test_belief_find_zero_syndrome():
-    dec = ldpc_tpu_torch.BeliefFindDecoder(rep_code(5), error_rate=0.1, uf_method="peeling")
+    dec = ldpc_tpu_torch.BeliefFindDecoder(rep_code(5), error_rate=0.1, uf_method="peeling", device="cpu")
     x = dec.decode(np.zeros(4, np.uint8))
     assert not x.any() and dec.converge
