@@ -12,8 +12,13 @@ union-find (matrix and peeling), standalone LSD (order 0 and CS-5), flip
 and BP+flip on the same syndromes, and one BP+LSD statistics record on the
 card against the CPU's. K1' (BP) is held against its plain version with
 its lane state in shared memory and in device memory, and timed at both of
-the main path's launch shapes. Every ``*_time`` phase prints the kernel's
-time, its plain version's and its bound (see ``bound``). Every phase prints
+the main path's launch shapes. K3'-K5' are held against their plain
+versions in each variant (warp per lane and block per lane) and timed in
+each: K3' and K5' at their main-path calls, K4' summed over every call of
+the LSD-0 path and of the standalone UnionFind path (65,536 lanes), all
+three on surface d=17 and toric d=20 too. Every ``*_time`` phase prints
+the kernel's device time (``device_ms``), its plain version's and its
+bound (see ``bound``). Every phase prints
 one line; any failure raises and exits non-zero. The second-to-last line
 is a JSON object describing each kernel; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1.
@@ -74,6 +79,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
+    """Device time of one ``fn()``: ``calls`` back-to-back calls captured in
+    one CUDA graph, replayed ``replays`` times after a warm-up replay and
+    timed by CUDA events. The host's work per call (argument checks, the
+    launch through ctypes), which :func:`cuda_ms` includes whenever it
+    outlasts the kernel, is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
 # The least time the card could take (NVIDIA's H100 SXM data sheet): bytes
 # over the HBM rate, operations over the float32 rate outside the tensor
 # cores counted per operation (67 TFLOP/s counts an FMA as two). The kernels
@@ -111,13 +142,16 @@ def gf2_ops(tg, steps: int, pivots: int) -> float:
 
 
 def timed(name, shape, kernel, plain, bytes_moved, ops, reps=5, plain_reps=2, **extra):
-    """Time ``kernel`` and ``plain`` on the card and print them beside the
-    bound; returns the numbers the kernels line carries."""
-    ms = cuda_ms(kernel, reps)
+    """Time ``kernel`` (device time, :func:`device_ms`; and ``call_ms``, the
+    eager call as :func:`cuda_ms` times it) and ``plain`` on the card and
+    print them beside the bound; returns the numbers the kernels line
+    carries."""
+    ms = device_ms(kernel)
+    call_ms = cuda_ms(kernel, reps)
     plain_ms = cuda_ms(plain, plain_reps)
     bound_ms, bound_by = bound(bytes_moved, ops)
-    phase(name, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-          share_of_bound=bound_ms / ms, **extra)
+    phase(name, shape=shape, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+          bound_by=bound_by, share_of_bound=bound_ms / ms, **extra)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -274,55 +308,169 @@ def _max_abs_err(ker, ref) -> int:
                for a, b in zip(ker, ref))
 
 
+# K3'-K5' variants compared and timed: the warp variant, then the block
+# variant (one block per lane)
+ELIM_VARIANTS = ("warp", "block")
+EDGE_LANES = 1024  # lanes of the count-edge case
+
+
 def compare_elim(name, tg, graph, syn, llr):
-    """K3', K4' and K5' against their plain versions: K3' on the lanes'
-    reliability orders; K4' and K5' on the clusters after a real first
-    growth round, and with a random count 0..n per lane. Returns the
-    largest |kernel - plain| of each kernel's outputs."""
+    """K3', K4' and K5' against their plain versions in every variant of
+    ELIM_VARIANTS (forced; each launch must move its variant's counter): K3'
+    on the lanes' reliability orders; K4' and K5' on the clusters after a
+    real first growth round, with a random count 0..n per lane, and with
+    counts at the edges of K4's one-word rows (0, 1, 31, 32, 33, 63, 64, n)
+    on the first EDGE_LANES lanes. Returns the largest |kernel - plain| of
+    each kernel's outputs."""
     n = graph.n
     rank = gf2.batched_rank(graph.dense)
     order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
-    err = {}
-    ker = gf2_cuda.rref_export_cuda(tg, syn, order, rank)
+    err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
+
+    def run(kname, variant, *args):
+        before = gf2_cuda.VARIANT_LAUNCHES[kname][variant]
+        out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
+        torch.cuda.synchronize()
+        if gf2_cuda.VARIANT_LAUNCHES[kname][variant] != before + 1:
+            raise AssertionError(f"{kname}: the {variant} variant's counter did not move")
+        return out
+
     ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
-    torch.cuda.synchronize()
-    nlanes = int(_lanes_differ(ker, ref).sum())
-    err["rref_export"] = _max_abs_err(ker, ref)
-    full_rank = bool((ker[2].sum(dim=1) == rank).all())
-    phase("k3_vs_plain", config=name, lanes=syn.shape[0], differing_lanes=nlanes,
-          full_rank=full_rank)
-    if nlanes or err["rref_export"] or not full_rank:
-        raise AssertionError(f"K3' differs from its plain version: {name}")
+    for variant in ELIM_VARIANTS:
+        ker = run("rref_export", variant, tg, syn, order, rank)
+        nlanes = int(_lanes_differ(ker, ref).sum())
+        e = _max_abs_err(ker, ref)
+        full_rank = bool((ker[2].sum(dim=1) == rank).all())
+        phase("k3_vs_plain", config=name, variant=variant, lanes=syn.shape[0],
+              differing_lanes=nlanes, max_abs_err=e, full_rank=full_rank)
+        if nlanes or e or not full_rank:
+            raise AssertionError(f"K3' differs from its plain version: {name}/{variant}")
+        err["rref_export"] = max(err["rref_export"], e)
 
     # a real first growth round: every cluster empty, then one grow_round
     empty = torch.zeros(syn.shape[0], dtype=torch.int32, device=syn.device)
-    _, bad = gf2_cuda.masked_solve_cuda(tg, syn, order, empty)
+    _, bad = gf2_cuda.masked_solve_reference(tg, syn, order, empty)
     in_bit, _ = uf.grow_round(tg, torch.zeros_like(llr, dtype=torch.bool), bad,
                               uf.llr_rank(llr), 1)
     key = torch.where(in_bit, llr, torch.inf)
     grown = torch.argsort(key, dim=1, stable=True).to(torch.int32).contiguous()
     rng = np.random.default_rng(5)
     random = torch.from_numpy(rng.integers(0, n + 1, syn.shape[0]).astype(np.int32))
+    edges = np.resize(np.array([0, 1, 31, 32, 33, 63, 64, n], np.int32), EDGE_LANES)
     cases = (
-        ("growth_round", grown, in_bit.sum(dim=1).to(torch.int32)),
-        ("random_count", order, random.to(syn.device)),
+        ("growth_round", syn, grown, in_bit.sum(dim=1).to(torch.int32)),
+        ("random_count", syn, order, random.to(syn.device)),
+        ("count_edges", syn[:EDGE_LANES].contiguous(), order[:EDGE_LANES].contiguous(),
+         torch.from_numpy(edges).to(syn.device)),
     )
-    err["masked_solve"] = err["masked_export"] = 0
-    for case, o, count in cases:
-        k4 = gf2_cuda.masked_solve_cuda(tg, syn, o, count)
-        r4 = gf2_cuda.masked_solve_reference(tg, syn, o, count)
-        k5 = gf2_cuda.masked_export_cuda(tg, syn, o, count)
-        r5 = gf2_cuda.masked_export_reference(tg, syn, o, count)
-        torch.cuda.synchronize()
-        n4, n5 = int(_lanes_differ(k4, r4).sum()), int(_lanes_differ(k5, r5).sum())
-        err["masked_solve"] = max(err["masked_solve"], _max_abs_err(k4, r4))
-        err["masked_export"] = max(err["masked_export"], _max_abs_err(k5, r5))
-        phase("k4_k5_vs_plain", config=name, case=case, lanes=syn.shape[0],
-              k4_differing_lanes=n4, k5_differing_lanes=n5,
-              mean_count=float(count.float().mean()))
-        if n4 or n5 or err["masked_solve"] or err["masked_export"]:
-            raise AssertionError(f"K4'/K5' differ from their plain versions: {name}/{case}")
+    for case, s, o, count in cases:
+        r4 = gf2_cuda.masked_solve_reference(tg, s, o, count)
+        r5 = gf2_cuda.masked_export_reference(tg, s, o, count)
+        for variant in ELIM_VARIANTS:
+            k4 = run("masked_solve", variant, tg, s, o, count)
+            k5 = run("masked_export", variant, tg, s, o, count)
+            n4, n5 = int(_lanes_differ(k4, r4).sum()), int(_lanes_differ(k5, r5).sum())
+            e4, e5 = _max_abs_err(k4, r4), _max_abs_err(k5, r5)
+            err["masked_solve"] = max(err["masked_solve"], e4)
+            err["masked_export"] = max(err["masked_export"], e5)
+            phase("k4_k5_vs_plain", config=name, case=case, variant=variant,
+                  lanes=s.shape[0], k4_differing_lanes=n4, k5_differing_lanes=n5,
+                  max_abs_err=max(e4, e5), mean_count=float(count.float().mean()),
+                  narrow_lanes=int((count < 32).sum()))
+            if n4 or n5 or e4 or e5:
+                raise AssertionError(
+                    f"K4'/K5' differ from their plain versions: {name}/{case}/{variant}")
     return err
+
+
+def elim_work(kname, args):
+    """``(steps, pivots)`` of one K3'-K5' call, counted by the plain
+    elimination: K3' walks to its rank pivots (the columns it steps over are
+    at least as many); K4' and K5' step over exactly their count columns."""
+    tgx, syn, order, last = args
+    if kname == "rref_export":
+        limit = torch.full((syn.shape[0],), tgx.n, dtype=torch.int32, device=syn.device)
+        pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, last, False).sum())
+        return pivots, pivots
+    pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, last, tgx.m + 1, False).sum())
+    return int(last.sum()), pivots
+
+
+def time_elim(kname, args, plain_reps=2, reps=5):
+    """One K3'-K5' call timed in every variant of ELIM_VARIANTS (device
+    time, :func:`device_ms`) and in its plain version, beside its bound:
+    bytes of the call's tensors (and the graph array the default variant
+    reads) over the HBM rate, or its operations (:func:`gf2_ops`). ``ms``
+    is the default variant's time, ``call_ms`` its eager call's."""
+    cuda_fn = getattr(gf2_cuda, f"{kname}_cuda")
+    plain_fn = getattr(gf2_cuda, f"{kname}_reference")
+    tgx = args[0]
+    steps, pivots = elim_work(kname, args)
+    graph_array = tgx.var_chks if kname == "masked_solve" else tgx.packed
+    moved = nbytes(*(a for a in args if torch.is_tensor(a)), graph_array, *cuda_fn(*args))
+    variant_ms = {v: device_ms(lambda v=v: cuda_fn(*args, variant=v)) for v in ELIM_VARIANTS}
+    default = gf2_cuda.elim_variant(tgx.m, tgx.n)
+    bound_ms, bound_by = bound(moved, gf2_ops(tgx, steps, pivots))
+    return {"ms": variant_ms[default], "call_ms": cuda_ms(lambda: cuda_fn(*args), reps),
+            "plain_ms": cuda_ms(lambda: plain_fn(*args), plain_reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, "variants_ms": variant_ms,
+            "default": default, "steps": steps, "pivots": pivots}
+
+
+def time_sizes(name, code, lanes=4096):
+    """K3' on reliability orders and K4'/K5' on a first growth round of
+    ``lanes`` syndromes of ``code``, each timed in every variant."""
+    graph = compile_pcm(code.hx)
+    tgx = graph_to_torch(graph, "cuda")
+    syn = torch.from_numpy(workload(graph.dense, lanes, seed=17)[1]).to("cuda")
+    llr0 = torch.from_numpy(channel_llr(np.full(graph.n, ERROR_RATE))).to("cuda")
+    llr = bp_cuda.bp_parallel_cuda(tgx, syn, llr0, MINIMUM_SUM, MAX_ITER, MS_FACTOR).llr_posterior
+    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+    _, bad = gf2_cuda.masked_solve_reference(
+        tgx, syn, order, torch.zeros(lanes, dtype=torch.int32, device="cuda"))
+    in_bit, _ = uf.grow_round(tgx, torch.zeros_like(llr, dtype=torch.bool), bad,
+                              uf.llr_rank(llr), 1)
+    grown = uf.cluster_columns(in_bit, llr)
+    rank = gf2.batched_rank(graph.dense)
+    for kname, args in (("rref_export", (tgx, syn, order, rank)),
+                        ("masked_solve", (tgx, syn, *grown)),
+                        ("masked_export", (tgx, syn, *grown))):
+        t = time_elim(kname, args, plain_reps=1)
+        phase(f"{kname}_size_time", config=name, m=graph.m, n=graph.n, lanes=lanes,
+              default=t["default"], ms=t["ms"], plain_ms=t["plain_ms"],
+              bound_ms=t["bound_ms"], share_of_bound=t["bound_ms"] / t["ms"],
+              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+
+
+def count_shape(count) -> dict:
+    """Lanes, mean and largest count, and lanes K4' keeps in registers."""
+    return {"lanes": count.numel(), "mean_count": float(count.float().mean()),
+            "max_count": int(count.max()), "narrow_lanes": int((count < 32).sum())}
+
+
+def time_k4_calls(label, calls, plain_reps=1):
+    """K4' over every call a path made, each timed as :func:`time_elim`
+    does and printed; returns the sums (the kernels line's numbers)."""
+    total = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    variants = {}
+    bound_by = {"bytes": 0.0, "operations": 0.0}  # the summed bound, by what bounds each call
+    for i, args in enumerate(calls):
+        t = time_elim("masked_solve", args, plain_reps=plain_reps)
+        phase("masked_solve_call", path=label, call=i, **count_shape(args[3]),
+              ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+        for k in total:
+            total[k] += t[k]
+        bound_by[t["bound_by"]] += t["bound_ms"]
+        for k, v in t["variants_ms"].items():
+            variants[k] = variants.get(k, 0.0) + v
+    phase("masked_solve_time", path=label, calls=len(calls), ms=total["ms"],
+          call_ms=total["call_ms"], plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+          share_of_bound=total["bound_ms"] / total["ms"],
+          **{f"{k}_ms": v for k, v in variants.items()})
+    return {k: total[k] for k in ("ms", "plain_ms", "bound_ms")} | {
+        "bound_by": max(bound_by, key=bound_by.get)}
 
 
 def captured_calls(module, name, run):
@@ -349,6 +497,8 @@ def reset_counters() -> None:
     gf2_cuda.RREF_EXPORT_LAUNCHES = 0
     gf2_cuda.MASKED_SOLVE_LAUNCHES = 0
     gf2_cuda.MASKED_EXPORT_LAUNCHES = 0
+    for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
+        by_variant.update(warp=0, block=0)
     flip.FLIP_LAUNCHES = 0
     uf.HOST_SYNCS = 0
     uf.GROWTH_ROUNDS = 0
@@ -363,6 +513,9 @@ def read_counters() -> dict:
         "rref_export": gf2_cuda.RREF_EXPORT_LAUNCHES,
         "masked_solve": gf2_cuda.MASKED_SOLVE_LAUNCHES,
         "masked_export": gf2_cuda.MASKED_EXPORT_LAUNCHES,
+        **{f"{kernel}_{variant}": count
+           for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()
+           for variant, count in by_variant.items()},
         "flip": flip.FLIP_LAUNCHES,
         "host_syncs": uf.HOST_SYNCS,
         "growth_rounds": uf.GROWTH_ROUNDS,
@@ -571,45 +724,31 @@ def main() -> int:
             elim_err[k] = max(elim_err[k], v)
 
     # times at the main paths' calls, captured from the slice-B decoders on
-    # the failed lanes: K3' on the OSD-CS bucket, K4' on the first growth
-    # round with nonempty clusters, K5' on LSD-CS's final export
+    # the failed lanes: K3' on the OSD-CS bucket, K4' on every growth round
+    # of LSD-0 (summed), K5' on LSD-CS's final export
     llr_f = full.llr_posterior[failed].contiguous()
     channel = np.full(graph.n, ERROR_RATE)
     osd_cs = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, dev)
     k3_args = captured_calls(gf2_cuda, "rref_export", lambda: osd_cs(syn_f, llr_f))[0]
+    lsd0 = lsd.make_lsd_decoder(graph, lsd.LSD_0, 0, 1, dev)
+    k4_calls = captured_calls(gf2_cuda, "masked_solve", lambda: lsd0(syn_f, llr_f))
     lsd_cs = lsd.make_lsd_decoder(graph, lsd.LSD_CS, 5, 1, dev)
-    k4_calls = []
-    k5_args = captured_calls(
-        gf2_cuda, "masked_export",
-        lambda: k4_calls.extend(captured_calls(gf2_cuda, "masked_solve", lambda: lsd_cs(syn_f, llr_f))),
-    )[-1]
-    k4_args = k4_calls[1]
+    k5_args = captured_calls(gf2_cuda, "masked_export", lambda: lsd_cs(syn_f, llr_f))[-1]
     elim_numbers = {}
-    for kname, cuda_fn, plain_fn, args in (
-        ("rref_export", gf2_cuda.rref_export_cuda, gf2_cuda.rref_export_reference, k3_args),
-        ("masked_solve", gf2_cuda.masked_solve_cuda, gf2_cuda.masked_solve_reference, k4_args),
-        ("masked_export", gf2_cuda.masked_export_cuda, gf2_cuda.masked_export_reference, k5_args),
-    ):
-        tgx, syn, order = args[:3]
-        B = syn.shape[0]
-        shape = f"B={B}"
-        if kname == "rref_export":
-            # K3' walks to its rank pivots; the columns it steps over are
-            # at least as many
-            limit = torch.full((B,), graph.n, dtype=torch.int32, device=dev)
-            pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, args[3], False).sum())
-            steps = pivots
-        else:
-            # K4' and K5' step over exactly their count columns
-            limit = args[3]
-            pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, tgx.m + 1, False).sum())
-            steps = int(limit.sum())
-            shape += f",mean_count={float(limit.float().mean()):.2f}"
-        elim_numbers[kname] = timed(
-            f"{kname}_time", shape, lambda: cuda_fn(*args), lambda: plain_fn(*args),
-            nbytes(*(a for a in args if torch.is_tensor(a)), tgx.packed, *cuda_fn(*args)),
-            gf2_ops(tgx, steps, pivots), steps=steps, pivots=pivots,
-        )
+    for kname, args in (("rref_export", k3_args), ("masked_export", k5_args)):
+        t = time_elim(kname, args)
+        extra = count_shape(args[3]) if kname == "masked_export" else {"lanes": args[1].shape[0]}
+        phase(f"{kname}_time", **extra, ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
+              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+              share_of_bound=t["bound_ms"] / t["ms"], default=t["default"],
+              steps=t["steps"], pivots=t["pivots"],
+              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+        elim_numbers[kname] = {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    elim_numbers["masked_solve"] = time_k4_calls("lsd0", k4_calls)
+    # K3', K4' and K5' on larger codes, in every variant: where the warp
+    # variant stops paying (the per-lane budgets in csrc/gf2_elim.cu)
+    for cname, size_code in (("surface17", surface_code(17)), ("toric20", tor)):
+        time_sizes(cname, size_code)
 
     # ---- 5. the flip sweep against its plain version -------------------------
     flip_err = 0
@@ -634,6 +773,10 @@ def main() -> int:
     # ---- 6. main paths: decode_batch -----------------------------------------
     paths = {p.key: p for p in decode_paths(code)}
     path = {key: drive_decoder(p, H, syn_np) for key, p in paths.items()}
+    # K4' at the standalone UnionFind shape: every lane of the batch
+    uf_dec = paths["uf_matrix"].make("cuda")
+    uf_calls = captured_calls(gf2_cuda, "masked_solve", lambda: uf_dec.decode_batch(syn_np))
+    time_k4_calls("uf_matrix", uf_calls)
 
     # ---- 7. device Monte-Carlo -----------------------------------------------
     step, runs_per_call = mc_step(code, "cuda")
@@ -674,27 +817,34 @@ def main() -> int:
 
     # No PyTorch call computes BP, a GF(2) elimination or a flip sweep in
     # one call, so library_ms is null on every kernel.
-    def entry(name, source, replaces, launches, err, numbers):
+    # variant_launches: the main path's launches by variant (K1' by where a
+    # lane's state lived, K3'-K5' warp or block; K2' and flip have one)
+    def entry(name, source, replaces, counts, err, numbers, variants):
         return {"name": name, "route": "cuda", "source": f"ldpc_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
-                **numbers, "library_ms": None}
+                "replaces": replaces, "launches": counts[name], "max_abs_err": err,
+                **numbers, "library_ms": None,
+                "variant_launches": {v: counts[k] for v, k in variants.items()}}
+
+    def elim_variants(name):
+        return {v: f"{name}_{v}" for v in ("warp", "block")}
 
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
-              path["osd0"]["bp_parallel"], k1_err, k1_numbers),
+              path["osd0"], k1_err, k1_numbers,
+              {"shared": "bp_shared_state", "device": "bp_device_state"}),
         entry("osd0", "osd0.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
-              path["osd0"]["osd0"], k2_err, k2_numbers),
+              path["osd0"], k2_err, k2_numbers, {"block": "osd0"}),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
-              path["osd_cs5"]["rref_export"], elim_err["rref_export"],
-              elim_numbers["rref_export"]),
+              path["osd_cs5"], elim_err["rref_export"],
+              elim_numbers["rref_export"], elim_variants("rref_export")),
         entry("masked_solve", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:163",
-              path["lsd0"]["masked_solve"], elim_err["masked_solve"],
-              elim_numbers["masked_solve"]),
+              path["lsd0"], elim_err["masked_solve"],
+              elim_numbers["masked_solve"], elim_variants("masked_solve")),
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
-              path["lsd_cs5"]["masked_export"], elim_err["masked_export"],
-              elim_numbers["masked_export"]),
-        entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"]["flip"], flip_err,
-              flip_numbers),
+              path["lsd_cs5"], elim_err["masked_export"],
+              elim_numbers["masked_export"], elim_variants("masked_export")),
+        entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"], flip_err,
+              flip_numbers, {"thread": "flip"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,14 @@
-// K3', K4', K5': batched GF(2) Gauss-Jordan elimination for Hopper (sm_90a),
-// one templated body behind three launchers.
+// K3', K4', K5': batched GF(2) Gauss-Jordan elimination for Hopper (sm_90a).
 //
 // Replaces three Pallas TPU kernels of ldpc_tpu/ops/gf2_pallas.py that copy
 // one elimination body and differ in two flags:
 //   K3' ldpc_rref_export   <- _rref_export_kernel   (make_rref_export_solver)
-//       full elimination to rank, exports [R | T s]          (kMask=0, kExport=1)
+//       full elimination to rank, exports [R | T s]          (kMask=0, export)
 //   K4' ldpc_masked_solve  <- _masked_solve_kernel  (make_masked_solver)
 //       lane l eliminates its first count[l] columns, reads out x0 and the
-//       per-row "unused with syndrome 1" flags              (kMask=1, kExport=0)
+//       per-row "unused with syndrome 1" flags              (kMask=1, readout)
 //   K5' ldpc_masked_export <- _masked_export_kernel (make_masked_export_solver)
-//       K4's masked elimination with K3's export             (kMask=1, kExport=1)
+//       K4's masked elimination with K3's export             (kMask=1, export)
 // Their plain PyTorch versions are ldpc_tpu_torch/ops/gf2_cuda.py::
 // rref_export_reference, masked_solve_reference and masked_export_reference.
 //
@@ -17,53 +16,94 @@
 // [H | s], bit-packed 32 columns per word; for each column in the lane's
 // order, the pivot is the lowest-index unused row holding a 1 there; it is
 // XORed into every other row holding a 1 (swap-free Gauss-Jordan) and the row
-// remembers its pivot column. What the flags change:
-//   - kMask: the lane stops after its own count[l] columns. The Pallas loop
-//     runs every lane of a tile to the tile's largest count with an `active`
-//     mask; masked steps change nothing, so a per-lane stop gives the same
-//     state.
-//   - !kMask (K3'): the lane stops at its own rank pivots. Once it has rank
-//     pivots every unused row is zero on H, so the columns the Pallas tile
-//     still walks for its other lanes change nothing.
-//   - There is no syndrome fast exit here: callers read the pivot structure.
-//   - kExport: the reduced words (m, Wp), each row's pivot column (n for an
-//     unused row) and the used-row mask go to device memory.
-//   - !kExport: x0 in original column coordinates (x0[col_of_row[r]] = the
-//     row's syndrome bit, for used rows) and bad_row[r] = syndrome bit of an
-//     unused row.
+// remembers its pivot column. K4' and K5' stop a lane after its own count[l]
+// columns (the Pallas tile runs every lane to the tile's largest count with
+// an `active` mask; masked steps change nothing); K3' stops a lane at rank
+// pivots (after that every unused row is zero on H, so further columns change
+// nothing). There is no syndrome fast exit: callers read the pivot structure.
+// The export is the reduced words (m, Wp), each row's pivot column (n for an
+// unused row) and the used-row mask; the readout is x0 in original column
+// coordinates (x0[col_of_row[r]] = the row's syndrome bit, for used rows) and
+// bad_row[r] = syndrome bit of an unused row.
 //
-// What bounds it on the H100: as for K2', the sequential column loop. Each
-// step is a column test over the thread's rows, one block-wide atomicMin and
-// m*Wp word XORs: a lane is bound by the latency of the step's barrier, not
-// by bytes or operations. Device memory is touched to load H and s once and
-// to write the outputs once (the export is m*Wp words per lane).
+// What bounds it on the H100: neither bytes nor operations but the latency
+// and issue of the sequential column loop. K3' walks about 308 of the 313
+// columns of a d=13 lane before it has rank (156) pivots; half the steps find
+// no pivot, and a pivot clears only about 3.6 other rows, whose XOR touches
+// about 2.5 nonzero words of the pivot row. So a step's fixed cost (the
+// column test over every row, the pivot search, the loop) is the kernel.
+// K4' on LSD's growth rounds walks about 5 columns a lane, so what it pays
+// for is set-up and write-out around the steps.
 //
-// What the design does about it: one block per lane, the lane's working
-// matrix in shared memory (6.2 KB at d=13, 41.6 KB for toric d=20; above
-// 48 KB the launcher opts in, up to 227 KB); threads own rows, so the column
-// test and the XOR need no communication. The pivot is a shared atomicMin
-// into one of three rotating slots, which needs one barrier per step: slot
-// j%3 is written in step j, read right after that step's barrier, and reset
-// by thread 0 after the barrier of step j+1, before anyone can reach step
-// j+3. Many lanes run concurrently on each SM to hide the barrier latency.
+// What the design does about it (the warp variant, the default):
+//   - One warp per lane, several lanes to a block, no __syncthreads and no
+//     shared atomic: thread t owns rows t, t+32, ..., its used flags are one
+//     32-bit mask, and a step needs only warp primitives. The pivot is the
+//     lowest unused row holding the bit: __reduce_min_sync of each thread's
+//     lowest candidate row group, then __ffs of that group's __ballot_sync.
+//     Each thread XORs the pivot row's nonzero words (one __ballot_sync
+//     finds them) into its own rows that hold the bit; __syncwarp orders the
+//     XORs before the next column test.
+//   - K3'/K5' keep the lane's [H | s] in shared memory, rows padded with zero
+//     rows to a multiple of 32 and at an odd stride, so a warp's row test is
+//     RMAX loads with precomputed offsets, issued back to back, on 32
+//     distinct banks. H comes in and the export goes out as flat coalesced
+//     word streams. The lane's order row is read 32 columns at a time,
+//     coalesced, and handed out by __shfl_sync, so no dependent load sits on
+//     the step's path.
+//   - K4' works on the lane's own columns only: every pivot and XOR on the
+//     bits it reads out depends only on its first count columns and the
+//     syndrome. Row r of the working matrix holds bit j = H[r, order[j]] and
+//     the syndrome at bit count, built from var_chks (count x dv loads, pad
+//     slots skipped) instead of copying H. A lane with count < 32 (the usual
+//     growth round) keeps its matrix in registers, one word per owned row,
+//     and broadcasts pivot rows by __shfl_sync; a wider lane builds its
+//     ceil((count+1)/32)-word rows in shared memory and runs K3's step. The
+//     choice is per lane, on the device, and warp-uniform.
+//   - The block variant, kept for codes the warp cannot hold (m > 1024 rows,
+//     or a lane above kLaneBudget of shared memory): one block per lane,
+//     threads own rows, the pivot a shared atomicMin into one of three
+//     rotating slots behind one __syncthreads a step.
+// ldpc_elim_warp tells the wrapper which variant a code takes by default.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpMaxRows = 32 * 32;  // 32 rows a thread: one 32-bit used mask
+// A lane's shared memory in the warp variant up to this many bytes (toric
+// d=20 takes 46.5 KB); larger codes take the block variant.
+constexpr size_t kLaneBudget = 48 * 1024;
+// Lanes a block while 4 of them need no shared-memory opt-in; else one.
+constexpr size_t kSmallBlock = 48 * 1024;
+
+struct Args {
+  const uint8_t* synd;     // (B, m)
+  const int* order;        // (B, n)
+  const int* count;        // (B,) kMask
+  const uint32_t* H;       // (m, Wp) packed [H | 0]
+  const int* var_chks;     // (n, dv) checks of each bit, pad = m (K4' warp)
+  int m, n, Wp, dv, rank, B;
+  uint8_t* x0;             // (B, n)
+  bool* bad_row;           // (B, m)
+  uint32_t* M_out;         // (B, m, Wp)
+  int* colrow_out;         // (B, m)
+  bool* used_out;          // (B, m)
+};
+
+__device__ inline int lane_limit(const Args& a, int lane) {
+  const int c = __ldg(a.count + lane);
+  return c < 0 ? 0 : (c < a.n ? c : a.n);
+}
+
+// ---- block variant: one block per lane ------------------------------------
+
 template <bool kMask, bool kExport>
-__global__ void gf2_elim_kernel(const uint8_t* __restrict__ synd,  // (B, m)
-                                const int* __restrict__ order,     // (B, n)
-                                const int* __restrict__ count,     // (B,) kMask
-                                const uint32_t* __restrict__ H,    // (m, Wp)
-                                int m, int n, int Wp, int rank,
-                                uint8_t* __restrict__ x0,          // (B, n)
-                                bool* __restrict__ bad_row,        // (B, m)
-                                uint32_t* __restrict__ M_out,      // (B, m, Wp)
-                                int* __restrict__ colrow_out,      // (B, m)
-                                bool* __restrict__ used_out) {     // (B, m)
-  extern __shared__ uint32_t smem[];
+__global__ void gf2_block_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int m = a.m, n = a.n, Wp = a.Wp;
   uint32_t* M = smem;                                            // (m, Wp)
   int* col_of_row = reinterpret_cast<int*>(M + (size_t)m * Wp);  // (m,)
   __shared__ int s_piv[3];
@@ -73,10 +113,10 @@ __global__ void gf2_elim_kernel(const uint8_t* __restrict__ synd,  // (B, m)
   const int nt = blockDim.x;
   const int ws = n >> 5;                   // word of the syndrome column
   const uint32_t bs = (uint32_t)(n & 31);  // its bit
-  const uint8_t* s_lane = synd + (size_t)lane * m;
-  const int* ord = order + (size_t)lane * n;
+  const uint8_t* s_lane = a.synd + (size_t)lane * m;
+  const int* ord = a.order + (size_t)lane * n;
 
-  for (int idx = tid; idx < m * Wp; idx += nt) M[idx] = __ldg(H + idx);
+  for (int idx = tid; idx < m * Wp; idx += nt) M[idx] = __ldg(a.H + idx);
   if (tid < 3) s_piv[tid] = m;
   __syncthreads();
   for (int r = tid; r < m; r += nt) {
@@ -84,13 +124,9 @@ __global__ void gf2_elim_kernel(const uint8_t* __restrict__ synd,  // (B, m)
   }
   // thread tid owns rows tid, tid + nt, ...; bit q of `used` is row tid + q*nt
   uint32_t used = 0;
-  int limit = n;
-  if (kMask) {
-    const int c = __ldg(count + lane);
-    limit = c < 0 ? 0 : (c < n ? c : n);
-  }
+  const int limit = kMask ? lane_limit(a, lane) : n;
   int used_cnt = 0;
-  for (int j = 0; j < limit && (kMask || used_cnt < rank); ++j) {
+  for (int j = 0; j < limit && (kMask || used_cnt < a.rank); ++j) {
     const int c = __ldg(ord + j);
     const int w = c >> 5;
     const uint32_t bit = (uint32_t)(c & 31);
@@ -128,15 +164,15 @@ __global__ void gf2_elim_kernel(const uint8_t* __restrict__ synd,  // (B, m)
   __syncthreads();  // every row final before any thread reads another's
 
   if (kExport) {
-    uint32_t* out = M_out + (size_t)lane * m * Wp;
+    uint32_t* out = a.M_out + (size_t)lane * m * Wp;
     for (int idx = tid; idx < m * Wp; idx += nt) out[idx] = M[idx];
     for (int q = 0, r = tid; r < m; ++q, r += nt) {
       const bool u = (used >> q) & 1u;
-      colrow_out[(size_t)lane * m + r] = u ? col_of_row[r] : n;
-      used_out[(size_t)lane * m + r] = u;
+      a.colrow_out[(size_t)lane * m + r] = u ? col_of_row[r] : n;
+      a.used_out[(size_t)lane * m + r] = u;
     }
   } else {
-    uint8_t* x_lane = x0 + (size_t)lane * n;
+    uint8_t* x_lane = a.x0 + (size_t)lane * n;
     for (int j = tid; j < n; j += nt) x_lane[j] = 0;
     __syncthreads();
     for (int q = 0, r = tid; r < m; ++q, r += nt) {
@@ -144,68 +180,422 @@ __global__ void gf2_elim_kernel(const uint8_t* __restrict__ synd,  // (B, m)
       if ((used >> q) & 1u) {
         x_lane[col_of_row[r]] = sb;
       }
-      bad_row[(size_t)lane * m + r] = sb && !((used >> q) & 1u);
+      a.bad_row[(size_t)lane * m + r] = sb && !((used >> q) & 1u);
     }
   }
 }
 
+// ---- warp variant: one warp per lane ---------------------------------------
+
+// Row stride in shared memory: odd, so the 32 rows a warp tests at once
+// (rows t + 32q, stride apart) fall in 32 distinct banks.
+__host__ __device__ inline int row_stride(int words) { return words | 1; }
+
+__host__ __device__ inline int row_groups(int m) { return (m + 31) >> 5; }
+
+// A lane's shared memory in words: the matrix, its rows padded with zero
+// rows to a multiple of 32 (so a row test needs no bound), then each row's
+// pivot column; a multiple of 4 words.
+__host__ __device__ inline size_t lane_words(int m, int Wp) {
+  return ((size_t)32 * row_groups(m) * row_stride(Wp) + (size_t)m + 3) & ~(size_t)3;
+}
+
+inline int lanes_per_block(size_t lane_bytes) {
+  return 4 * lane_bytes <= kSmallBlock ? 4 : 1;
+}
+
+// Where thread t's rows start in a lane's shared matrix of row stride S:
+// groups past R repeat group R - 1, so the row test loads RMAX words
+// unconditionally and `mask` drops the repeats. Set once per lane, so a
+// step spends no instructions on addresses.
+template <int RMAX>
+struct RowGroups {
+  int off[RMAX];
+  uint32_t mask;
+
+  __device__ RowGroups(int t, int S, int R) {
+#pragma unroll
+    for (int q = 0; q < RMAX; ++q) off[q] = ((q < R ? q : R - 1) * 32 + t) * S;
+    mask = R < 32 ? (1u << R) - 1u : ~0u;
+  }
+};
+
+// One column step on a shared-memory matrix M (32 R rows, rows m and above
+// zero, W words a row at stride S): the column is bit `bit` of word w. Finds
+// the pivot, marks it used in its owner's mask and XORs the pivot row's
+// nonzero words into every other row holding the bit, each thread into its
+// own rows. Returns the pivot row, or -1.
+template <int RMAX>
+__device__ inline int warp_step(uint32_t* M, int S, int W, const RowGroups<RMAX>& g,
+                                int t, int w, uint32_t bit, uint32_t& used) {
+  // bit q: row t + 32q holds a 1 in the column; the loads issue back to back
+  uint32_t word[RMAX];
+#pragma unroll
+  for (int q = 0; q < RMAX; ++q) word[q] = M[g.off[q] + w];
+  uint32_t hold = 0;
+#pragma unroll
+  for (int q = 0; q < RMAX; ++q) hold |= ((word[q] >> bit) & 1u) << q;
+  hold &= g.mask;
+  const uint32_t cand = hold & ~used;
+  // lowest row group holding a candidate, then its lowest thread
+  const unsigned qmin = __reduce_min_sync(kFull, cand ? (unsigned)(__ffs(cand) - 1) : 32u);
+  if (qmin == 32u) return -1;
+  const int pt = __ffs(__ballot_sync(kFull, (cand >> qmin) & 1u)) - 1;
+  const int piv = pt + 32 * (int)qmin;
+  if (t == pt) {
+    used |= 1u << qmin;
+    hold &= ~(1u << qmin);
+  }
+  const uint32_t* prow = M + piv * S;
+  if (W <= 32) {
+    const uint32_t nz = __ballot_sync(kFull, t < W && prow[t] != 0u);
+    for (; hold; hold &= hold - 1) {
+      uint32_t* row = M + (t + 32 * (__ffs(hold) - 1)) * S;
+      for (uint32_t z = nz; z; z &= z - 1) {
+        const int k = __ffs(z) - 1;
+        row[k] ^= prow[k];
+      }
+    }
+  } else {
+    for (; hold; hold &= hold - 1) {
+      uint32_t* row = M + (t + 32 * (__ffs(hold) - 1)) * S;
+      for (int k = 0; k < W; ++k) row[k] ^= prow[k];
+    }
+  }
+  __syncwarp();
+  return piv;
+}
+
+// Copy an (m, W) row-major array between device memory (stride W) and the
+// lane's shared matrix (stride S) with the 32 threads of a warp: thread t
+// takes flat words t, t+32, ..., so each pass is one coalesced 128-byte
+// access, and the loads of a pass do not wait on each other.
+template <bool kIn>
+__device__ inline void warp_copy(uint32_t* M, int S, uint32_t* dst_g,
+                                 const uint32_t* src_g, int m, int W, int t) {
+  const int dr = 32 / W, dk = 32 - dr * W;  // a pass advances 32 words
+  int r = t / W, k = t - (t / W) * W;
+#pragma unroll 8
+  for (int i = t; i < m * W; i += 32) {
+    if (kIn) {
+      M[r * S + k] = __ldg(src_g + i);
+    } else {
+      dst_g[i] = M[r * S + k];
+    }
+    r += dr;
+    k += dk;
+    if (k >= W) {
+      k -= W;
+      ++r;
+    }
+  }
+}
+
+// K3' (kMask=0) and K5' (kMask=1): full-width [H | s] in shared memory,
+// exported in original column coordinates. RMAX >= ceil(m/32).
+template <bool kMask, int RMAX>
+__global__ void __launch_bounds__(128, 8) gf2_warp_export_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int t = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int lane = blockIdx.x * (blockDim.x >> 5) + wib;
+  if (lane >= a.B) return;  // whole warps only; no block barrier follows
+  const int m = a.m, n = a.n, Wp = a.Wp;
+  const int S = row_stride(Wp);
+  const int R = row_groups(m);
+  uint32_t* M = smem + (size_t)wib * lane_words(m, Wp);
+  int* col_of_row = reinterpret_cast<int*>(M + (size_t)32 * R * S);
+
+  warp_copy<true>(M, S, nullptr, a.H, m, Wp, t);
+  for (int i = m * S + t; i < 32 * R * S; i += 32) M[i] = 0;  // the pad rows
+  __syncwarp();
+  const int ws = n >> 5;
+  const uint32_t bs = (uint32_t)(n & 31);
+  const uint8_t* s_lane = a.synd + (size_t)lane * m;
+  for (int r = t; r < m; r += 32) M[r * S + ws] |= (s_lane[r] ? 1u : 0u) << bs;
+  __syncwarp();
+
+  const int limit = kMask ? lane_limit(a, lane) : n;
+  const int* ord = a.order + (size_t)lane * n;
+  const RowGroups<RMAX> groups(t, S, R);
+  // the order row, 32 columns at a time: `cur` holds j..j+31, `nxt` the next
+  int cur = (t < limit) ? __ldg(ord + t) : 0;
+  int nxt = (32 + t < limit) ? __ldg(ord + 32 + t) : 0;
+  uint32_t used = 0;
+  int used_cnt = 0;
+  for (int j = 0; j < limit && (kMask || used_cnt < a.rank); ++j) {
+    if (j > 0 && (j & 31) == 0) {
+      cur = nxt;
+      nxt = (j + 32 + t < limit) ? __ldg(ord + j + 32 + t) : 0;
+    }
+    const int c = __shfl_sync(kFull, cur, j & 31);
+    const int piv = warp_step<RMAX>(M, S, Wp, groups, t, c >> 5, (uint32_t)(c & 31), used);
+    if (piv >= 0) {
+      ++used_cnt;
+      if (t == (piv & 31)) col_of_row[piv] = c;
+    }
+  }
+
+  warp_copy<false>(M, S, a.M_out + (size_t)lane * m * Wp, nullptr, m, Wp, t);
+#pragma unroll
+  for (int q = 0; q < RMAX; ++q) {
+    const int r = t + 32 * q;
+    if (r < m) {
+      const bool u = (used >> q) & 1u;
+      a.colrow_out[(size_t)lane * m + r] = u ? col_of_row[r] : n;
+      a.used_out[(size_t)lane * m + r] = u;
+    }
+  }
+}
+
+// K4': the lane's own count columns plus the syndrome. RMAX >= ceil(m/32)
+// bounds the rows a thread owns (the register matrix of a narrow lane).
+template <int RMAX>
+__global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
+    gf2_warp_solve_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int t = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int lane = blockIdx.x * (blockDim.x >> 5) + wib;
+  if (lane >= a.B) return;  // whole warps only; no block barrier follows
+  const int m = a.m, n = a.n, dv = a.dv;
+  const int R = row_groups(m);
+  const int c = lane_limit(a, lane);
+  const int* ord = a.order + (size_t)lane * n;
+  const uint8_t* s_lane = a.synd + (size_t)lane * m;
+  uint32_t* M = smem + (size_t)wib * lane_words(m, a.Wp);
+  int* col_of_row = reinterpret_cast<int*>(M + (size_t)32 * R * row_stride(a.Wp));
+
+  const int Wc = (c + 32) >> 5;  // words of the lane's c columns + syndrome
+  const int S = row_stride(Wc);
+  const int sw = c >> 5;                   // word of the syndrome bit
+  const uint32_t sbit = (uint32_t)(c & 31);
+  uint32_t row[RMAX];  // narrow lane: row t + 32q; wide lane: one word of it
+  uint32_t used = 0;
+
+  // Word wi of every owned row: bit j - 32 wi set where H[r, order[j]] = 1,
+  // for the lane's columns j in [32 wi, min(32 wi + 32, c)). Thread t loads
+  // column 32 wi + t's checks; the warp walks the columns and the thread
+  // owning each check sets its bit.
+  for (int wi = 0; wi < Wc; ++wi) {
+#pragma unroll
+    for (int q = 0; q < RMAX; ++q) row[q] = 0;
+    const int j0 = 32 * wi;
+    const int cols = (c - j0 < 32) ? c - j0 : 32;
+    const int col = (t < cols) ? __ldg(ord + j0 + t) : 0;
+    for (int k = 0; k < dv; ++k) {
+      const int chk_t = (t < cols) ? __ldg(a.var_chks + (size_t)col * dv + k) : m;
+      for (int j = 0; j < cols; ++j) {
+        const int chk = __shfl_sync(kFull, chk_t, j);
+        if (chk < m && (chk & 31) == t) {
+          const int qq = chk >> 5;
+#pragma unroll
+          for (int q = 0; q < RMAX; ++q) {
+            if (q == qq) row[q] |= 1u << j;
+          }
+        }
+      }
+    }
+    if (wi == sw) {
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) {
+        const int r = t + 32 * q;
+        if (r < m && s_lane[r]) row[q] |= 1u << sbit;
+      }
+    }
+    if (Wc > 1) {  // wide lane: the word goes to shared memory, pad rows too
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) {
+        if (q < R) M[(t + 32 * q) * S + wi] = row[q];
+      }
+    }
+  }
+
+  if (Wc == 1) {
+    // narrow lane: the matrix stays in registers
+    for (int j = 0; j < c; ++j) {
+      uint32_t hold = 0;
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) hold |= ((row[q] >> j) & 1u) << q;
+      const uint32_t cand = hold & ~used;
+      const unsigned qmin = __reduce_min_sync(kFull, cand ? (unsigned)(__ffs(cand) - 1) : 32u);
+      if (qmin == 32u) continue;
+      const int pt = __ffs(__ballot_sync(kFull, (cand >> qmin) & 1u)) - 1;
+      uint32_t mine = 0;
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) {
+        if (q == (int)qmin) mine = row[q];
+      }
+      const uint32_t prow = __shfl_sync(kFull, mine, pt);
+      if (t == pt) {
+        used |= 1u << qmin;
+        hold &= ~(1u << qmin);
+        col_of_row[pt + 32 * (int)qmin] = j;
+      }
+#pragma unroll
+      for (int q = 0; q < RMAX; ++q) {
+        if ((hold >> q) & 1u) row[q] ^= prow;
+      }
+    }
+  } else {
+    // wide lane: K3's step on the shared-memory matrix
+    __syncwarp();
+    const RowGroups<RMAX> groups(t, S, R);
+    for (int j = 0; j < c; ++j) {
+      const int piv = warp_step<RMAX>(M, S, Wc, groups, t, j >> 5, (uint32_t)(j & 31), used);
+      if (piv >= 0 && t == (piv & 31)) col_of_row[piv] = j;
+    }
+#pragma unroll
+    for (int q = 0; q < RMAX; ++q) {
+      row[q] = (q < R) ? M[(t + 32 * q) * S + sw] : 0;  // own rows' syndrome word
+    }
+  }
+
+  // read out: x0 is zero but where a used row's syndrome bit is 1
+  uint8_t* x_lane = a.x0 + (size_t)lane * n;
+  for (int j = t; j < n; j += 32) x_lane[j] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < RMAX; ++q) {
+    const int r = t + 32 * q;
+    if (r < m) {
+      const bool sb = (row[q] >> sbit) & 1u;
+      const bool u = (used >> q) & 1u;
+      if (u && sb) x_lane[__ldg(ord + col_of_row[r])] = 1;
+      a.bad_row[(size_t)lane * m + r] = sb && !u;
+    }
+  }
+}
+
+// ---- launchers ----------------------------------------------------------
+
+template <typename Kernel>
+int launch_warp(Kernel kernel, const Args& a, cudaStream_t stream) {
+  if (a.m > kWarpMaxRows) return (int)cudaErrorInvalidValue;
+  const size_t lane_bytes = lane_words(a.m, a.Wp) * sizeof(uint32_t);
+  const int lpb = lanes_per_block(lane_bytes);
+  const size_t smem = (size_t)lpb * lane_bytes;
+  if (smem > 48 * 1024) {
+    // a forced warp variant above the card's opt-in limit fails here
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (a.B + lpb - 1) / lpb;
+  kernel<<<blocks, 32 * lpb, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <bool kMask, bool kExport>
-int launch(const void* synd, const void* order, const void* count,
-           const void* packed_h, int m, int n, int Wp, int rank, int B,
-           void* x0, void* bad_row, void* M_out, void* colrow, void* used,
-           void* stream) {
-  int threads = ((m + 31) / 32) * 32;
+int launch_block(const Args& a, cudaStream_t stream) {
+  int threads = ((a.m + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   if (threads < 32) threads = 32;
-  const size_t smem = ((size_t)m * Wp + (size_t)m) * sizeof(uint32_t);
+  const size_t smem = ((size_t)a.m * a.Wp + (size_t)a.m) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gf2_elim_kernel<kMask, kExport>,
+        gf2_block_kernel<kMask, kExport>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gf2_elim_kernel<kMask, kExport>
-      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(synd), static_cast<const int*>(order),
-          static_cast<const int*>(count),
-          static_cast<const uint32_t*>(packed_h), m, n, Wp, rank,
-          static_cast<uint8_t*>(x0), static_cast<bool*>(bad_row),
-          static_cast<uint32_t*>(M_out), static_cast<int*>(colrow),
-          static_cast<bool*>(used));
+  gf2_block_kernel<kMask, kExport><<<a.B, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool kMask>
+int launch_export(const Args& a, int warp, cudaStream_t st) {
+  if (!warp) return launch_block<kMask, true>(a, st);
+  const int R = row_groups(a.m);
+  if (R <= 4) return launch_warp(gf2_warp_export_kernel<kMask, 4>, a, st);
+  if (R <= 8) return launch_warp(gf2_warp_export_kernel<kMask, 8>, a, st);
+  if (R <= 16) return launch_warp(gf2_warp_export_kernel<kMask, 16>, a, st);
+  return launch_warp(gf2_warp_export_kernel<kMask, 32>, a, st);
+}
+
+int launch_solve(const Args& a, int warp, cudaStream_t st) {
+  if (!warp) return launch_block<true, false>(a, st);
+  const int R = row_groups(a.m);
+  if (R <= 4) return launch_warp(gf2_warp_solve_kernel<4>, a, st);
+  if (R <= 8) return launch_warp(gf2_warp_solve_kernel<8>, a, st);
+  if (R <= 16) return launch_warp(gf2_warp_solve_kernel<16>, a, st);
+  return launch_warp(gf2_warp_solve_kernel<32>, a, st);
+}
+
+Args make_args(const void* synd, const void* order, const void* count,
+               const void* packed_h, const void* var_chks, int m, int n,
+               int Wp, int dv, int rank, int B) {
+  Args a;
+  a.synd = static_cast<const uint8_t*>(synd);
+  a.order = static_cast<const int*>(order);
+  a.count = static_cast<const int*>(count);
+  a.H = static_cast<const uint32_t*>(packed_h);
+  a.var_chks = static_cast<const int*>(var_chks);
+  a.m = m;
+  a.n = n;
+  a.Wp = Wp;
+  a.dv = dv;
+  a.rank = rank;
+  a.B = B;
+  a.x0 = nullptr;
+  a.bad_row = nullptr;
+  a.M_out = nullptr;
+  a.colrow_out = nullptr;
+  a.used_out = nullptr;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 on success). The
-// caller checks m <= 32 * 1024 (each thread owns at most 32 rows) and that
-// the shared memory, (m * Wp + m) * 4 bytes, fits the card's 227 KB.
+// 1 when an (m, n) code takes the warp variant by default: at most 1024
+// rows and kLaneBudget bytes of shared memory a lane; 0 for the block
+// variant.
+int ldpc_elim_warp(int m, int n) {
+  const int Wp = (n + 32) / 32;  // ceil((n + 1) / 32)
+  return (m <= kWarpMaxRows && lane_words(m, Wp) * sizeof(uint32_t) <= kLaneBudget) ? 1 : 0;
+}
+
+// Each launcher takes `warp` (1 the warp variant, 0 the block variant) and
+// returns cudaGetLastError() after the launch (0 on success), or the error
+// of raising the block's shared-memory limit (the warp variant forced on a
+// code it cannot hold). The block variant needs m <= 32 * 1024 and
+// (m * Wp + m) * 4 bytes of shared memory within the card's 227 KB; the
+// caller checks both. Nothing synchronises.
 
 // K3': M_out (B, m, Wp) words, col_of_row (B, m) int32 (n if unused), used (B, m)
 int ldpc_rref_export(const void* synd, const void* order, const void* packed_h,
-                     int m, int n, int Wp, int rank, int B, void* M_out,
-                     void* col_of_row, void* used, void* stream) {
-  return launch<false, true>(synd, order, nullptr, packed_h, m, n, Wp, rank, B,
-                             nullptr, nullptr, M_out, col_of_row, used, stream);
+                     int m, int n, int Wp, int rank, int B, int warp,
+                     void* M_out, void* col_of_row, void* used, void* stream) {
+  Args a = make_args(synd, order, nullptr, packed_h, nullptr, m, n, Wp, 0, rank, B);
+  a.M_out = static_cast<uint32_t*>(M_out);
+  a.colrow_out = static_cast<int*>(col_of_row);
+  a.used_out = static_cast<bool*>(used);
+  return launch_export<false>(a, warp, static_cast<cudaStream_t>(stream));
 }
 
-// K4': x0 (B, n) uint8, bad_row (B, m) bool
+// K4': x0 (B, n) uint8, bad_row (B, m) bool. The block variant reads
+// packed_h, the warp variant var_chks (n, dv).
 int ldpc_masked_solve(const void* synd, const void* order, const void* count,
-                      const void* packed_h, int m, int n, int Wp, int B,
-                      void* x0, void* bad_row, void* stream) {
-  return launch<true, false>(synd, order, count, packed_h, m, n, Wp, 0, B, x0,
-                             bad_row, nullptr, nullptr, nullptr, stream);
+                      const void* packed_h, const void* var_chks, int m, int n,
+                      int Wp, int dv, int B, int warp, void* x0,
+                      void* bad_row, void* stream) {
+  Args a = make_args(synd, order, count, packed_h, var_chks, m, n, Wp, dv, 0, B);
+  a.x0 = static_cast<uint8_t*>(x0);
+  a.bad_row = static_cast<bool*>(bad_row);
+  return launch_solve(a, warp, static_cast<cudaStream_t>(stream));
 }
 
 // K5': as K3', for K4's masked elimination
 int ldpc_masked_export(const void* synd, const void* order, const void* count,
                        const void* packed_h, int m, int n, int Wp, int B,
-                       void* M_out, void* col_of_row, void* used,
+                       int warp, void* M_out, void* col_of_row, void* used,
                        void* stream) {
-  return launch<true, true>(synd, order, count, packed_h, m, n, Wp, 0, B,
-                            nullptr, nullptr, M_out, col_of_row, used, stream);
+  Args a = make_args(synd, order, count, packed_h, nullptr, m, n, Wp, 0, 0, B);
+  a.M_out = static_cast<uint32_t*>(M_out);
+  a.colrow_out = static_cast<int*>(col_of_row);
+  a.used_out = static_cast<bool*>(used);
+  return launch_export<true>(a, warp, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

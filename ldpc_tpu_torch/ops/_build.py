@@ -42,14 +42,17 @@ _SIGNATURES = {
     "ldpc_bp_shared_state": [_I, _I, _I],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, x0, valid, stream)
     "ldpc_osd0": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (syndromes, order, packed_h, m, n, Wp, rank, B, M, col_of_row, used,
-    #  stream)
-    "ldpc_rref_export": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # (syndromes, order, count, packed_h, m, n, Wp, B, x0, bad_row, stream)
-    "ldpc_masked_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # (syndromes, order, count, packed_h, m, n, Wp, B, M, col_of_row, used,
-    #  stream)
-    "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (m, n) -> 1 when K3'-K5' take the warp variant by default
+    "ldpc_elim_warp": [_I, _I],
+    # (syndromes, order, packed_h, m, n, Wp, rank, B, warp, M, col_of_row,
+    #  used, stream)
+    "ldpc_rref_export": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (syndromes, order, count, packed_h, var_chks, m, n, Wp, dv, B, warp,
+    #  x0, bad_row, stream)
+    "ldpc_masked_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # (syndromes, order, count, packed_h, m, n, Wp, B, warp, M,
+    #  col_of_row, used, stream)
+    "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,
     #  iters, stream)
     "ldpc_flip": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P,

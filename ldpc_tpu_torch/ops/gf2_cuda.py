@@ -17,6 +17,14 @@ in what they return:
   unused rows that still hold a syndrome 1.
 - ``masked_export`` (K5'): K4's elimination with K3's export.
 
+K3'-K5' have two variants (:func:`elim_variant`): ``"warp"``, one warp per
+lane, the default while a lane fits the kernel's budget, and ``"block"``,
+one block per lane, for larger codes. K4's warp variant works on the lane's
+own columns only (:func:`masked_solve_compact_reference` is its plain
+model). The wrappers count launches per variant in
+:data:`VARIANT_LAUNCHES`; their ``variant`` keyword forces one (tests and
+measurement only).
+
 The export is ``(M (B, m, Wp) int32 words of [R | T s] in original column
 coordinates, col_of_row (B, m) int32 pivot column of each row (n if the row
 is unused), used (B, m) bool)``; ``Wp = ceil((n+1)/32)`` and the reduced
@@ -39,6 +47,11 @@ LAUNCHES = 0  # kernel launches made by osd0_cuda
 RREF_EXPORT_LAUNCHES = 0  # ... by rref_export_cuda
 MASKED_SOLVE_LAUNCHES = 0  # ... by masked_solve_cuda
 MASKED_EXPORT_LAUNCHES = 0  # ... by masked_export_cuda
+# ... of K3'-K5' by variant (see elim_variant)
+VARIANT_LAUNCHES = {
+    kernel: {"warp": 0, "block": 0}
+    for kernel in ("rref_export", "masked_solve", "masked_export")
+}
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt in to
 _MAX_ROWS = 32 * 1024  # 1024 threads owning at most 32 rows each
@@ -155,6 +168,60 @@ def masked_export_reference(
     )
 
 
+def masked_solve_compact_reference(
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, count: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch model of K4's warp variant, equal to
+    :func:`masked_solve_reference` bit for bit; no decoder calls it.
+
+    Lane b's working matrix holds only its own columns: bit j of row r is
+    ``H[r, order[b, j]]`` for ``j < count[b]``, built from ``var_chks``, and
+    the syndrome sits at bit ``count[b]``, 32 bits to an int64 word. Every
+    pivot and XOR on the bits K4' reads out depends on these columns only.
+    After the elimination the pivot columns map back through ``order``.
+    """
+    m, n = tg.m, tg.n
+    B = syndromes.shape[0]
+    dev = syndromes.device
+    count = count.long().clamp(0, n)
+    W = int(count.max()) if B else 0
+    Wc = (W + 32) // 32  # words of W columns and the syndrome
+    lanes = torch.arange(B, device=dev)
+    rows = torch.arange(m, device=dev)
+    cols = torch.arange(W, device=dev)
+    order = order.long()
+    # bits (B, m + 1, 32 Wc): row m takes the pad slots of var_chks
+    bits = torch.zeros((B, m + 1, 32 * Wc), dtype=torch.int64, device=dev)
+    chks = tg.var_chks.long()[order[:, :W]]  # (B, W, dv)
+    inside = (cols[None, :] < count[:, None])[:, :, None].expand_as(chks)
+    bits[
+        lanes[:, None, None].expand_as(chks)[inside],
+        chks[inside],
+        cols[None, :, None].expand_as(chks)[inside],
+    ] = 1
+    bits[lanes[:, None], rows[None, :], count[:, None]] = syndromes.long()
+    shifts = torch.arange(32, device=dev)
+    M = (bits[:, :m].view(B, m, Wc, 32) << shifts).sum(dim=3)  # (B, m, Wc)
+    used = torch.zeros((B, m), dtype=torch.bool, device=dev)
+    pivot_col = torch.zeros((B, m), dtype=torch.int64, device=dev)
+    for j in range(W):
+        col = ((M[:, :, j >> 5] >> (j & 31)) & 1).bool() & (count > j)[:, None]
+        cand = col & ~used
+        has = cand.any(dim=1)
+        piv = cand.to(torch.uint8).argmax(dim=1)  # first unused row with a 1
+        is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+        elim = col & ~is_piv & has[:, None]
+        M = torch.where(elim[:, :, None], M ^ M[lanes, piv][:, None, :], M)
+        used = used | is_piv
+        pivot_col = torch.where(is_piv, j, pivot_col)
+    sword = torch.gather(M, 2, (count >> 5).view(B, 1, 1).expand(B, m, 1)).squeeze(2)
+    sbits = ((sword >> (count & 31)[:, None]) & 1).bool()
+    x0 = torch.zeros((B, n + 1), dtype=torch.uint8, device=dev)
+    target = torch.where(used, torch.gather(order, 1, pivot_col), n)
+    x0.scatter_(1, target, (sbits & used).to(torch.uint8))
+    return x0[:, :n].contiguous(), sbits & ~used
+
+
 def pivots_taken(
     tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor,
     limit: torch.Tensor, rank: int, fast_exit: bool,
@@ -173,8 +240,10 @@ def _check(
     syndromes: torch.Tensor,
     order: torch.Tensor,
     count: Optional[torch.Tensor] = None,
+    var_chks: bool = False,
 ) -> int:
-    """Validate a launch's inputs; return the batch size."""
+    """Validate a launch's inputs (``var_chks``: K4's warp variant reads
+    the graph's ``var_chks``); return the batch size."""
 
     def require(cond: bool, what: str) -> None:
         if not cond:
@@ -187,6 +256,8 @@ def _check(
     named = [("order", order), ("packed", tg.packed)]
     if count is not None:
         named.append(("count", count))
+    if var_chks:
+        named.append(("var_chks", tg.var_chks))
     for name, t in named:
         require(t.device == dev, f"{name} is on {t.device}, syndromes on {dev}")
         require(t.is_contiguous(), f"{name} must be contiguous")
@@ -204,14 +275,43 @@ def _check(
         require(count.shape == (B,), f"count must have shape ({B},)")
     require(tg.packed.dtype == torch.int32, "packed H must be int32 words")
     require(Wp * 32 >= n + 1, "packed H has no room for the syndrome column")
-    require(m <= _MAX_ROWS, f"{m} checks exceed the kernel's {_MAX_ROWS}")
-    smem = (m * Wp + m) * 4
-    require(
-        smem <= SMEM_LIMIT,
-        f"the working matrix needs {smem} bytes of shared memory, "
-        f"more than the card's {SMEM_LIMIT}",
-    )
+    if var_chks:
+        require(tg.var_chks.dtype == torch.int32, "var_chks must be int32")
+        require(tg.var_chks.shape == (n, tg.dv), f"var_chks must have shape ({n}, {tg.dv})")
     return B
+
+
+def _check_block(kernel: str, tg: TorchGraph) -> None:
+    """The limits of the block variant (``osd0`` has only that one)."""
+    m, Wp = tg.m, tg.packed.shape[1]
+    if m > _MAX_ROWS:
+        raise ValueError(f"{kernel}_cuda: {m} checks exceed the kernel's {_MAX_ROWS}")
+    smem = (m * Wp + m) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel}_cuda: the working matrix needs {smem} bytes of shared "
+            f"memory, more than the card's {SMEM_LIMIT}"
+        )
+
+
+def elim_variant(m: int, n: int) -> str:
+    """Where K3'-K5' run an (m, n) code by default: ``"warp"`` (one warp per
+    lane, several lanes a block) while a lane fits the kernels' per-lane
+    budget, else ``"block"`` (one block per lane). The budget and the
+    layout live in ``csrc/gf2_elim.cu``, so this builds the kernels'
+    library."""
+    return "warp" if _build.library().ldpc_elim_warp(m, n) else "block"
+
+
+def _variant(kernel: str, tg: TorchGraph, variant: Optional[str]) -> str:
+    """The variant a launch takes; ``variant`` forces one (tests and
+    measurement only)."""
+    variant = elim_variant(tg.m, tg.n) if variant is None else variant
+    if variant not in ("warp", "block"):
+        raise ValueError(f"{kernel}_cuda: variant must be 'warp' or 'block', not {variant!r}")
+    if variant == "block":
+        _check_block(kernel, tg)
+    return variant
 
 
 def _stream(dev):
@@ -232,6 +332,7 @@ def osd0_cuda(
     """Launch K2' (``csrc/osd0.cu``) on CUDA tensors: one block per lane."""
     global LAUNCHES
     B = _check("osd0", tg, syndromes, order)
+    _check_block("osd0", tg)
     dev = syndromes.device
     x0 = torch.empty((B, tg.n), dtype=torch.uint8, device=dev)
     valid = torch.empty(B, dtype=torch.bool, device=dev)
@@ -249,11 +350,14 @@ def osd0_cuda(
 
 
 def rref_export_cuda(
-    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int,
+    variant: Optional[str] = None,
 ) -> Export:
-    """Launch K3' (``csrc/gf2_elim.cu``) on CUDA tensors: one block per lane."""
+    """Launch K3' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
+    :func:`elim_variant` unless ``variant`` forces one."""
     global RREF_EXPORT_LAUNCHES
     B = _check("rref_export", tg, syndromes, order)
+    variant = _variant("rref_export", tg, variant)
     dev = syndromes.device
     out = _empty_export(tg, B, dev)
     if B:
@@ -261,20 +365,26 @@ def rref_export_cuda(
         with torch.cuda.device(dev):
             rc = lib.ldpc_rref_export(
                 syndromes.data_ptr(), order.data_ptr(), tg.packed.data_ptr(),
-                tg.m, tg.n, tg.packed.shape[1], int(rank), B,
+                tg.m, tg.n, tg.packed.shape[1], int(rank), B, int(variant == "warp"),
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "rref_export")
         RREF_EXPORT_LAUNCHES += 1
+        VARIANT_LAUNCHES["rref_export"][variant] += 1
     return out
 
 
 def masked_solve_cuda(
-    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, count: torch.Tensor
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, count: torch.Tensor,
+    variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4' (``csrc/gf2_elim.cu``) on CUDA tensors: one block per lane."""
+    """Launch K4' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
+    :func:`elim_variant` unless ``variant`` forces one. The warp
+    variant builds each lane's own columns from ``tg.var_chks``; the block
+    variant reads the packed H."""
     global MASKED_SOLVE_LAUNCHES
-    B = _check("masked_solve", tg, syndromes, order, count)
+    B = _check("masked_solve", tg, syndromes, order, count, var_chks=True)
+    variant = _variant("masked_solve", tg, variant)
     dev = syndromes.device
     x0 = torch.empty((B, tg.n), dtype=torch.uint8, device=dev)
     bad_row = torch.empty((B, tg.m), dtype=torch.bool, device=dev)
@@ -283,20 +393,25 @@ def masked_solve_cuda(
         with torch.cuda.device(dev):
             rc = lib.ldpc_masked_solve(
                 syndromes.data_ptr(), order.data_ptr(), count.data_ptr(),
-                tg.packed.data_ptr(), tg.m, tg.n, tg.packed.shape[1], B,
-                x0.data_ptr(), bad_row.data_ptr(), _stream(dev),
+                tg.packed.data_ptr(), tg.var_chks.data_ptr(), tg.m, tg.n,
+                tg.packed.shape[1], tg.dv, B, int(variant == "warp"), x0.data_ptr(),
+                bad_row.data_ptr(), _stream(dev),
             )
         _build.check(lib, rc, "masked_solve")
         MASKED_SOLVE_LAUNCHES += 1
+        VARIANT_LAUNCHES["masked_solve"][variant] += 1
     return x0, bad_row
 
 
 def masked_export_cuda(
-    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, count: torch.Tensor
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, count: torch.Tensor,
+    variant: Optional[str] = None,
 ) -> Export:
-    """Launch K5' (``csrc/gf2_elim.cu``) on CUDA tensors: one block per lane."""
+    """Launch K5' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
+    :func:`elim_variant` unless ``variant`` forces one."""
     global MASKED_EXPORT_LAUNCHES
     B = _check("masked_export", tg, syndromes, order, count)
+    variant = _variant("masked_export", tg, variant)
     dev = syndromes.device
     out = _empty_export(tg, B, dev)
     if B:
@@ -305,10 +420,12 @@ def masked_export_cuda(
             rc = lib.ldpc_masked_export(
                 syndromes.data_ptr(), order.data_ptr(), count.data_ptr(),
                 tg.packed.data_ptr(), tg.m, tg.n, tg.packed.shape[1], B,
+                int(variant == "warp"),
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "masked_export")
         MASKED_EXPORT_LAUNCHES += 1
+        VARIANT_LAUNCHES["masked_export"][variant] += 1
     return out
 
 

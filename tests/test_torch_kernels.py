@@ -1,6 +1,7 @@
 """The CUDA kernels K1' (csrc/bp_parallel.cu), K2' (csrc/osd0.cu),
-K3'-K5' (csrc/gf2_elim.cu) and the flip sweep (csrc/flip.cu) held against
-their plain PyTorch versions on the card.
+K3'-K5' (csrc/gf2_elim.cu, each in its warp and block variants, forced by
+the wrappers' ``variant`` keyword) and the flip sweep
+(csrc/flip.cu) held against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -167,11 +168,22 @@ def _orders(codes, name, lanes=None):
     return graph, tg, syn, torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
 
 
+# K3'-K5' variants, each forced
+ELIM_VARIANTS = ["warp", "block"]
+# counts at the edges of K4's one-word (register) rows, and 2 words
+COUNT_EDGES = [0, 1, 31, 32, 33, 63, 64]
+
+
 def _counts(graph, syn, kind, seed=5):
-    """Per-lane column counts: random 0..n, all 0, or all n."""
+    """Per-lane column counts: random 0..n, all 0, all n, one edge of
+    COUNT_EDGES for every lane, or every edge and n in turn ("edges")."""
     B = syn.shape[0]
     if kind == "random":
         c = np.random.default_rng(seed).integers(0, graph.n + 1, B)
+    elif kind == "edges":
+        c = np.resize(np.array(COUNT_EDGES + [graph.n]), B)
+    elif isinstance(kind, int):
+        c = np.full(B, kind)
     else:
         c = np.full(B, 0 if kind == "zero" else graph.n)
     return torch.from_numpy(c.astype(np.int32)).to(syn.device)
@@ -183,44 +195,128 @@ def _assert_exports_equal(ker, ref):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("lanes", [None, 1001, 1])
+def _elim(kname, variant, *args):
+    """One K3'-K5' launch in a forced variant; its variant's counter moves."""
+    before = dict(gf2_cuda.VARIANT_LAUNCHES[kname])
+    out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
+    after = gf2_cuda.VARIANT_LAUNCHES[kname]
+    assert after[variant] == before[variant] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
+def _assert_k4_k5(tg, syn, order, cnt, variants=ELIM_VARIANTS):
+    """K4' and K5' in each variant against their plain versions; K4's warp
+    variant also against its compact model."""
+    x_r, bad_r = gf2_cuda.masked_solve_reference(tg, syn, order, cnt)
+    ref = gf2_cuda.masked_export_reference(tg, syn, order, cnt)
+    compact = gf2_cuda.masked_solve_compact_reference(tg, syn, order, cnt)
+    assert torch.equal(compact[0], x_r) and torch.equal(compact[1], bad_r)
+    for variant in variants:
+        x_k, bad_k = _elim("masked_solve", variant, tg, syn, order, cnt)
+        ker = _elim("masked_export", variant, tg, syn, order, cnt)
+        torch.cuda.synchronize()
+        assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r), variant
+        _assert_exports_equal(ker, ref)
+    return x_r, bad_r
+
+
+@pytest.mark.parametrize("variant", ELIM_VARIANTS)
+@pytest.mark.parametrize("lanes", [None, 1001, 33, 31, 1])
 @pytest.mark.parametrize("name", ["surface13", "toric20"])
-def test_k3_matches_plain_version(codes, name, lanes):
-    """Bit-identical words, pivot columns and used rows; every lane ends
-    with rank pivots; odd batch sizes."""
+def test_k3_matches_plain_version(codes, name, lanes, variant):
+    """Bit-identical words, pivot columns and used rows in each variant;
+    every lane ends with rank pivots; odd batch sizes leave a block part
+    empty."""
     graph, tg, syn, order = _orders(codes, name, lanes)
     rank = gf2.batched_rank(graph.dense)
-    before = gf2_cuda.RREF_EXPORT_LAUNCHES
-    ker = gf2_cuda.rref_export(tg, syn, order, rank)
-    assert gf2_cuda.RREF_EXPORT_LAUNCHES == before + 1
+    ker = _elim("rref_export", variant, tg, syn, order, rank)
     ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
     torch.cuda.synchronize()
     _assert_exports_equal(ker, ref)
     assert bool((ker[2].sum(dim=1) == rank).all())
 
 
-@pytest.mark.parametrize("count", ["random", "zero", "full"])
+def test_k3_k4_k5_default_variants(codes):
+    """The bare wrappers take the variant elim_variant names, and count it:
+    the warp variant up to toric d=20 (46.5 KB a lane)."""
+    graph20 = codes["toric20"][0]
+    assert gf2_cuda.elim_variant(graph20.m, graph20.n) == "warp"
+    graph, tg, syn, order = _orders(codes, "surface13", 257)
+    assert gf2_cuda.elim_variant(graph.m, graph.n) == "warp"
+    rank = gf2.batched_rank(graph.dense)
+    cnt = _counts(graph, syn, "random")
+    before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
+    _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank),
+                          gf2_cuda.rref_export_reference(tg, syn, order, rank))
+    for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
+                    gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
+        assert torch.equal(a, b)
+    _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
+                          gf2_cuda.masked_export_reference(tg, syn, order, cnt))
+    for kname, by_variant in gf2_cuda.VARIANT_LAUNCHES.items():
+        assert by_variant["warp"] == before[kname]["warp"] + 1
+        assert by_variant["block"] == before[kname]["block"]
+
+
+@pytest.mark.parametrize("variant", ELIM_VARIANTS)
+@pytest.mark.parametrize("count", ["random", "zero", "full", "edges", *COUNT_EDGES])
 @pytest.mark.parametrize("name", ["surface13", "toric20"])
-def test_k4_k5_match_plain_versions(codes, name, count):
+def test_k4_k5_match_plain_versions(codes, name, count, variant):
+    """Every count at the edges of K4's register rows (one word holds 31
+    columns and the syndrome), in each variant."""
     graph, tg, syn, order = _orders(codes, name, 1001)
     cnt = _counts(graph, syn, count)
-    before = (gf2_cuda.MASKED_SOLVE_LAUNCHES, gf2_cuda.MASKED_EXPORT_LAUNCHES)
-    x_k, bad_k = gf2_cuda.masked_solve(tg, syn, order, cnt)
-    ker = gf2_cuda.masked_export(tg, syn, order, cnt)
-    assert (gf2_cuda.MASKED_SOLVE_LAUNCHES, gf2_cuda.MASKED_EXPORT_LAUNCHES) == (
-        before[0] + 1, before[1] + 1,
-    )
-    x_r, bad_r = gf2_cuda.masked_solve_reference(tg, syn, order, cnt)
-    ref = gf2_cuda.masked_export_reference(tg, syn, order, cnt)
-    torch.cuda.synchronize()
-    assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
-    _assert_exports_equal(ker, ref)
+    x_k, bad_k = _assert_k4_k5(tg, syn, order, cnt, [variant])
     if count == "zero":
         assert not bool(x_k.any()) and torch.equal(bad_k, syn.bool())
 
 
+@pytest.mark.parametrize("lanes", [1, 31, 33])
+def test_k4_k5_odd_batches(codes, lanes):
+    """Batches that leave a block of 4 lanes part empty, every variant."""
+    graph, tg, syn, order = _orders(codes, "surface13", lanes)
+    _assert_k4_k5(tg, syn, order, _counts(graph, syn, "edges"))
+
+
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_elim_zero_syndromes(codes, name):
+    """Zero syndromes: every variant equals the plain versions, K4' returns
+    zeros and no bad row."""
+    graph, tg, syn, order = _orders(codes, name, 65)
+    zero = torch.zeros_like(syn)
+    rank = gf2.batched_rank(graph.dense)
+    ref = gf2_cuda.rref_export_reference(tg, zero, order, rank)
+    for variant in ELIM_VARIANTS:
+        _assert_exports_equal(_elim("rref_export", variant, tg, zero, order, rank), ref)
+    x, bad = _assert_k4_k5(tg, zero, order, _counts(graph, zero, "edges"))
+    assert not bool(x.any() or bad.any())
+
+
+def test_elim_toric30(dev):
+    """Toric d=30 (m = 900, 215 KB a lane in the warp variant): the block
+    variant by default, the warp variant when forced, both bit-identical."""
+    graph = compile_pcm(toric_code(30, compute_logicals=False).hx)
+    tg = graph_to_torch(graph, dev)
+    assert gf2_cuda.elim_variant(graph.m, graph.n) == "block"
+    rng = np.random.default_rng(30)
+    errors = (rng.random((48, graph.n)) < 0.03).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    order = torch.from_numpy(np.argsort(rng.random((48, graph.n)), axis=1).astype(np.int32))
+    order = order.to(dev)
+    rank = gf2.batched_rank(graph.dense)
+    ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
+    for variant in ELIM_VARIANTS:
+        _assert_exports_equal(_elim("rref_export", variant, tg, syn, order, rank), ref)
+    _assert_k4_k5(tg, syn, order, _counts(graph, syn, "edges"))
+    before = gf2_cuda.VARIANT_LAUNCHES["rref_export"]["block"]
+    _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank), ref)
+    assert gf2_cuda.VARIANT_LAUNCHES["rref_export"]["block"] == before + 1
+
+
 def test_k4_first_growth_round_matches_plain_version(codes):
-    """The shapes of LSD's first growth rounds: K4' on real cluster masks."""
+    """The shapes of LSD's first growth rounds: K4' on real cluster masks,
+    every variant."""
     from ldpc_tpu_torch.ops import uf
 
     graph, tg, syn, llr0 = codes["surface13"]
@@ -229,13 +325,9 @@ def test_k4_first_growth_round_matches_plain_version(codes):
     s, llr = syn[failed].contiguous(), res.llr_posterior[failed]
     in_bit = torch.zeros_like(llr, dtype=torch.bool)
     for _ in range(3):
-        order = torch.argsort(torch.where(in_bit, llr, torch.inf), dim=1, stable=True)
-        order = order.to(torch.int32).contiguous()
-        cnt = in_bit.sum(dim=1).to(torch.int32)
-        x_k, bad_k = gf2_cuda.masked_solve_cuda(tg, s, order, cnt)
-        x_r, bad_r = gf2_cuda.masked_solve_reference(tg, s, order, cnt)
-        assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
-        in_bit, _ = uf.grow_round(tg, in_bit, bad_k, uf.llr_rank(llr), 1)
+        order, cnt = uf.cluster_columns(in_bit, llr)
+        _, bad = _assert_k4_k5(tg, s, order, cnt)
+        in_bit, _ = uf.grow_round(tg, in_bit, bad, uf.llr_rank(llr), 1)
 
 
 def test_wrappers_validate_inputs(codes):
@@ -259,6 +351,8 @@ def test_wrappers_validate_inputs(codes):
         gf2_cuda.masked_solve_cuda(tg, syn.int(), o32, cnt)
     with pytest.raises(ValueError, match="masked_export_cuda: count is on cpu"):
         gf2_cuda.masked_export_cuda(tg, syn, o32, cnt.cpu())
+    with pytest.raises(ValueError, match="variant must be"):
+        gf2_cuda.masked_solve_cuda(tg, syn, o32, cnt, variant="lane")
     with pytest.raises(ValueError, match="flip_cuda: syndromes must be uint8"):
         flip.flip_cuda(tg, syn.int(), 5, 0, 1)
     # a working matrix beyond the card's shared memory is refused up front
@@ -275,11 +369,15 @@ def test_wrappers_validate_inputs(codes):
         gf2_cuda.masked_solve_cuda(tg_big, s, o, c)
     with pytest.raises(ValueError, match="shared memory"):
         gf2_cuda.masked_export_cuda(tg_big, s, o, c)
+    # the warp variant forced on more rows than it holds: the launcher refuses
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gf2_cuda.masked_solve_cuda(tg_big, s, o, c, variant="warp")
 
 
 def test_k4_forest_solve_order_matches_plain_version(codes):
     """K4' in the peeling decoder's final solve: each lane's grown cluster,
-    interior columns ascending, then boundary columns ascending."""
+    interior columns ascending, then boundary columns ascending; every
+    variant (counts reach well past one word)."""
     from ldpc_tpu_torch.ops import uf
 
     graph, tg, syn, _ = codes["surface13"]
@@ -288,15 +386,10 @@ def test_k4_forest_solve_order_matches_plain_version(codes):
     in_bit, _, _ = uf.grow_until_valid(tg, s, llr, 0)
     interior = tg.var_mask[:, 1]
     col_key = torch.arange(graph.n, device=s.device) + torch.where(interior, 0, graph.n)
-    key = torch.where(in_bit, col_key, 2 * graph.n)
-    order = torch.argsort(key, dim=1, stable=True).to(torch.int32).contiguous()
-    cnt = in_bit.sum(dim=1).to(torch.int32)
-    x_k, bad_k = gf2_cuda.masked_solve_cuda(tg, s, order, cnt)
-    x_r, bad_r = gf2_cuda.masked_solve_reference(tg, s, order, cnt)
-    assert torch.equal(x_k, x_r) and torch.equal(bad_k, bad_r)
-    assert not bool(bad_k.any())
-    x = x_k.cpu().numpy()
-    assert ((x @ graph.dense.T) % 2 == s.cpu().numpy()).all()
+    order, cnt = uf.cluster_columns(in_bit, col_key.float().expand_as(llr))
+    x, bad = _assert_k4_k5(tg, s, order, cnt)
+    assert not bool(bad.any())
+    assert ((x.cpu().numpy() @ graph.dense.T) % 2 == s.cpu().numpy()).all()
 
 
 def _assert_flip_equal(tg, syn, max_iter, pfreq, seed=7):
