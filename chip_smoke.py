@@ -134,11 +134,11 @@ def k1_ops(graph, lane_iterations: int) -> float:
     return float(lane_iterations) * (9 * graph.nnz + graph.n)
 
 
-def gf2_ops(tg, steps: int, pivots: int) -> float:
+def gf2_ops(tg, steps: int, pivot_words: int) -> float:
     """GF(2) elimination operations: each column step tests the column bit
-    of the m rows; each pivot reads its row's Wp words. A floor: the XORs
-    into the rows holding a 1 are not counted."""
-    return float(steps) * tg.m + float(pivots) * tg.packed.shape[1]
+    of the m rows; each pivot reads its row's words (``pivot_words`` in
+    all). A floor: the XORs into the rows holding a 1 are not counted."""
+    return float(steps) * tg.m + float(pivot_words)
 
 
 def timed(name, shape, kernel, plain, bytes_moved, ops, reps=5, plain_reps=2, **extra):
@@ -383,38 +383,77 @@ def compare_elim(name, tg, graph, syn, llr):
     return err
 
 
-def elim_work(kname, args):
-    """``(steps, pivots)`` of one K3'-K5' call, counted by the plain
-    elimination: K3' walks to its rank pivots (the columns it steps over are
-    at least as many); K4' and K5' step over exactly their count columns."""
+def elim_work(kname, args, ref):
+    """Per-lane ``(steps, pivots, words)`` of one K3'-K5' call on this run's
+    data, from its plain output ``ref``: the columns the lane must walk
+    (K3': up to its last pivot, the rank-th; K4' and K5': its count), the
+    pivots it takes, and the words of a pivot row (K4' needs only its count
+    columns and the syndrome, ceil((count+1)/32) words; K3' and K5' export
+    full rows of Wp)."""
     tgx, syn, order, last = args
-    if kname == "rref_export":
-        limit = torch.full((syn.shape[0],), tgx.n, dtype=torch.int32, device=syn.device)
-        pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, limit, last, False).sum())
-        return pivots, pivots
-    pivots = int(gf2_cuda.pivots_taken(tgx, syn, order, last, tgx.m + 1, False).sum())
-    return int(last.sum()), pivots
+    n, Wp = tgx.n, tgx.packed.shape[1]
+    if kname == "masked_solve":
+        steps = last.long().clamp(0, n)
+        pivots = gf2_cuda.pivots_taken(tgx, syn, order, last, tgx.m + 1, False)
+        return steps, pivots, (steps + 32) // 32
+    _, col_of_row, used = ref
+    pivots = used.sum(dim=1)
+    if kname == "masked_export":
+        steps = last.long().clamp(0, n)
+    else:
+        # each row's pivot column's place in the lane's order; the lane stops
+        # after its last pivot
+        place = torch.empty_like(order, dtype=torch.long).scatter_(
+            1, order.long(), torch.arange(n, device=order.device).expand(order.shape))
+        at = torch.gather(place, 1, col_of_row.long().clamp(max=n - 1))
+        steps = torch.where(used, at, -1).max(dim=1).values + 1
+    return steps, pivots, torch.full_like(pivots, Wp)
 
 
 def time_elim(kname, args, plain_reps=2, reps=5):
-    """One K3'-K5' call timed in every variant of ELIM_VARIANTS (device
-    time, :func:`device_ms`) and in its plain version, beside its bound:
-    bytes of the call's tensors (and the graph array the default variant
-    reads) over the HBM rate, or its operations (:func:`gf2_ops`). ``ms``
-    is the default variant's time, ``call_ms`` its eager call's."""
+    """One K3'-K5' call held against its plain version in every variant of
+    ELIM_VARIANTS (forced; raises unless every lane is bit-identical), timed
+    in each (device time, :func:`device_ms`) and in its plain version,
+    beside its bound: the bytes the function must move (the call's tensors
+    and the graph array the warp variant reads, each read once, but of each
+    lane's order row only the ``steps`` entries it walks; the outputs
+    written once) over the HBM rate, or its operations (:func:`gf2_ops`,
+    :func:`elim_work`). ``ms`` is the default variant's time, ``call_ms``
+    its eager call's."""
     cuda_fn = getattr(gf2_cuda, f"{kname}_cuda")
     plain_fn = getattr(gf2_cuda, f"{kname}_reference")
-    tgx = args[0]
-    steps, pivots = elim_work(kname, args)
+    tgx, syn, order, last = args
+    ref = plain_fn(*args)
+    differing, err = 0, 0
+    for v in ELIM_VARIANTS:
+        ker = cuda_fn(*args, variant=v)
+        torch.cuda.synchronize()
+        nlanes, e = int(_lanes_differ(ker, ref).sum()), _max_abs_err(ker, ref)
+        if nlanes or e:
+            raise AssertionError(f"{kname} ({v}) differs from its plain version on "
+                                 f"{nlanes} of {syn.shape[0]} lanes of a timed call")
+        differing, err = differing + nlanes, max(err, e)
+    steps, pivots, words = elim_work(kname, args, ref)
     graph_array = tgx.var_chks if kname == "masked_solve" else tgx.packed
-    moved = nbytes(*(a for a in args if torch.is_tensor(a)), graph_array, *cuda_fn(*args))
+    moved = nbytes(syn, graph_array, *ref) + 4 * int(steps.sum())
+    if torch.is_tensor(last):
+        moved += nbytes(last)
     variant_ms = {v: device_ms(lambda v=v: cuda_fn(*args, variant=v)) for v in ELIM_VARIANTS}
-    default = gf2_cuda.elim_variant(tgx.m, tgx.n)
-    bound_ms, bound_by = bound(moved, gf2_ops(tgx, steps, pivots))
+    default = gf2_cuda.elim_variant(kname, tgx.m, tgx.n)
+    bound_ms, bound_by = bound(moved, gf2_ops(tgx, int(steps.sum()), int((pivots * words).sum())))
     return {"ms": variant_ms[default], "call_ms": cuda_ms(lambda: cuda_fn(*args), reps),
             "plain_ms": cuda_ms(lambda: plain_fn(*args), plain_reps),
             "bound_ms": bound_ms, "bound_by": bound_by, "variants_ms": variant_ms,
-            "default": default, "steps": steps, "pivots": pivots}
+            "default": default, "steps": int(steps.sum()), "pivots": int(pivots.sum()),
+            "differing_lanes": differing, "max_abs_err": err}
+
+
+def elim_fields(t) -> dict:
+    """The fields a line of :func:`time_elim`'s numbers prints."""
+    keys = ("differing_lanes", "max_abs_err", "default", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "steps", "pivots")
+    return {k: t[k] for k in keys} | {"share_of_bound": t["bound_ms"] / t["ms"]} | {
+        f"{k}_ms": v for k, v in t["variants_ms"].items()}
 
 
 def time_sizes(name, code, lanes=4096):
@@ -437,9 +476,7 @@ def time_sizes(name, code, lanes=4096):
                         ("masked_export", (tgx, syn, *grown))):
         t = time_elim(kname, args, plain_reps=1)
         phase(f"{kname}_size_time", config=name, m=graph.m, n=graph.n, lanes=lanes,
-              default=t["default"], ms=t["ms"], plain_ms=t["plain_ms"],
-              bound_ms=t["bound_ms"], share_of_bound=t["bound_ms"] / t["ms"],
-              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+              **elim_fields(t))
 
 
 def count_shape(count) -> dict:
@@ -449,20 +486,20 @@ def count_shape(count) -> dict:
 
 
 def time_k4_calls(label, calls, plain_reps=1):
-    """K4' over every call a path made, each timed as :func:`time_elim`
-    does and printed; returns the sums (the kernels line's numbers)."""
+    """K4' over every call a path made, each held against its plain version
+    and timed as :func:`time_elim` does, and printed; returns the sums (the
+    kernels line's numbers) and the largest error."""
     total = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    err = 0
     variants = {}
     bound_by = {"bytes": 0.0, "operations": 0.0}  # the summed bound, by what bounds each call
     for i, args in enumerate(calls):
         t = time_elim("masked_solve", args, plain_reps=plain_reps)
-        phase("masked_solve_call", path=label, call=i, **count_shape(args[3]),
-              ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
-              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+        phase("masked_solve_call", path=label, call=i, **count_shape(args[3]), **elim_fields(t))
         for k in total:
             total[k] += t[k]
         bound_by[t["bound_by"]] += t["bound_ms"]
+        err = max(err, t["max_abs_err"])
         for k, v in t["variants_ms"].items():
             variants[k] = variants.get(k, 0.0) + v
     phase("masked_solve_time", path=label, calls=len(calls), ms=total["ms"],
@@ -470,7 +507,27 @@ def time_k4_calls(label, calls, plain_reps=1):
           share_of_bound=total["bound_ms"] / total["ms"],
           **{f"{k}_ms": v for k, v in variants.items()})
     return {k: total[k] for k in ("ms", "plain_ms", "bound_ms")} | {
-        "bound_by": max(bound_by, key=bound_by.get)}
+        "bound_by": max(bound_by, key=bound_by.get), "max_abs_err": err}
+
+
+def k4_residency(graph, paths) -> None:
+    """What K4's full-width shared-memory reservation costs: warps of its
+    warp variant resident on an SM (the CUDA occupancy calculator) when a
+    lane reserves rows of Wp words (as launched), of 2 words, or nothing
+    (narrow lanes only, which touch no shared memory), beside how many of
+    each path's lanes are wide (count >= 32) or above 2 words (count >=
+    64)."""
+    lib = _build.library()
+    Wp = (graph.n + 32) // 32
+    counts = {label: torch.cat([args[3] for args in calls]) for label, calls in paths.items()}
+    phase("k4_resident_warps", m=graph.m,
+          sms=torch.cuda.get_device_properties(0).multi_processor_count,
+          full_width=lib.ldpc_masked_solve_resident_warps(graph.m, Wp),
+          two_words=lib.ldpc_masked_solve_resident_warps(graph.m, 2),
+          none=lib.ldpc_masked_solve_resident_warps(graph.m, 0),
+          **{f"{label}_{k}": v for label, c in counts.items()
+             for k, v in (("lanes", c.numel()), ("wide", int((c >= 32).sum())),
+                          ("above_two_words", int((c >= 64).sum())))})
 
 
 def captured_calls(module, name, run):
@@ -494,9 +551,6 @@ def reset_counters() -> None:
     bp_cuda.LAUNCHES = 0
     bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
     gf2_cuda.LAUNCHES = 0
-    gf2_cuda.RREF_EXPORT_LAUNCHES = 0
-    gf2_cuda.MASKED_SOLVE_LAUNCHES = 0
-    gf2_cuda.MASKED_EXPORT_LAUNCHES = 0
     for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
         by_variant.update(warp=0, block=0)
     flip.FLIP_LAUNCHES = 0
@@ -510,9 +564,8 @@ def read_counters() -> dict:
         "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
         "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
         "osd0": gf2_cuda.LAUNCHES,
-        "rref_export": gf2_cuda.RREF_EXPORT_LAUNCHES,
-        "masked_solve": gf2_cuda.MASKED_SOLVE_LAUNCHES,
-        "masked_export": gf2_cuda.MASKED_EXPORT_LAUNCHES,
+        **{kernel: sum(by_variant.values())
+           for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()},
         **{f"{kernel}_{variant}": count
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()
            for variant, count in by_variant.items()},
@@ -714,7 +767,7 @@ def main() -> int:
         lambda: gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13),
         lambda: gf2_cuda.osd0_reference(tg, syn_f, order_f, rank13),
         nbytes(syn_f, order_f, tg.packed, *gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13)),
-        gf2_ops(tg, pivots, pivots), pivots=pivots,
+        gf2_ops(tg, pivots, pivots * tg.packed.shape[1]), pivots=pivots,
     )
 
     # ---- 4b. K3', K4', K5' against their plain versions ------------------------
@@ -738,13 +791,12 @@ def main() -> int:
     for kname, args in (("rref_export", k3_args), ("masked_export", k5_args)):
         t = time_elim(kname, args)
         extra = count_shape(args[3]) if kname == "masked_export" else {"lanes": args[1].shape[0]}
-        phase(f"{kname}_time", **extra, ms=t["ms"], call_ms=t["call_ms"], plain_ms=t["plain_ms"],
-              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-              share_of_bound=t["bound_ms"] / t["ms"], default=t["default"],
-              steps=t["steps"], pivots=t["pivots"],
-              **{f"{k}_ms": v for k, v in t["variants_ms"].items()})
+        phase(f"{kname}_time", **extra, **elim_fields(t))
         elim_numbers[kname] = {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        elim_err[kname] = max(elim_err[kname], t["max_abs_err"])
     elim_numbers["masked_solve"] = time_k4_calls("lsd0", k4_calls)
+    elim_err["masked_solve"] = max(elim_err["masked_solve"],
+                                   elim_numbers["masked_solve"].pop("max_abs_err"))
     # K3', K4' and K5' on larger codes, in every variant: where the warp
     # variant stops paying (the per-lane budgets in csrc/gf2_elim.cu)
     for cname, size_code in (("surface17", surface_code(17)), ("toric20", tor)):
@@ -776,7 +828,9 @@ def main() -> int:
     # K4' at the standalone UnionFind shape: every lane of the batch
     uf_dec = paths["uf_matrix"].make("cuda")
     uf_calls = captured_calls(gf2_cuda, "masked_solve", lambda: uf_dec.decode_batch(syn_np))
-    time_k4_calls("uf_matrix", uf_calls)
+    elim_err["masked_solve"] = max(elim_err["masked_solve"],
+                                   time_k4_calls("uf_matrix", uf_calls)["max_abs_err"])
+    k4_residency(graph, {"lsd0": k4_calls, "uf_matrix": uf_calls})
 
     # ---- 7. device Monte-Carlo -----------------------------------------------
     step, runs_per_call = mc_step(code, "cuda")

@@ -59,12 +59,21 @@
 //     growth round) keeps its matrix in registers, one word per owned row,
 //     and broadcasts pivot rows by __shfl_sync; a wider lane builds its
 //     ceil((count+1)/32)-word rows in shared memory and runs K3's step. The
-//     choice is per lane, on the device, and warp-uniform.
+//     choice is per lane, on the device, and warp-uniform. Each thread keeps
+//     its rows' pivot positions in registers, so a narrow lane touches no
+//     shared memory; the launch still reserves a full-width lane for the
+//     wide ones (ldpc_masked_solve_resident_warps measures what that costs).
 //   - The block variant, kept for codes the warp cannot hold (m > 1024 rows,
 //     or a lane above kLaneBudget of shared memory): one block per lane,
 //     threads own rows, the pivot a shared atomicMin into one of three
 //     rotating slots behind one __syncthreads a step.
-// ldpc_elim_warp tells the wrapper which variant a code takes by default.
+// ldpc_elim_warp tells the wrapper which variant a kernel takes for a code
+// by default. K5' takes the warp variant only while four lanes share a
+// block (kWarpExportMaskedBudget): with one lane to a block its one warp
+// copies the whole matrix in and out, and K5' walks too few columns (its
+// count, about 22 at d=13) to repay that; measured on the H100 it lost 4%
+// to the block body at surface d=17 and 24% at toric d=20, where K3', which
+// walks to rank, still gains 2x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +87,11 @@ constexpr int kWarpMaxRows = 32 * 32;  // 32 rows a thread: one 32-bit used mask
 constexpr size_t kLaneBudget = 48 * 1024;
 // Lanes a block while 4 of them need no shared-memory opt-in; else one.
 constexpr size_t kSmallBlock = 48 * 1024;
+// K5' keeps the warp variant while 4 lanes share a block (see above).
+constexpr size_t kWarpExportMaskedBudget = kSmallBlock / 4;
+
+// Kernel ids of ldpc_elim_warp and ldpc_warp_resident_warps.
+enum Kernel { kRrefExport = 0, kMaskedSolve = 1, kMaskedExport = 2 };
 
 struct Args {
   const uint8_t* synd;     // (B, m)
@@ -198,6 +212,12 @@ __host__ __device__ inline int row_groups(int m) { return (m + 31) >> 5; }
 // pivot column; a multiple of 4 words.
 __host__ __device__ inline size_t lane_words(int m, int Wp) {
   return ((size_t)32 * row_groups(m) * row_stride(Wp) + (size_t)m + 3) & ~(size_t)3;
+}
+
+// K4's lane in words: only a wide lane's matrix, at most Wp words a row
+// (each thread keeps its own rows' pivot columns in registers).
+__host__ __device__ inline size_t solve_lane_words(int m, int Wp) {
+  return (size_t)32 * row_groups(m) * row_stride(Wp);
 }
 
 inline int lanes_per_block(size_t lane_bytes) {
@@ -363,14 +383,14 @@ __global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
   const int c = lane_limit(a, lane);
   const int* ord = a.order + (size_t)lane * n;
   const uint8_t* s_lane = a.synd + (size_t)lane * m;
-  uint32_t* M = smem + (size_t)wib * lane_words(m, a.Wp);
-  int* col_of_row = reinterpret_cast<int*>(M + (size_t)32 * R * row_stride(a.Wp));
+  uint32_t* M = smem + (size_t)wib * solve_lane_words(m, a.Wp);
 
   const int Wc = (c + 32) >> 5;  // words of the lane's c columns + syndrome
   const int S = row_stride(Wc);
   const int sw = c >> 5;                   // word of the syndrome bit
   const uint32_t sbit = (uint32_t)(c & 31);
   uint32_t row[RMAX];  // narrow lane: row t + 32q; wide lane: one word of it
+  int col_of_row[RMAX] = {};  // row t + 32q's pivot, a position in the lane's order
   uint32_t used = 0;
 
   // Word wi of every owned row: bit j - 32 wi set where H[r, order[j]] = 1,
@@ -430,7 +450,10 @@ __global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
       if (t == pt) {
         used |= 1u << qmin;
         hold &= ~(1u << qmin);
-        col_of_row[pt + 32 * (int)qmin] = j;
+#pragma unroll
+        for (int q = 0; q < RMAX; ++q) {
+          if (q == (int)qmin) col_of_row[q] = j;
+        }
       }
 #pragma unroll
       for (int q = 0; q < RMAX; ++q) {
@@ -443,7 +466,12 @@ __global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
     const RowGroups<RMAX> groups(t, S, R);
     for (int j = 0; j < c; ++j) {
       const int piv = warp_step<RMAX>(M, S, Wc, groups, t, j >> 5, (uint32_t)(j & 31), used);
-      if (piv >= 0 && t == (piv & 31)) col_of_row[piv] = j;
+      if (piv >= 0 && t == (piv & 31)) {
+#pragma unroll
+        for (int q = 0; q < RMAX; ++q) {
+          if (q == (piv >> 5)) col_of_row[q] = j;
+        }
+      }
     }
 #pragma unroll
     for (int q = 0; q < RMAX; ++q) {
@@ -461,7 +489,7 @@ __global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
     if (r < m) {
       const bool sb = (row[q] >> sbit) & 1u;
       const bool u = (used >> q) & 1u;
-      if (u && sb) x_lane[__ldg(ord + col_of_row[r])] = 1;
+      if (u && sb) x_lane[__ldg(ord + col_of_row[q])] = 1;
       a.bad_row[(size_t)lane * m + r] = sb && !u;
     }
   }
@@ -469,18 +497,30 @@ __global__ void __launch_bounds__(128, (RMAX <= 8 ? 8 : 1))
 
 // ---- launchers ----------------------------------------------------------
 
-template <typename Kernel>
-int launch_warp(Kernel kernel, const Args& a, cudaStream_t stream) {
+using WarpKernel = void (*)(const Args);
+
+// Bytes of shared memory a lane of a warp-variant kernel takes.
+size_t warp_lane_bytes(int kernel, int m, int Wp) {
+  const size_t words = kernel == kMaskedSolve ? solve_lane_words(m, Wp) : lane_words(m, Wp);
+  return words * sizeof(uint32_t);
+}
+
+// The block's shared memory for lanes of lane_bytes, raised above the
+// default 48 KB where needed: 0, or the error (a forced warp variant
+// above the card's opt-in limit fails here).
+int warp_block_smem(WarpKernel kernel, size_t lane_bytes, size_t* smem) {
+  *smem = (size_t)lanes_per_block(lane_bytes) * lane_bytes;
+  if (*smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)*smem);
+}
+
+int launch_warp(WarpKernel kernel, const Args& a, size_t lane_bytes, cudaStream_t stream) {
   if (a.m > kWarpMaxRows) return (int)cudaErrorInvalidValue;
-  const size_t lane_bytes = lane_words(a.m, a.Wp) * sizeof(uint32_t);
+  size_t smem = 0;
+  const int err = warp_block_smem(kernel, lane_bytes, &smem);
+  if (err) return err;
   const int lpb = lanes_per_block(lane_bytes);
-  const size_t smem = (size_t)lpb * lane_bytes;
-  if (smem > 48 * 1024) {
-    // a forced warp variant above the card's opt-in limit fails here
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int blocks = (a.B + lpb - 1) / lpb;
   kernel<<<blocks, 32 * lpb, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -502,23 +542,34 @@ int launch_block(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The instance whose RMAX holds row_groups(m)
+template <bool kMask>
+WarpKernel export_kernel(int m) {
+  const int R = row_groups(m);
+  if (R <= 4) return gf2_warp_export_kernel<kMask, 4>;
+  if (R <= 8) return gf2_warp_export_kernel<kMask, 8>;
+  if (R <= 16) return gf2_warp_export_kernel<kMask, 16>;
+  return gf2_warp_export_kernel<kMask, 32>;
+}
+
+WarpKernel solve_kernel(int m) {
+  const int R = row_groups(m);
+  if (R <= 4) return gf2_warp_solve_kernel<4>;
+  if (R <= 8) return gf2_warp_solve_kernel<8>;
+  if (R <= 16) return gf2_warp_solve_kernel<16>;
+  return gf2_warp_solve_kernel<32>;
+}
+
 template <bool kMask>
 int launch_export(const Args& a, int warp, cudaStream_t st) {
   if (!warp) return launch_block<kMask, true>(a, st);
-  const int R = row_groups(a.m);
-  if (R <= 4) return launch_warp(gf2_warp_export_kernel<kMask, 4>, a, st);
-  if (R <= 8) return launch_warp(gf2_warp_export_kernel<kMask, 8>, a, st);
-  if (R <= 16) return launch_warp(gf2_warp_export_kernel<kMask, 16>, a, st);
-  return launch_warp(gf2_warp_export_kernel<kMask, 32>, a, st);
+  const int kernel = kMask ? kMaskedExport : kRrefExport;
+  return launch_warp(export_kernel<kMask>(a.m), a, warp_lane_bytes(kernel, a.m, a.Wp), st);
 }
 
 int launch_solve(const Args& a, int warp, cudaStream_t st) {
   if (!warp) return launch_block<true, false>(a, st);
-  const int R = row_groups(a.m);
-  if (R <= 4) return launch_warp(gf2_warp_solve_kernel<4>, a, st);
-  if (R <= 8) return launch_warp(gf2_warp_solve_kernel<8>, a, st);
-  if (R <= 16) return launch_warp(gf2_warp_solve_kernel<16>, a, st);
-  return launch_warp(gf2_warp_solve_kernel<32>, a, st);
+  return launch_warp(solve_kernel(a.m), a, warp_lane_bytes(kMaskedSolve, a.m, a.Wp), st);
 }
 
 Args make_args(const void* synd, const void* order, const void* count,
@@ -548,12 +599,32 @@ Args make_args(const void* synd, const void* order, const void* count,
 
 extern "C" {
 
-// 1 when an (m, n) code takes the warp variant by default: at most 1024
-// rows and kLaneBudget bytes of shared memory a lane; 0 for the block
+// 1 when `kernel` (0 K3', 1 K4', 2 K5') takes the warp variant for an
+// (m, n) code by default: at most 1024 rows and kLaneBudget bytes of
+// shared memory a lane (K5': kWarpExportMaskedBudget); 0 for the block
 // variant.
-int ldpc_elim_warp(int m, int n) {
+int ldpc_elim_warp(int kernel, int m, int n) {
   const int Wp = (n + 32) / 32;  // ceil((n + 1) / 32)
-  return (m <= kWarpMaxRows && lane_words(m, Wp) * sizeof(uint32_t) <= kLaneBudget) ? 1 : 0;
+  const size_t budget = kernel == kMaskedExport ? kWarpExportMaskedBudget : kLaneBudget;
+  return (m <= kWarpMaxRows && warp_lane_bytes(kernel, m, Wp) <= budget) ? 1 : 0;
+}
+
+// Warps of K4's warp variant resident on one SM (the runtime's occupancy
+// calculator) for m rows when a lane reserves shared memory for rows of
+// cap_words words (the launch reserves Wp; 0: none, as a launch of narrow
+// lanes only could), or the negative CUDA error. A measurement aid: no
+// launch reserves less than Wp.
+int ldpc_masked_solve_resident_warps(int m, int cap_words) {
+  const size_t lane_bytes = cap_words > 0 ? warp_lane_bytes(kMaskedSolve, m, cap_words) : 0;
+  const WarpKernel kernel = solve_kernel(m);
+  size_t smem = 0;
+  int err = warp_block_smem(kernel, lane_bytes, &smem);
+  const int lpb = lanes_per_block(lane_bytes);
+  int blocks = 0;
+  if (!err) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * lpb, smem);
+  }
+  return err ? -err : blocks * lpb;
 }
 
 // Each launcher takes `warp` (1 the warp variant, 0 the block variant) and

@@ -42,8 +42,11 @@ _SIGNATURES = {
     "ldpc_bp_shared_state": [_I, _I, _I],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, x0, valid, stream)
     "ldpc_osd0": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (m, n) -> 1 when K3'-K5' take the warp variant by default
-    "ldpc_elim_warp": [_I, _I],
+    # (kernel: 0 K3', 1 K4', 2 K5'; m, n) -> 1 when it takes the warp
+    # variant by default
+    "ldpc_elim_warp": [_I, _I, _I],
+    # (m, cap_words) -> warps of K4's warp variant resident on an SM
+    "ldpc_masked_solve_resident_warps": [_I, _I],
     # (syndromes, order, packed_h, m, n, Wp, rank, B, warp, M, col_of_row,
     #  used, stream)
     "ldpc_rref_export": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -19,11 +19,10 @@ in what they return:
 
 K3'-K5' have two variants (:func:`elim_variant`): ``"warp"``, one warp per
 lane, the default while a lane fits the kernel's budget, and ``"block"``,
-one block per lane, for larger codes. K4's warp variant works on the lane's
-own columns only (:func:`masked_solve_compact_reference` is its plain
-model). The wrappers count launches per variant in
-:data:`VARIANT_LAUNCHES`; their ``variant`` keyword forces one (tests and
-measurement only).
+one block per lane, for larger codes (and for K5' from surface d=15 on).
+K4's warp variant works on the lane's own columns only
+(:func:`masked_solve_compact_reference` is its plain model). The wrappers'
+``variant`` keyword forces one (tests and measurement only).
 
 The export is ``(M (B, m, Wp) int32 words of [R | T s] in original column
 coordinates, col_of_row (B, m) int32 pivot column of each row (n if the row
@@ -31,9 +30,10 @@ is unused), used (B, m) bool)``; ``Wp = ceil((n+1)/32)`` and the reduced
 syndrome is bit ``n`` of each row.
 
 For each kernel, ``*_reference`` is the plain PyTorch version, ``*_cuda``
-launches the kernel on CUDA tensors and counts the launch in its own
-counter, and the bare name picks by the tensors' device: the CPU runs the
-plain version, a CUDA device runs the kernel, anything else raises.
+launches the kernel on CUDA tensors and counts the launch (K2' in
+:data:`LAUNCHES`, K3'-K5' in :data:`VARIANT_LAUNCHES` by variant), and the
+bare name picks by the tensors' device: the CPU runs the plain version, a
+CUDA device runs the kernel, anything else raises.
 """
 
 from typing import Optional, Tuple
@@ -44,10 +44,8 @@ from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.pcm import TorchGraph
 
 LAUNCHES = 0  # kernel launches made by osd0_cuda
-RREF_EXPORT_LAUNCHES = 0  # ... by rref_export_cuda
-MASKED_SOLVE_LAUNCHES = 0  # ... by masked_solve_cuda
-MASKED_EXPORT_LAUNCHES = 0  # ... by masked_export_cuda
-# ... of K3'-K5' by variant (see elim_variant)
+# ... by rref_export_cuda, masked_solve_cuda and masked_export_cuda, by
+# variant (see elim_variant); a kernel's launches are the sum of its two
 VARIANT_LAUNCHES = {
     kernel: {"warp": 0, "block": 0}
     for kernel in ("rref_export", "masked_solve", "masked_export")
@@ -294,19 +292,24 @@ def _check_block(kernel: str, tg: TorchGraph) -> None:
         )
 
 
-def elim_variant(m: int, n: int) -> str:
-    """Where K3'-K5' run an (m, n) code by default: ``"warp"`` (one warp per
-    lane, several lanes a block) while a lane fits the kernels' per-lane
-    budget, else ``"block"`` (one block per lane). The budget and the
-    layout live in ``csrc/gf2_elim.cu``, so this builds the kernels'
+_KERNEL_IDS = {"rref_export": 0, "masked_solve": 1, "masked_export": 2}
+
+
+def elim_variant(kernel: str, m: int, n: int) -> str:
+    """Where ``kernel`` (``"rref_export"``, ``"masked_solve"`` or
+    ``"masked_export"``) runs an (m, n) code by default: ``"warp"`` (one
+    warp per lane, several lanes a block) while a lane fits the kernel's
+    per-lane budget, else ``"block"`` (one block per lane). The budgets and
+    the layout live in ``csrc/gf2_elim.cu``, so this builds the kernels'
     library."""
-    return "warp" if _build.library().ldpc_elim_warp(m, n) else "block"
+    warp = _build.library().ldpc_elim_warp(_KERNEL_IDS[kernel], m, n)
+    return "warp" if warp else "block"
 
 
 def _variant(kernel: str, tg: TorchGraph, variant: Optional[str]) -> str:
     """The variant a launch takes; ``variant`` forces one (tests and
     measurement only)."""
-    variant = elim_variant(tg.m, tg.n) if variant is None else variant
+    variant = elim_variant(kernel, tg.m, tg.n) if variant is None else variant
     if variant not in ("warp", "block"):
         raise ValueError(f"{kernel}_cuda: variant must be 'warp' or 'block', not {variant!r}")
     if variant == "block":
@@ -355,7 +358,6 @@ def rref_export_cuda(
 ) -> Export:
     """Launch K3' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
     :func:`elim_variant` unless ``variant`` forces one."""
-    global RREF_EXPORT_LAUNCHES
     B = _check("rref_export", tg, syndromes, order)
     variant = _variant("rref_export", tg, variant)
     dev = syndromes.device
@@ -369,7 +371,6 @@ def rref_export_cuda(
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "rref_export")
-        RREF_EXPORT_LAUNCHES += 1
         VARIANT_LAUNCHES["rref_export"][variant] += 1
     return out
 
@@ -382,7 +383,6 @@ def masked_solve_cuda(
     :func:`elim_variant` unless ``variant`` forces one. The warp
     variant builds each lane's own columns from ``tg.var_chks``; the block
     variant reads the packed H."""
-    global MASKED_SOLVE_LAUNCHES
     B = _check("masked_solve", tg, syndromes, order, count, var_chks=True)
     variant = _variant("masked_solve", tg, variant)
     dev = syndromes.device
@@ -398,7 +398,6 @@ def masked_solve_cuda(
                 bad_row.data_ptr(), _stream(dev),
             )
         _build.check(lib, rc, "masked_solve")
-        MASKED_SOLVE_LAUNCHES += 1
         VARIANT_LAUNCHES["masked_solve"][variant] += 1
     return x0, bad_row
 
@@ -409,7 +408,6 @@ def masked_export_cuda(
 ) -> Export:
     """Launch K5' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
     :func:`elim_variant` unless ``variant`` forces one."""
-    global MASKED_EXPORT_LAUNCHES
     B = _check("masked_export", tg, syndromes, order, count)
     variant = _variant("masked_export", tg, variant)
     dev = syndromes.device
@@ -424,7 +422,6 @@ def masked_export_cuda(
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "masked_export")
-        MASKED_EXPORT_LAUNCHES += 1
         VARIANT_LAUNCHES["masked_export"][variant] += 1
     return out
 

@@ -239,11 +239,16 @@ def test_k3_matches_plain_version(codes, name, lanes, variant):
 
 def test_k3_k4_k5_default_variants(codes):
     """The bare wrappers take the variant elim_variant names, and count it:
-    the warp variant up to toric d=20 (46.5 KB a lane)."""
+    K3' and K4' take the warp variant up to toric d=20 (46.5 KB a lane),
+    K5' only while four lanes share a block (surface d=13, not toric
+    d=20)."""
     graph20 = codes["toric20"][0]
-    assert gf2_cuda.elim_variant(graph20.m, graph20.n) == "warp"
+    for kname, variant in (("rref_export", "warp"), ("masked_solve", "warp"),
+                           ("masked_export", "block")):
+        assert gf2_cuda.elim_variant(kname, graph20.m, graph20.n) == variant
     graph, tg, syn, order = _orders(codes, "surface13", 257)
-    assert gf2_cuda.elim_variant(graph.m, graph.n) == "warp"
+    for kname in gf2_cuda.VARIANT_LAUNCHES:
+        assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "warp"
     rank = gf2.batched_rank(graph.dense)
     cnt = _counts(graph, syn, "random")
     before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
@@ -298,7 +303,8 @@ def test_elim_toric30(dev):
     variant by default, the warp variant when forced, both bit-identical."""
     graph = compile_pcm(toric_code(30, compute_logicals=False).hx)
     tg = graph_to_torch(graph, dev)
-    assert gf2_cuda.elim_variant(graph.m, graph.n) == "block"
+    for kname in gf2_cuda.VARIANT_LAUNCHES:
+        assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "block"
     rng = np.random.default_rng(30)
     errors = (rng.random((48, graph.n)) < 0.03).astype(np.uint8)
     syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
