@@ -12,11 +12,17 @@ union-find (matrix and peeling), standalone LSD (order 0 and CS-5), flip
 and BP+flip on the same syndromes, and one BP+LSD statistics record on the
 card against the CPU's. K1' (BP) is held against its plain version with
 its lane state in shared memory and in device memory, and timed at both of
-the main path's launch shapes. K3'-K5' are held against their plain
-versions in each variant (warp per lane and block per lane) and timed in
-each: K3' and K5' at their main-path calls, K4' summed over every call of
-the LSD-0 path and of the standalone UnionFind path (65,536 lanes), all
-three on surface d=17 and toric d=20 too. Every ``*_time`` phase prints
+the main path's launch shapes. K2'-K5' are held against their plain
+versions in each variant (warp per lane, block per lane, and the block body
+on a matrix in device memory, each forced) and timed in each: K2', K3' and
+K5' at their main-path calls (K2' also at a Monte-Carlo bucket, with the
+columns its lanes walk), K4' summed over every call of the LSD-0 path and of
+the standalone UnionFind path (65,536 lanes), K3'-K5' on surface d=17 and
+toric d=20 too. The ``large_code`` phase takes toric d=31, whose lane does
+not fit a block's shared memory: K2'-K5' by default (the device variant)
+against their plain versions, then ``decode_batch`` of BP+OSD-0,
+BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. Every
+``*_time`` phase prints
 the kernel's device time (``device_ms``), its plain version's and its
 bound (see ``bound``). Every phase prints
 one line; any failure raises and exits non-zero. The second-to-last line
@@ -56,6 +62,10 @@ SLICE_C_ROUNDS = 3  # ... of each slice-C configuration
 PFLIP_SWEEPS = 20  # flip sweeps of the p-flip comparisons (the plain version
 # takes every sweep of a lane that never converges)
 STATS_ROWS = 256  # rows decoded by the statistics phase
+LARGE_DISTANCE = 31  # toric code of the large_code phase (m=961, n=1922)
+LARGE_ERROR_RATE = 0.03  # ... at which BP leaves lanes to the post-processors
+LARGE_ROWS = 400  # syndromes its decoders take
+LARGE_CPU_ROWS = 32  # ... of which the CPU path decodes the first
 MC_BATCH = 16384
 MC_ROUNDS = 8
 MC_CALLS = 3
@@ -226,6 +236,26 @@ def decode_paths(code) -> list:
     ]
 
 
+def large_paths(hx) -> list:
+    """The ``decode_batch`` configurations of the ``large_code`` phase, on a
+    code whose lane does not fit a block's shared memory: each must reach
+    its GF(2) kernel in the device variant."""
+    bp = dict(error_rate=LARGE_ERROR_RATE, max_iter=MAX_ITER, bp_method="minimum_sum",
+              ms_scaling_factor=MS_FACTOR)
+    T, P = ldpc_tpu_torch, DecodePath
+    return [
+        P("osd0", "large/osd_0", lambda d: T.BpOsdDecoder(hx, osd_method="osd_0", device=d, **bp),
+          ("bp_device_state", "osd0_device"), 1),
+        P("osd_cs5", "large/osd_cs-5", lambda d: T.BpOsdDecoder(
+            hx, osd_method="osd_cs", osd_order=5, device=d, **bp),
+          ("bp_device_state", "rref_export_device"), 1),
+        P("lsd0", "large/lsd0", lambda d: T.BpLsdDecoder(hx, lsd_method="lsd_0", device=d, **bp),
+          ("bp_device_state", "masked_solve_device"), 1),
+        P("uf_matrix", "large/UnionFindDecoder[matrix]", lambda d: T.UnionFindDecoder(
+            hx, uf_method=True, device=d), ("masked_solve_device",), 1, solves="valid"),
+    ]
+
+
 def mc_step(code, device):
     """The device Monte-Carlo step at the d=13 workload: ``(step,
     runs_per_call)``."""
@@ -272,26 +302,53 @@ def compare_bp(name, tg, syn, llr0, method, alpha, max_iter=MAX_ITER, states=(No
     return first, worst
 
 
-def compare_osd(name, tg, H, syn, llr, rank):
-    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
-    x_k, v_k = gf2_cuda.osd0_cuda(tg, syn, order, rank)
-    x_r, v_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+# K2'-K5' variants compared and timed: a warp per lane, a block per lane,
+# and the block body on a matrix in device memory
+ELIM_VARIANTS = gf2_cuda.VARIANTS
+
+
+def run_variant(kname, variant, *args):
+    """One K2'-K5' launch in ``variant`` (None: the one the library chooses
+    for the code); the variant's counter must move, by one unless the device
+    variant runs the batch in chunks."""
+    tgx = args[0]
+    counted = variant or gf2_cuda.elim_variant(kname, tgx.m, tgx.n)
+    before = gf2_cuda.VARIANT_LAUNCHES[kname][counted]
+    out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
     torch.cuda.synchronize()
-    nlanes = int(((x_k != x_r).any(dim=1) | (v_k != v_r)).sum())
-    err = int((x_k.int() - x_r.int()).abs().max()) if syn.shape[0] else 0
-    x = x_k.cpu().numpy()
+    moved = gf2_cuda.VARIANT_LAUNCHES[kname][counted] - before
+    if moved < 1 or (moved > 1 and counted != "device"):
+        raise AssertionError(f"{kname}: the {counted} variant's counter moved by {moved}")
+    return out
+
+
+def compare_osd(name, tg, H, syn, llr, rank, variants=ELIM_VARIANTS):
+    """K2' against its plain version in every variant of ``variants``
+    (forced; None: the default), and the plain model of its warp variant
+    against the plain version."""
+    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+    ref = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    if int(_lanes_differ(gf2_cuda.osd0_compact_reference(tg, syn, order, rank), ref).sum()):
+        raise AssertionError(f"K2's compact model differs from the plain version: {name}")
     s = syn.cpu().numpy()
-    valid = v_k.cpu().numpy()
-    solves = ((x @ H.T) % 2 == s).all(axis=1)
-    phase(
-        "k2_vs_plain", config=name, lanes=syn.shape[0], differing_lanes=nlanes,
-        valid=int(valid.sum()), solves_on_valid=bool(solves[valid].all()),
-    )
-    if nlanes or err:
-        raise AssertionError(f"K2' differs from its plain version: {name}")
-    if not solves[valid].all():
-        raise AssertionError(f"K2' x0 does not solve H x = s on a valid lane: {name}")
-    return err
+    worst = 0
+    for variant in variants:
+        ker = run_variant("osd0", variant, tg, syn, order, rank)
+        nlanes, err = int(_lanes_differ(ker, ref).sum()), _max_abs_err(ker, ref)
+        x, valid = ker[0].cpu().numpy(), ker[1].cpu().numpy()
+        solves = ((x @ H.T) % 2 == s).all(axis=1)
+        phase(
+            "k2_vs_plain", config=name,
+            variant=variant or gf2_cuda.elim_variant("osd0", tg.m, tg.n),
+            lanes=syn.shape[0], differing_lanes=nlanes, max_abs_err=err,
+            valid=int(valid.sum()), solves_on_valid=bool(solves[valid].all()),
+        )
+        if nlanes or err:
+            raise AssertionError(f"K2' differs from its plain version: {name}/{variant}")
+        if not solves[valid].all():
+            raise AssertionError(f"K2' x0 does not solve H x = s on a valid lane: {name}")
+        worst = max(worst, err)
+    return worst
 
 
 def _lanes_differ(ker, ref) -> torch.Tensor:
@@ -308,15 +365,13 @@ def _max_abs_err(ker, ref) -> int:
                for a, b in zip(ker, ref))
 
 
-# K3'-K5' variants compared and timed: the warp variant, then the block
-# variant (one block per lane)
-ELIM_VARIANTS = ("warp", "block")
 EDGE_LANES = 1024  # lanes of the count-edge case
 
 
-def compare_elim(name, tg, graph, syn, llr):
+def compare_elim(name, tg, graph, syn, llr, variants=ELIM_VARIANTS):
     """K3', K4' and K5' against their plain versions in every variant of
-    ELIM_VARIANTS (forced; each launch must move its variant's counter): K3'
+    ``variants`` (forced, or the default where None; each launch must move
+    its variant's counter): K3'
     on the lanes' reliability orders; K4' and K5' on the clusters after a
     real first growth round, with a random count 0..n per lane, and with
     counts at the edges of K4's one-word rows (0, 1, 31, 32, 33, 63, 64, n)
@@ -326,22 +381,19 @@ def compare_elim(name, tg, graph, syn, llr):
     rank = gf2.batched_rank(graph.dense)
     order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
     err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
+    run = run_variant
 
-    def run(kname, variant, *args):
-        before = gf2_cuda.VARIANT_LAUNCHES[kname][variant]
-        out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
-        torch.cuda.synchronize()
-        if gf2_cuda.VARIANT_LAUNCHES[kname][variant] != before + 1:
-            raise AssertionError(f"{kname}: the {variant} variant's counter did not move")
-        return out
+    def named(kname, variant):
+        return variant or gf2_cuda.elim_variant(kname, tg.m, tg.n)
 
     ref = gf2_cuda.rref_export_reference(tg, syn, order, rank)
-    for variant in ELIM_VARIANTS:
+    for variant in variants:
         ker = run("rref_export", variant, tg, syn, order, rank)
         nlanes = int(_lanes_differ(ker, ref).sum())
         e = _max_abs_err(ker, ref)
         full_rank = bool((ker[2].sum(dim=1) == rank).all())
-        phase("k3_vs_plain", config=name, variant=variant, lanes=syn.shape[0],
+        phase("k3_vs_plain", config=name, variant=named("rref_export", variant),
+              lanes=syn.shape[0],
               differing_lanes=nlanes, max_abs_err=e, full_rank=full_rank)
         if nlanes or e or not full_rank:
             raise AssertionError(f"K3' differs from its plain version: {name}/{variant}")
@@ -356,24 +408,26 @@ def compare_elim(name, tg, graph, syn, llr):
     grown = torch.argsort(key, dim=1, stable=True).to(torch.int32).contiguous()
     rng = np.random.default_rng(5)
     random = torch.from_numpy(rng.integers(0, n + 1, syn.shape[0]).astype(np.int32))
-    edges = np.resize(np.array([0, 1, 31, 32, 33, 63, 64, n], np.int32), EDGE_LANES)
+    edge_lanes = min(EDGE_LANES, syn.shape[0])
+    edges = np.resize(np.array([0, 1, 31, 32, 33, 63, 64, n], np.int32), edge_lanes)
     cases = (
         ("growth_round", syn, grown, in_bit.sum(dim=1).to(torch.int32)),
         ("random_count", syn, order, random.to(syn.device)),
-        ("count_edges", syn[:EDGE_LANES].contiguous(), order[:EDGE_LANES].contiguous(),
+        ("count_edges", syn[:edge_lanes].contiguous(), order[:edge_lanes].contiguous(),
          torch.from_numpy(edges).to(syn.device)),
     )
     for case, s, o, count in cases:
         r4 = gf2_cuda.masked_solve_reference(tg, s, o, count)
         r5 = gf2_cuda.masked_export_reference(tg, s, o, count)
-        for variant in ELIM_VARIANTS:
+        for variant in variants:
             k4 = run("masked_solve", variant, tg, s, o, count)
             k5 = run("masked_export", variant, tg, s, o, count)
             n4, n5 = int(_lanes_differ(k4, r4).sum()), int(_lanes_differ(k5, r5).sum())
             e4, e5 = _max_abs_err(k4, r4), _max_abs_err(k5, r5)
             err["masked_solve"] = max(err["masked_solve"], e4)
             err["masked_export"] = max(err["masked_export"], e5)
-            phase("k4_k5_vs_plain", config=name, case=case, variant=variant,
+            phase("k4_k5_vs_plain", config=name, case=case,
+                  variant=named("masked_solve", variant),
                   lanes=s.shape[0], k4_differing_lanes=n4, k5_differing_lanes=n5,
                   max_abs_err=max(e4, e5), mean_count=float(count.float().mean()),
                   narrow_lanes=int((count < 32).sum()))
@@ -384,14 +438,19 @@ def compare_elim(name, tg, graph, syn, llr):
 
 
 def elim_work(kname, args, ref):
-    """Per-lane ``(steps, pivots, words)`` of one K3'-K5' call on this run's
+    """Per-lane ``(steps, pivots, words)`` of one K2'-K5' call on this run's
     data, from its plain output ``ref``: the columns the lane must walk
-    (K3': up to its last pivot, the rank-th; K4' and K5': its count), the
-    pivots it takes, and the words of a pivot row (K4' needs only its count
-    columns and the syndrome, ceil((count+1)/32) words; K3' and K5' export
-    full rows of Wp)."""
+    (K2': up to the pivot that ends it; K3': up to its last pivot, the
+    rank-th; K4' and K5': its count), the pivots it takes, and the words of
+    a pivot row (K2' and K4' need only the columns walked and the syndrome,
+    ceil((steps+1)/32) words; K3' and K5' export full rows of Wp)."""
     tgx, syn, order, last = args
     n, Wp = tgx.n, tgx.packed.shape[1]
+    if kname == "osd0":
+        all_cols = torch.full((syn.shape[0],), n, dtype=torch.int64, device=syn.device)
+        steps = gf2_cuda.columns_walked(tgx, syn, order, all_cols, last, True)
+        pivots = gf2_cuda.pivots_taken(tgx, syn, order, all_cols, last, True)
+        return steps, pivots, (steps + 32) // 32
     if kname == "masked_solve":
         steps = last.long().clamp(0, n)
         pivots = gf2_cuda.pivots_taken(tgx, syn, order, last, tgx.m + 1, False)
@@ -410,9 +469,9 @@ def elim_work(kname, args, ref):
     return steps, pivots, torch.full_like(pivots, Wp)
 
 
-def time_elim(kname, args, plain_reps=2, reps=5):
-    """One K3'-K5' call held against its plain version in every variant of
-    ELIM_VARIANTS (forced; raises unless every lane is bit-identical), timed
+def time_elim(kname, args, plain_reps=2, reps=5, variants=ELIM_VARIANTS):
+    """One K2'-K5' call held against its plain version in every variant of
+    ``variants`` (forced; raises unless every lane is bit-identical), timed
     in each (device time, :func:`device_ms`) and in its plain version,
     beside its bound: the bytes the function must move (the call's tensors
     and the graph array the warp variant reads, each read once, but of each
@@ -425,7 +484,7 @@ def time_elim(kname, args, plain_reps=2, reps=5):
     tgx, syn, order, last = args
     ref = plain_fn(*args)
     differing, err = 0, 0
-    for v in ELIM_VARIANTS:
+    for v in variants:
         ker = cuda_fn(*args, variant=v)
         torch.cuda.synchronize()
         nlanes, e = int(_lanes_differ(ker, ref).sum()), _max_abs_err(ker, ref)
@@ -434,18 +493,18 @@ def time_elim(kname, args, plain_reps=2, reps=5):
                                  f"{nlanes} of {syn.shape[0]} lanes of a timed call")
         differing, err = differing + nlanes, max(err, e)
     steps, pivots, words = elim_work(kname, args, ref)
-    graph_array = tgx.var_chks if kname == "masked_solve" else tgx.packed
+    graph_array = tgx.var_chks if kname in ("osd0", "masked_solve") else tgx.packed
     moved = nbytes(syn, graph_array, *ref) + 4 * int(steps.sum())
     if torch.is_tensor(last):
         moved += nbytes(last)
-    variant_ms = {v: device_ms(lambda v=v: cuda_fn(*args, variant=v)) for v in ELIM_VARIANTS}
+    variant_ms = {v: device_ms(lambda v=v: cuda_fn(*args, variant=v)) for v in variants}
     default = gf2_cuda.elim_variant(kname, tgx.m, tgx.n)
     bound_ms, bound_by = bound(moved, gf2_ops(tgx, int(steps.sum()), int((pivots * words).sum())))
     return {"ms": variant_ms[default], "call_ms": cuda_ms(lambda: cuda_fn(*args), reps),
             "plain_ms": cuda_ms(lambda: plain_fn(*args), plain_reps),
             "bound_ms": bound_ms, "bound_by": bound_by, "variants_ms": variant_ms,
             "default": default, "steps": int(steps.sum()), "pivots": int(pivots.sum()),
-            "differing_lanes": differing, "max_abs_err": err}
+            "differing_lanes": differing, "max_abs_err": err, "lane_steps": steps}
 
 
 def elim_fields(t) -> dict:
@@ -456,9 +515,25 @@ def elim_fields(t) -> dict:
         f"{k}_ms": v for k, v in t["variants_ms"].items()}
 
 
-def time_sizes(name, code, lanes=4096):
+def time_k2(name, args, variants=ELIM_VARIANTS, **extra):
+    """K2' at one call's shape: every variant held against the plain version
+    and timed (:func:`time_elim`), beside the columns its lanes walk before
+    the fast exit, which decide what a lane of the warp variant does (above
+    32 it starts again at full width). Returns the kernels line's numbers
+    and the largest error."""
+    t = time_elim("osd0", args, variants=variants)
+    walked = t["lane_steps"].float()
+    phase(name, **extra, lanes=args[1].shape[0], **elim_fields(t),
+          columns_walked_mean=float(walked.mean()), columns_walked_max=int(walked.max()),
+          share_above_32=float((walked > 32).float().mean()),
+          share_above_64=float((walked > 64).float().mean()))
+    return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, t["max_abs_err"]
+
+
+def time_sizes(name, code, lanes=4096, variants=ELIM_VARIANTS):
     """K3' on reliability orders and K4'/K5' on a first growth round of
-    ``lanes`` syndromes of ``code``, each timed in every variant."""
+    ``lanes`` syndromes of ``code``, each timed in every variant of
+    ``variants``."""
     graph = compile_pcm(code.hx)
     tgx = graph_to_torch(graph, "cuda")
     syn = torch.from_numpy(workload(graph.dense, lanes, seed=17)[1]).to("cuda")
@@ -474,7 +549,7 @@ def time_sizes(name, code, lanes=4096):
     for kname, args in (("rref_export", (tgx, syn, order, rank)),
                         ("masked_solve", (tgx, syn, *grown)),
                         ("masked_export", (tgx, syn, *grown))):
-        t = time_elim(kname, args, plain_reps=1)
+        t = time_elim(kname, args, plain_reps=1, variants=variants)
         phase(f"{kname}_size_time", config=name, m=graph.m, n=graph.n, lanes=lanes,
               **elim_fields(t))
 
@@ -550,9 +625,8 @@ def captured_calls(module, name, run):
 def reset_counters() -> None:
     bp_cuda.LAUNCHES = 0
     bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
-    gf2_cuda.LAUNCHES = 0
     for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
-        by_variant.update(warp=0, block=0)
+        by_variant.update(dict.fromkeys(by_variant, 0))
     flip.FLIP_LAUNCHES = 0
     uf.HOST_SYNCS = 0
     uf.GROWTH_ROUNDS = 0
@@ -563,7 +637,6 @@ def read_counters() -> dict:
         "bp_parallel": bp_cuda.LAUNCHES,
         "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
         "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
-        "osd0": gf2_cuda.LAUNCHES,
         **{kernel: sum(by_variant.values())
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()},
         **{f"{kernel}_{variant}": count
@@ -578,13 +651,13 @@ def read_counters() -> dict:
 ROW_CHECKS = ("all", "valid", "converged")
 
 
-def drive_decoder(p: DecodePath, H, syn_np):
+def drive_decoder(p: DecodePath, H, syn_np, cpu_rows=CPU_ROWS):
     """One path: ``p.make(device).decode_batch(syn_np, *p.args)`` on the whole
     batch, with the launch counters set to 0 just before the first call and
     read just after it. Checks H x = s on the rows the decoder guarantees it
     for (``solves``: every row, the rows ``valid_batch`` marks, or the rows
     ``converge_batch`` marks), that each kernel in ``kernels`` launched, and
-    that the first CPU_ROWS rows equal the CPU path's, with
+    that the first ``cpu_rows`` rows equal the CPU path's, with
     ``converge_batch``, ``iter_batch`` and ``valid_batch`` where the decoder
     has them; then times ``rounds`` calls after a settle call. Returns the
     counters."""
@@ -610,9 +683,9 @@ def drive_decoder(p: DecodePath, H, syn_np):
     if missing:
         raise AssertionError(f"{label}: the path skipped kernels {missing}: {counts}")
     cpu = make("cpu")
-    out_cpu = cpu.decode_batch(syn_np[:CPU_ROWS], *args)
-    if not (out_cpu == out[:CPU_ROWS]).all() or any(
-        not (getattr(cpu, a) == f[:CPU_ROWS]).all() for a, f in flags.items()
+    out_cpu = cpu.decode_batch(syn_np[:cpu_rows], *args)
+    if not (out_cpu == out[:cpu_rows]).all() or any(
+        not (getattr(cpu, a) == f[:cpu_rows]).all() for a, f in flags.items()
     ):
         raise AssertionError(f"{label}: decode_batch on the card differs from the CPU")
     dec.decode_batch(syn_np, *args)  # settle
@@ -629,17 +702,17 @@ def drive_decoder(p: DecodePath, H, syn_np):
     phase(
         "decode_batch", config=label, syndromes=len(syn_np), warmup_s=round(warm_s, 3),
         median_s=statistics.median(times), syndromes_per_s=len(syn_np) / statistics.median(times),
-        **extra, hx_eq_s_rows=f"{solves}:{int(rows.sum())}", cpu_rows_equal=CPU_ROWS,
+        **extra, hx_eq_s_rows=f"{solves}:{int(rows.sum())}", cpu_rows_equal=cpu_rows,
         launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")),
     )
     return counts
 
 
-def compare_flip(name, tg, syn, max_iter, pfreq):
+def compare_flip(name, tg, syn, max_iter, pfreq, seed=7):
     """The flip kernel against its plain version: bit-identical decodings,
     flags and iterations on every lane."""
-    ker = flip.flip_cuda(tg, syn, max_iter, pfreq, 7)
-    ref = flip.flip_reference(tg, syn, max_iter, pfreq, 7)
+    ker = flip.flip_cuda(tg, syn, max_iter, pfreq, seed)
+    ref = flip.flip_reference(tg, syn, max_iter, pfreq, seed)
     torch.cuda.synchronize()
     nlanes = int(_lanes_differ(ker, ref).sum())
     phase("flip_vs_plain", config=name, pfreq=pfreq, max_iter=max_iter, lanes=syn.shape[0],
@@ -647,6 +720,28 @@ def compare_flip(name, tg, syn, max_iter, pfreq):
     if nlanes:
         raise AssertionError(f"the flip kernel differs from its plain version: {name}/{pfreq}")
     return _max_abs_err(ker, ref)
+
+
+def time_flip(name, tg, graph, syn, max_iter, pfreq, **extra):
+    """One flip call held against its plain version (:func:`compare_flip`),
+    then timed beside it and its bound: the call's tensors each moved once,
+    and the sweeps a lane surely completes (all but its last on a converged
+    lane, which may stop mid-sweep; one on a lane that stops at its fixpoint,
+    every one with p-flip on), each testing the dv checks of every bit and
+    comparing. Returns the kernels line's numbers and the largest error."""
+    err = compare_flip(extra.get("config", "surface13/main"), tg, syn, max_iter, pfreq, seed=1)
+    out = flip.flip_cuda(tg, syn, max_iter, pfreq, 1)
+    _, conv, iters = out
+    unconverged = max_iter if pfreq else 1
+    sweeps = int(torch.where(conv, iters - 1, unconverged).clamp(min=0).sum())
+    numbers = timed(
+        name, f"B={syn.shape[0]},max_iter={max_iter},pfreq={pfreq}",
+        lambda: flip.flip_cuda(tg, syn, max_iter, pfreq, 1),
+        lambda: flip.flip_reference(tg, syn, max_iter, pfreq, 1),
+        nbytes(syn, tg.var_chks, *out), float(sweeps) * (graph.nnz + graph.n),
+        plain_reps=1, full_sweeps=sweeps, **extra,
+    )
+    return numbers, err
 
 
 def stats_record(make, syn_np, row, device) -> dict:
@@ -720,8 +815,10 @@ def main() -> int:
         raise AssertionError("toric d=31 should keep its K1' state in device memory")
     syn31 = torch.from_numpy(workload(np.asarray(tor31.hx.todense(), np.uint8), 400)[1]).to(dev)
     llr31 = torch.from_numpy(channel_llr(np.full(graph31.n, ERROR_RATE))).to(dev)
-    k1_err = max(k1_err, compare_bp("toric31/ms0.625", graph_to_torch(graph31, dev), syn31,
-                                    llr31, MINIMUM_SUM, MS_FACTOR, states=(None,))[1])
+    tg31 = graph_to_torch(graph31, dev)
+    res31, err = compare_bp("toric31/ms0.625", tg31, syn31, llr31, MINIMUM_SUM, MS_FACTOR,
+                            states=(None,))
+    k1_err = max(k1_err, err)
 
     # times at the main path's two K1' calls: phase-1 BP on the whole batch,
     # then full depth on the lanes phase 1 leaves unconverged (the bucket);
@@ -760,15 +857,10 @@ def main() -> int:
     syn_f = syn_all[failed].contiguous()
     order_f = torch.argsort(full.llr_posterior[failed], dim=1, stable=True)
     order_f = order_f.to(torch.int32).contiguous()
-    all_cols = torch.full((syn_f.shape[0],), graph.n, dtype=torch.int32, device=dev)
-    pivots = int(gf2_cuda.pivots_taken(tg, syn_f, order_f, all_cols, rank13, True).sum())
-    k2_numbers = timed(
-        "k2_time", f"B={failed.numel()}",
-        lambda: gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13),
-        lambda: gf2_cuda.osd0_reference(tg, syn_f, order_f, rank13),
-        nbytes(syn_f, order_f, tg.packed, *gf2_cuda.osd0_cuda(tg, syn_f, order_f, rank13)),
-        gf2_ops(tg, pivots, pivots * tg.packed.shape[1]), pivots=pivots,
-    )
+    k2_numbers, err = time_k2("k2_time", (tg, syn_f, order_f, rank13))
+    order20 = torch.argsort(posteriors["toric20"], dim=1, stable=True).to(torch.int32).contiguous()
+    k2_err = max(k2_err, err, time_k2("k2_size_time", (tg20, syn20, order20, rank20),
+                                      config="toric20")[1])
 
     # ---- 4b. K3', K4', K5' against their plain versions ------------------------
     elim_err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
@@ -802,25 +894,46 @@ def main() -> int:
     for cname, size_code in (("surface17", surface_code(17)), ("toric20", tor)):
         time_sizes(cname, size_code)
 
+    # ---- 4c. a code above a block's shared memory: toric d=31 ------------------
+    # K2'-K5' by default, which must be the device variant, against their
+    # plain versions; then the decoders that reach them, against the CPU path
+    for kname in gf2_cuda.VARIANT_LAUNCHES:
+        if gf2_cuda.elim_variant(kname, graph31.m, graph31.n) != "device":
+            raise AssertionError(f"toric d=31 should take {kname}'s device variant")
+    H31 = np.asarray(tor31.hx.todense(), np.uint8)
+    post31 = res31.llr_posterior.contiguous()
+    rank31 = gf2.batched_rank(graph31.dense)
+    k2_err = max(k2_err, compare_osd("toric31", tg31, H31, syn31, post31, rank31, (None,)))
+    for k, v in compare_elim("toric31", tg31, graph31, syn31, post31, (None,)).items():
+        elim_err[k] = max(elim_err[k], v)
+    order31 = torch.argsort(post31, dim=1, stable=True).to(torch.int32).contiguous()
+    k2_err = max(k2_err, time_k2("k2_size_time", (tg31, syn31, order31, rank31),
+                                 variants=("device",), config="toric31")[1])
+    time_sizes("toric31", tor31, lanes=LARGE_ROWS, variants=("device",))
+    rng31 = np.random.default_rng(31)
+    errors31 = (rng31.random((LARGE_ROWS, graph31.n)) < LARGE_ERROR_RATE).astype(np.uint8)
+    syn31_np = (errors31 @ H31.T % 2).astype(np.uint8)
+    for p in large_paths(tor31.hx):
+        counts = drive_decoder(p, H31, syn31_np, cpu_rows=LARGE_CPU_ROWS)
+        reached = {k: v for k, v in counts.items() if k.endswith("_device") and v}
+        phase("large_code", config=p.label, m=graph31.m, n=graph31.n, syndromes=LARGE_ROWS,
+              error_rate=LARGE_ERROR_RATE, device_variant_launches=json.dumps(reached))
+
     # ---- 5. the flip sweep against its plain version -------------------------
     flip_err = 0
     for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
         for pfreq, sweeps in ((0, gx.n), (3, PFLIP_SWEEPS)):
             flip_err = max(flip_err, compare_flip(cname, tgx, syn, sweeps, pfreq))
-    # times at FlipDecoder's main-path call: the whole batch, max_iter = n
-    flip_out = flip.flip_cuda(tg, syn_all, graph.n, 0, 1)
-    _, conv_f, iters_f = flip_out
-    # sweeps a lane surely completes: all but its last on a converged lane
-    # (it may stop mid-sweep), one on a lane that stops at its fixpoint;
-    # each tests the dv checks of every bit and compares
-    sweeps = int(torch.where(conv_f, iters_f - 1, 1).clamp(min=0).sum())
-    flip_numbers = timed(
-        "flip_time", f"B={BATCH},max_iter={graph.n}",
-        lambda: flip.flip_cuda(tg, syn_all, graph.n, 0, 1),
-        lambda: flip.flip_reference(tg, syn_all, graph.n, 0, 1),
-        nbytes(syn_all, tg.var_chks, *flip_out), float(sweeps) * (graph.nnz + graph.n),
-        plain_reps=1, full_sweeps=sweeps,
-    )
+    # times at FlipDecoder's main-path call (the whole batch, max_iter = n),
+    # then with p-flip on and on toric d=20
+    flip_numbers, err = time_flip("flip_time", tg, graph, syn_all, graph.n, 0)
+    flip_err = max(flip_err, err)
+    for name, tgx, gx, syn, sweeps, pfreq in (
+        ("surface13/pflip", tg, graph, syn_all, PFLIP_SWEEPS, 3),
+        ("toric20", tg20, graph20, syn20, graph20.n, 0),
+    ):
+        flip_err = max(flip_err, time_flip("flip_size_time", tgx, gx, syn, sweeps, pfreq,
+                                           config=name)[1])
 
     # ---- 6. main paths: decode_batch -----------------------------------------
     paths = {p.key: p for p in decode_paths(code)}
@@ -852,6 +965,10 @@ def main() -> int:
         syndromes_per_s=runs_per_call / statistics.median(times),
     )
 
+    # K2' at a Monte-Carlo bucket's shape: the first OSD-0 call of one step
+    k2_bucket = captured_calls(gf2_cuda, "osd0", lambda: step(gen))[0]
+    k2_err = max(k2_err, time_k2("k2_bucket_time", k2_bucket)[1])
+
     # ---- 8. one LSD statistics record: the card against the CPU ---------------
     make_lsd0 = paths["lsd0"].make
     probe = make_lsd0("cuda")
@@ -872,7 +989,8 @@ def main() -> int:
     # No PyTorch call computes BP, a GF(2) elimination or a flip sweep in
     # one call, so library_ms is null on every kernel.
     # variant_launches: the main path's launches by variant (K1' by where a
-    # lane's state lived, K3'-K5' warp or block; K2' and flip have one)
+    # lane's state lived; K2'-K5' warp, block or device; flip has one design,
+    # a warp scanning a lane)
     def entry(name, source, replaces, counts, err, numbers, variants):
         return {"name": name, "route": "cuda", "source": f"ldpc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[name], "max_abs_err": err,
@@ -880,14 +998,14 @@ def main() -> int:
                 "variant_launches": {v: counts[k] for v, k in variants.items()}}
 
     def elim_variants(name):
-        return {v: f"{name}_{v}" for v in ("warp", "block")}
+        return {v: f"{name}_{v}" for v in ELIM_VARIANTS}
 
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               path["osd0"], k1_err, k1_numbers,
               {"shared": "bp_shared_state", "device": "bp_device_state"}),
-        entry("osd0", "osd0.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
-              path["osd0"], k2_err, k2_numbers, {"block": "osd0"}),
+        entry("osd0", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
+              path["osd0"], k2_err, k2_numbers, elim_variants("osd0")),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
               path["osd_cs5"], elim_err["rref_export"],
               elim_numbers["rref_export"], elim_variants("rref_export")),
@@ -898,7 +1016,7 @@ def main() -> int:
               path["lsd_cs5"], elim_err["masked_export"],
               elim_numbers["masked_export"], elim_variants("masked_export")),
         entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"], flip_err,
-              flip_numbers, {"thread": "flip"}),
+              flip_numbers, {"warp_per_lane_scan": "flip"}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

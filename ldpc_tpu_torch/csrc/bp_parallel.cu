@@ -282,7 +282,10 @@ int launch(const Args& a, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // cleared: not the next launch's error
+      return (int)err;
+    }
   }
   const int blocks = (a.B + kLanesPerBlock - 1) / kLanesPerBlock;
   kernel<<<blocks, 32 * kLanesPerBlock, smem, stream>>>(a);

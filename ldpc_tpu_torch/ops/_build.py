@@ -40,22 +40,25 @@ _SIGNATURES = {
                          ctypes.c_float, _I, _P, _P, _P, _P, _P, _P],
     # (m, n, dc) -> 1 when K1 keeps a lane's state in shared memory
     "ldpc_bp_shared_state": [_I, _I, _I],
-    # (syndromes, order, packed_h, m, n, Wp, rank, B, x0, valid, stream)
-    "ldpc_osd0": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (kernel: 0 K3', 1 K4', 2 K5'; m, n) -> 1 when it takes the warp
-    # variant by default
-    "ldpc_elim_warp": [_I, _I, _I],
+    # (kernel: 0 K3', 1 K4', 2 K5', 3 K2'; m, n) -> the variant it takes by
+    # default: 0 warp, 1 block, 2 device
+    "ldpc_elim_variant": [_I, _I, _I],
     # (m, cap_words) -> warps of K4's warp variant resident on an SM
     "ldpc_masked_solve_resident_warps": [_I, _I],
-    # (syndromes, order, packed_h, m, n, Wp, rank, B, warp, M, col_of_row,
+    # (syndromes, order, packed_h, var_chks, m, n, Wp, dv, rank, B, variant,
+    #  x0, valid, scratch, stream)
+    "ldpc_osd0": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (syndromes, order, packed_h, m, n, Wp, rank, B, variant, M, col_of_row,
     #  used, stream)
     "ldpc_rref_export": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # (syndromes, order, count, packed_h, var_chks, m, n, Wp, dv, B, warp,
-    #  x0, bad_row, stream)
-    "ldpc_masked_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # (syndromes, order, count, packed_h, m, n, Wp, B, warp, M,
+    # (syndromes, order, count, packed_h, var_chks, m, n, Wp, dv, B, variant,
+    #  x0, bad_row, scratch, stream)
+    "ldpc_masked_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (syndromes, order, count, packed_h, m, n, Wp, B, variant, M,
     #  col_of_row, used, stream)
     "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
+    "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,
     #  iters, stream)
     "ldpc_flip": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P,

@@ -10,12 +10,14 @@ when its syndrome weight reaches 0, tested after every bit
 (flip.hpp:129-134); a lane that never converges reports ``max_iter``
 iterations.
 
-The sweep is sequential per lane, so it runs as one kernel with one thread
-per lane (``csrc/flip.cu``, :func:`flip_cuda`, launches counted in
-:data:`FLIP_LAUNCHES`); :func:`flip_reference` is its plain PyTorch version,
-vectorised over the lanes one bit at a time, and :func:`flip` picks by the
-tensors' device: the CPU runs the plain version, a CUDA device the kernel,
-anything else raises.
+The sweep is sequential per lane, so it runs as one kernel
+(``csrc/flip.cu``, :func:`flip_cuda`, launches counted in
+:data:`FLIP_LAUNCHES`) in which a warp scans a lane's bits 32 at a time
+and applies the first flip it finds;
+:func:`flip_reference` is its plain PyTorch version, vectorised over the
+lanes one bit at a time, :func:`flip_scan_reference` the plain model of the
+kernel's scan, and :func:`flip` picks by the tensors' device: the CPU runs
+the plain version, a CUDA device the kernel, anything else raises.
 
 Two choices of the port, shared by both versions:
 
@@ -35,12 +37,11 @@ import torch
 
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import _build
-from ldpc_tpu_torch.ops.gf2_cuda import SMEM_LIMIT
 from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
 
 FLIP_LAUNCHES = 0  # kernel launches made by flip_cuda
 
-_THREADS = 64  # lanes per block, as csrc/flip.cu launches them
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt in to
 
 _M32 = 0xFFFFFFFF
 
@@ -62,10 +63,11 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def coin(seed: int, lanes, sweep: int, bit: int):
+def coin(seed: int, lanes, sweep: int, bit):
     """The p-flip coin of (seed, lane, sweep, bit): the top bit of
-    ``mix(mix(mix(mix(seed) ^ lane) ^ sweep) ^ bit)``. ``lanes`` is an int or
-    an int64 tensor; ints give a bool, tensors a bool tensor."""
+    ``mix(mix(mix(mix(seed) ^ lane) ^ sweep) ^ bit)``. ``lanes`` and ``bit``
+    are ints or int64 tensors that broadcast; ints give a bool, tensors a
+    bool tensor."""
     h = _mix32(_mix32(_mix32(_mix32(seed & _M32) ^ lanes) ^ sweep) ^ bit)
     return (h >> 31) == 1
 
@@ -115,6 +117,73 @@ def flip_reference(
     return dec, conv, iters
 
 
+def flip_scan_reference(
+    tg: TorchGraph, syndromes: torch.Tensor, max_iter: int, pfreq: int, seed: int,
+    group: int,
+) -> FlipResult:
+    """Plain PyTorch model of the kernel's scan, equal to
+    :func:`flip_reference` bit for bit; no decoder calls it.
+
+    Each lane decides ``group`` bits of the sweep at once against its
+    current syndrome, applies only the first of them that flips, and resumes
+    at the bit after it (``group`` bits on when none flips). A bit's
+    decision depends only on the flips before it, so the flips, their order
+    and the convergence test are those of the one-bit-at-a-time sweep.
+    """
+    B = syndromes.shape[0]
+    m, n = tg.m, tg.n
+    dev = syndromes.device
+    # column m takes the pad slots of var_chks and stays 0
+    synd = torch.zeros((B, m + 1), dtype=torch.bool, device=dev)
+    synd[:, :m] = syndromes.bool()
+    dec = torch.zeros((B, n), dtype=torch.uint8, device=dev)
+    weight = syndromes.sum(dim=1, dtype=torch.int64)
+    conv = weight == 0
+    iters = torch.zeros(B, dtype=torch.int32, device=dev)
+    live = ~conv  # lanes still sweeping
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    offsets = torch.arange(group, dtype=torch.int64, device=dev)
+    var_chks = tg.var_chks.long()
+    deg = tg.var_mask.sum(dim=1)
+    it = 0
+    while it < max_iter and bool(live.any()):
+        it += 1
+        pflip = pfreq > 0 and it % pfreq == 0
+        flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+        start = torch.zeros(B, dtype=torch.int64, device=dev)  # each lane's next bit
+        scanning = live.clone()  # lanes with bits of this sweep left
+        while bool(scanning.any()):
+            bit = start[:, None] + offsets  # (B, group)
+            inside = (bit < n) & scanning[:, None]
+            bit = bit.clamp(max=n - 1)
+            chks = var_chks[bit]  # (B, group, dv)
+            unsat = synd[lanes[:, None, None], chks].sum(dim=2)
+            gain = deg[bit] - 2 * unsat  # satisfied minus unsatisfied checks
+            do = gain < 0
+            if pflip:
+                do |= (gain == 0) & coin(seed, lanes[:, None], it, bit)
+            do &= inside
+            any_flip = do.any(dim=1)
+            first = do.to(torch.uint8).argmax(dim=1)  # the first bit that flips
+            at = lanes[any_flip]
+            flip_bit = bit[at, first[at]]
+            dec[at, flip_bit] ^= 1
+            synd[at[:, None], var_chks[flip_bit]] ^= True
+            synd[:, m] = False
+            weight[at] += gain[at, first[at]]
+            hit = any_flip & (weight == 0)
+            iters = torch.where(hit, it, iters)
+            conv |= hit
+            live &= ~hit
+            flipped |= any_flip
+            start = torch.where(any_flip, start + first + 1, start + group)
+            scanning &= ~hit & (start < n)
+        if pfreq == 0:
+            live &= flipped  # the others are at a fixpoint
+    iters = torch.where(conv, iters, max_iter).to(torch.int32)
+    return dec, conv, iters
+
+
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(f"flip_cuda: {what}")
@@ -123,8 +192,8 @@ def _require(cond: bool, what: str) -> None:
 def flip_cuda(
     tg: TorchGraph, syndromes: torch.Tensor, max_iter: int, pfreq: int, seed: int
 ) -> FlipResult:
-    """Launch the flip sweep (``csrc/flip.cu``) on CUDA tensors: one thread
-    per lane."""
+    """Launch the flip sweep (``csrc/flip.cu``) on CUDA tensors: one warp per
+    lane, 8 lanes a block."""
     global FLIP_LAUNCHES
     dev = syndromes.device
     m, n = tg.m, tg.n
@@ -140,23 +209,22 @@ def flip_cuda(
     )
     _require(max_iter >= 0, "max_iter must be >= 0")
     _require(pfreq >= 0, "pfreq must be >= 0")
-    smem = -(-m // 32) * _THREADS * 4
-    _require(
-        smem <= SMEM_LIMIT,
-        f"the syndromes need {smem} bytes of shared memory, more than the "
-        f"card's {SMEM_LIMIT}",
-    )
     B = syndromes.shape[0]
-    dec = torch.zeros((B, n), dtype=torch.uint8, device=dev)
+    dec = torch.empty((B, n), dtype=torch.uint8, device=dev)
     conv = torch.empty(B, dtype=torch.bool, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         lib = _build.library()
+        smem = lib.ldpc_flip_smem(m, n, tg.dv)
+        _require(
+            smem <= SMEM_LIMIT,
+            f"the graph and the lanes' state need {smem} bytes of shared memory, "
+            f"more than the card's {SMEM_LIMIT}",
+        )
         with torch.cuda.device(dev):
             rc = lib.ldpc_flip(
                 syndromes.data_ptr(), tg.var_chks.data_ptr(), m, n, tg.dv, B,
-                int(max_iter), int(pfreq), int(seed) & _M32, dec.data_ptr(),
-                conv.data_ptr(), iters.data_ptr(),
+                int(max_iter), int(pfreq), int(seed) & _M32, dec.data_ptr(), conv.data_ptr(), iters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "flip")

@@ -3,25 +3,33 @@
 Every kernel here solves H x = s for a batch of lanes by swap-free
 Gauss-Jordan over the packed [H | s], taking each lane's columns in its own
 order (``order`` (B, n), the caller's stable argsort of the LLRs); the pivot
-is the first unused row holding a 1. They differ in when a lane stops and
-in what they return:
+is the first unused row holding a 1. They are one source,
+``csrc/gf2_elim.cu``, and differ in when a lane stops and in what they
+return:
 
-- ``osd0`` (K2', ``csrc/osd0.cu``): OSD-0. Stops at the syndrome fast exit
-  of ``ldpc_tpu/ops/gf2.py::batched_rref(fast_exit=True)`` or at ``rank``
+- ``osd0`` (K2'): OSD-0. Stops at the syndrome fast exit of
+  ``ldpc_tpu/ops/gf2.py::batched_rref(fast_exit=True)`` or at ``rank``
   pivots; returns ``(x0 (B, n) uint8 in original column coordinates,
   valid (B,) bool)``.
-- ``rref_export`` (K3', ``csrc/gf2_elim.cu``): runs to ``rank`` pivots and
-  exports the reduced matrix.
+- ``rref_export`` (K3'): runs to ``rank`` pivots and exports the reduced
+  matrix.
 - ``masked_solve`` (K4'): lane l takes only its first ``count[l]``
   columns; returns ``(x0, bad_row (B, m) bool)``, ``bad_row`` marking the
   unused rows that still hold a syndrome 1.
 - ``masked_export`` (K5'): K4's elimination with K3's export.
 
-K3'-K5' have two variants (:func:`elim_variant`): ``"warp"``, one warp per
-lane, the default while a lane fits the kernel's budget, and ``"block"``,
-one block per lane, for larger codes (and for K5' from surface d=15 on).
-K4's warp variant works on the lane's own columns only
-(:func:`masked_solve_compact_reference` is its plain model). The wrappers'
+Each has three variants (:func:`elim_variant`): ``"warp"``, one warp per
+lane, the default while a lane fits the kernel's budget; ``"block"``, one
+block per lane with the lane's matrix in shared memory, for larger codes
+(and for K5' from surface d=15 on); and ``"device"``, the block body with
+the matrix in device memory, for codes above a block's shared memory
+(toric d=31 and up). In the device variant K3' and K5' eliminate in place
+in their own output; K2' and K4' take a scratch that the wrapper allocates,
+at most :data:`SCRATCH_BYTES`, and run the batch in lane chunks, one launch
+a chunk. K4's warp variant works on the lane's own columns only
+(:func:`masked_solve_compact_reference` is its plain model), and K2's on
+the lane's columns 32 at a time, replaying the pivots it has recorded on
+each further word (:func:`osd0_compact_reference`). The wrappers'
 ``variant`` keyword forces one (tests and measurement only).
 
 The export is ``(M (B, m, Wp) int32 words of [R | T s] in original column
@@ -30,10 +38,10 @@ is unused), used (B, m) bool)``; ``Wp = ceil((n+1)/32)`` and the reduced
 syndrome is bit ``n`` of each row.
 
 For each kernel, ``*_reference`` is the plain PyTorch version, ``*_cuda``
-launches the kernel on CUDA tensors and counts the launch (K2' in
-:data:`LAUNCHES`, K3'-K5' in :data:`VARIANT_LAUNCHES` by variant), and the
-bare name picks by the tensors' device: the CPU runs the plain version, a
-CUDA device runs the kernel, anything else raises.
+launches the kernel on CUDA tensors and counts every launch in
+:data:`VARIANT_LAUNCHES` by variant, and the bare name picks by the
+tensors' device: the CPU runs the plain version, a CUDA device runs the
+kernel, anything else raises.
 """
 
 from typing import Optional, Tuple
@@ -43,18 +51,27 @@ import torch
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.pcm import TorchGraph
 
-LAUNCHES = 0  # kernel launches made by osd0_cuda
-# ... by rref_export_cuda, masked_solve_cuda and masked_export_cuda, by
-# variant (see elim_variant); a kernel's launches are the sum of its two
+VARIANTS = ("warp", "block", "device")  # in the order of the library's variant ids
+# kernel launches made by osd0_cuda, rref_export_cuda, masked_solve_cuda and
+# masked_export_cuda, by variant (see elim_variant); a kernel's launches are
+# the sum over its variants
 VARIANT_LAUNCHES = {
-    kernel: {"warp": 0, "block": 0}
-    for kernel in ("rref_export", "masked_solve", "masked_export")
+    kernel: dict.fromkeys(VARIANTS, 0)
+    for kernel in ("osd0", "rref_export", "masked_solve", "masked_export")
 }
 
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt in to
 _MAX_ROWS = 32 * 1024  # 1024 threads owning at most 32 rows each
+# the most scratch a K2' or K4' launch of the device variant is given; larger
+# batches run in chunks of lanes
+SCRATCH_BYTES = 256 * 2**20
 
 Export = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def __getattr__(name: str) -> int:
+    if name == "LAUNCHES":  # kernel launches made by osd0_cuda, every variant
+        return sum(VARIANT_LAUNCHES["osd0"].values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _eliminate(tg, syndromes, order, limit, rank, fast_exit):
@@ -220,6 +237,112 @@ def masked_solve_compact_reference(
     return x0[:, :n].contiguous(), sbits & ~used
 
 
+def _osd0_history_pivots(m: int, Wp: int) -> int:
+    """Pivots whose record fits a lane of K2's warp variant
+    (``osd0_history_pivots`` in ``csrc/gf2_elim.cu``): 33 words a pivot in
+    the lane's 32 R (S - 1) idle words, R = ceil(m / 32), S = Wp | 1."""
+    return (32 * -(-m // 32) * ((Wp | 1) - 1)) // 33
+
+
+def osd0_compact_reference(
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch model of K2's warp variant, equal to
+    :func:`osd0_reference` bit for bit; no decoder calls it.
+
+    The syndrome is kept beside the matrix, one bit a row: a pivot row whose
+    bit is 1 toggles the bits of the rows it is XORed into. A lane walks its
+    columns 32 at a time, one word a row, bit j of row r being
+    ``H[r, order[b, 32 w + j]]``, built from ``var_chks``. Every pivot is
+    recorded (the pivot row and the rows that took its XOR), and a further
+    word first takes the recorded pivots' XORs in their order, which brings
+    its columns to where the elimination stands. A lane with more pivots
+    than the record holds starts again on the full-width matrix, which takes
+    the same pivots and goes on.
+    """
+    m, n = tg.m, tg.n
+    B = syndromes.shape[0]
+    dev = syndromes.device
+    room = _osd0_history_pivots(m, tg.packed.shape[1])
+    lanes = torch.arange(B, device=dev)
+    rows = torch.arange(m, device=dev)
+    shifts = torch.arange(32, device=dev)
+    order = order.long()
+    var_chks = tg.var_chks.long()
+    synd = syndromes.bool().clone()
+    used = torch.zeros((B, m), dtype=torch.bool, device=dev)
+    pivot_col = torch.zeros((B, m), dtype=torch.int64, device=dev)
+    used_cnt = torch.zeros(B, dtype=torch.int64, device=dev)
+    active = synd.any(dim=1) & (rank > 0)
+    again = torch.zeros(B, dtype=torch.bool, device=dev)  # lanes that start again
+    record = []  # (pivot row (B,), rows that took its XOR (B, m)) of every pivot step
+    for j0 in range(0, n, 32):
+        if not bool(active.any()):
+            break
+        cols = min(32, n - j0)
+        # bits (B, m + 1, 32): row m takes the pad slots of var_chks
+        bits = torch.zeros((B, m + 1, 32), dtype=torch.int64, device=dev)
+        chks = var_chks[order[:, j0 : j0 + cols]]  # (B, cols, dv)
+        bits[
+            lanes[:, None, None].expand_as(chks),
+            chks,
+            shifts[None, :cols, None].expand_as(chks),
+        ] = 1
+        word = (bits[:, :m] << shifts).sum(dim=2)  # (B, m)
+        for piv, elim in record:
+            word = torch.where(elim, word ^ word[lanes, piv][:, None], word)
+        for j in range(cols):
+            col = ((word >> j) & 1).bool() & active[:, None]
+            cand = col & ~used
+            has = cand.any(dim=1)
+            full = has & (used_cnt == room)  # no room for this pivot's record
+            again |= full
+            active = active & ~full
+            has = has & ~full
+            if not bool(has.any()):
+                continue
+            piv = cand.to(torch.uint8).argmax(dim=1)  # first unused row with a 1
+            is_piv = (rows[None, :] == piv[:, None]) & has[:, None]
+            elim = col & ~is_piv & has[:, None]
+            word = torch.where(elim, word ^ word[lanes, piv][:, None], word)
+            synd = synd ^ (elim & synd[lanes, piv][:, None])
+            used = used | is_piv
+            pivot_col = torch.where(is_piv, order[:, j0 + j][:, None], pivot_col)
+            used_cnt = used_cnt + has.long()
+            record.append((piv, elim))
+            active = active & (synd & ~used).any(dim=1) & (used_cnt < rank)
+    x0 = torch.zeros((B, n + 1), dtype=torch.uint8, device=dev)
+    x0.scatter_(1, torch.where(used, pivot_col, n), (synd & used).to(torch.uint8))
+    x0 = x0[:, :n].contiguous()
+    valid = ~(synd & ~used).any(dim=1)
+    if bool(again.any()):
+        x0[again], valid[again] = osd0_reference(
+            tg, syndromes[again], order[again].to(torch.int32), rank
+        )
+    return x0, valid
+
+
+def columns_walked(
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor,
+    limit: torch.Tensor, rank: int, fast_exit: bool,
+) -> torch.Tensor:
+    """Columns of its order each lane's elimination walks before it stops,
+    (B,) int64, counted by the plain elimination: up to its last pivot (a
+    lane that stops at ``rank`` pivots or at the fast exit stops right after
+    a pivot), or all ``limit`` columns of a lane that neither ends. The
+    arguments are those of :func:`pivots_taken`."""
+    n = tg.n
+    limit = limit.long().clamp(0, n)
+    M, used, col_of_row = _eliminate(tg, syndromes, order, limit, rank, fast_exit)
+    place = torch.empty_like(order, dtype=torch.long).scatter_(
+        1, order.long(), torch.arange(n, device=order.device).expand(order.shape))
+    last = torch.where(used, torch.gather(place, 1, col_of_row), -1).max(dim=1).values + 1
+    ended = used.sum(dim=1) >= rank
+    if fast_exit:
+        ended |= ~(_syndrome_bits(tg, M) & ~used).any(dim=1)
+    return torch.where(ended, last, limit)
+
+
 def pivots_taken(
     tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor,
     limit: torch.Tensor, rank: int, fast_exit: bool,
@@ -240,8 +363,8 @@ def _check(
     count: Optional[torch.Tensor] = None,
     var_chks: bool = False,
 ) -> int:
-    """Validate a launch's inputs (``var_chks``: K4's warp variant reads
-    the graph's ``var_chks``); return the batch size."""
+    """Validate a launch's inputs (``var_chks``: the warp variants of K2'
+    and K4' read the graph's ``var_chks``); return the batch size."""
 
     def require(cond: bool, what: str) -> None:
         if not cond:
@@ -280,39 +403,38 @@ def _check(
 
 
 def _check_block(kernel: str, tg: TorchGraph) -> None:
-    """The limits of the block variant (``osd0`` has only that one)."""
-    m, Wp = tg.m, tg.packed.shape[1]
-    if m > _MAX_ROWS:
-        raise ValueError(f"{kernel}_cuda: {m} checks exceed the kernel's {_MAX_ROWS}")
-    smem = (m * Wp + m) * 4
-    if smem > SMEM_LIMIT:
+    """The one limit of the block and device variants: a block's 1,024
+    threads own at most 32 rows each (one 32-bit mask of used rows). The
+    size of the working matrix is no limit: above a block's shared memory it
+    lives in device memory."""
+    if tg.m > _MAX_ROWS:
         raise ValueError(
-            f"{kernel}_cuda: the working matrix needs {smem} bytes of shared "
-            f"memory, more than the card's {SMEM_LIMIT}"
+            f"{kernel}_cuda: {tg.m} checks exceed the {_MAX_ROWS} a block's "
+            f"threads can own (32 rows each)"
         )
 
 
-_KERNEL_IDS = {"rref_export": 0, "masked_solve": 1, "masked_export": 2}
+_KERNEL_IDS = {"rref_export": 0, "masked_solve": 1, "masked_export": 2, "osd0": 3}
 
 
 def elim_variant(kernel: str, m: int, n: int) -> str:
-    """Where ``kernel`` (``"rref_export"``, ``"masked_solve"`` or
-    ``"masked_export"``) runs an (m, n) code by default: ``"warp"`` (one
+    """Where ``kernel`` (``"osd0"``, ``"rref_export"``, ``"masked_solve"``
+    or ``"masked_export"``) runs an (m, n) code by default: ``"warp"`` (one
     warp per lane, several lanes a block) while a lane fits the kernel's
-    per-lane budget, else ``"block"`` (one block per lane). The budgets and
-    the layout live in ``csrc/gf2_elim.cu``, so this builds the kernels'
-    library."""
-    warp = _build.library().ldpc_elim_warp(_KERNEL_IDS[kernel], m, n)
-    return "warp" if warp else "block"
+    per-lane budget, else ``"block"`` (one block per lane) while the lane's
+    matrix fits a block's shared memory, else ``"device"`` (the block body
+    on a matrix in device memory). The budgets and the layout live in
+    ``csrc/gf2_elim.cu``, so this builds the kernels' library."""
+    return VARIANTS[_build.library().ldpc_elim_variant(_KERNEL_IDS[kernel], m, n)]
 
 
 def _variant(kernel: str, tg: TorchGraph, variant: Optional[str]) -> str:
     """The variant a launch takes; ``variant`` forces one (tests and
     measurement only)."""
     variant = elim_variant(kernel, tg.m, tg.n) if variant is None else variant
-    if variant not in ("warp", "block"):
-        raise ValueError(f"{kernel}_cuda: variant must be 'warp' or 'block', not {variant!r}")
-    if variant == "block":
+    if variant not in VARIANTS:
+        raise ValueError(f"{kernel}_cuda: variant must be one of {VARIANTS}, not {variant!r}")
+    if variant != "warp":
         _check_block(kernel, tg)
     return variant
 
@@ -329,26 +451,46 @@ def _empty_export(tg, B, dev) -> Export:
     )
 
 
+def _chunks(tg: TorchGraph, B: int, variant: str, dev):
+    """How a K2' or K4' batch is launched: ``(scratch, [(start, stop), ...])``.
+    The warp and block variants take the batch in one launch and no scratch;
+    the device variant takes a lane's matrix and pivot columns, ``m * Wp + m``
+    words, from a scratch of at most SCRATCH_BYTES, in chunks of lanes."""
+    if B == 0:
+        return None, []
+    if variant != "device":
+        return None, [(0, B)]
+    lane_words = tg.m * tg.packed.shape[1] + tg.m
+    chunk = min(B, max(1, SCRATCH_BYTES // (4 * lane_words)))
+    scratch = torch.empty((chunk, lane_words), dtype=torch.int32, device=dev)
+    return scratch, [(a, min(a + chunk, B)) for a in range(0, B, chunk)]
+
+
 def osd0_cuda(
-    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int
+    tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int,
+    variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2' (``csrc/osd0.cu``) on CUDA tensors: one block per lane."""
-    global LAUNCHES
-    B = _check("osd0", tg, syndromes, order)
-    _check_block("osd0", tg)
+    """Launch K2' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
+    :func:`elim_variant` unless ``variant`` forces one. The warp variant
+    builds each lane's columns, 32 at a time, from ``tg.var_chks``."""
+    B = _check("osd0", tg, syndromes, order, var_chks=True)
+    variant = _variant("osd0", tg, variant)
     dev = syndromes.device
     x0 = torch.empty((B, tg.n), dtype=torch.uint8, device=dev)
     valid = torch.empty(B, dtype=torch.bool, device=dev)
-    if B:
-        lib = _build.library()
+    scratch, chunks = _chunks(tg, B, variant, dev)
+    lib = _build.library() if chunks else None
+    for a, b in chunks:
         with torch.cuda.device(dev):
             rc = lib.ldpc_osd0(
-                syndromes.data_ptr(), order.data_ptr(), tg.packed.data_ptr(),
-                tg.m, tg.n, tg.packed.shape[1], int(rank), B, x0.data_ptr(),
-                valid.data_ptr(), _stream(dev),
+                syndromes[a:b].data_ptr(), order[a:b].data_ptr(), tg.packed.data_ptr(),
+                tg.var_chks.data_ptr(), tg.m, tg.n, tg.packed.shape[1], tg.dv,
+                int(rank), b - a, VARIANTS.index(variant), x0[a:b].data_ptr(),
+                valid[a:b].data_ptr(), None if scratch is None else scratch.data_ptr(),
+                _stream(dev),
             )
         _build.check(lib, rc, "osd0")
-        LAUNCHES += 1
+        VARIANT_LAUNCHES["osd0"][variant] += 1
     return x0, valid
 
 
@@ -367,7 +509,7 @@ def rref_export_cuda(
         with torch.cuda.device(dev):
             rc = lib.ldpc_rref_export(
                 syndromes.data_ptr(), order.data_ptr(), tg.packed.data_ptr(),
-                tg.m, tg.n, tg.packed.shape[1], int(rank), B, int(variant == "warp"),
+                tg.m, tg.n, tg.packed.shape[1], int(rank), B, VARIANTS.index(variant),
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "rref_export")
@@ -381,21 +523,23 @@ def masked_solve_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4' (``csrc/gf2_elim.cu``) on CUDA tensors, in the variant of
     :func:`elim_variant` unless ``variant`` forces one. The warp
-    variant builds each lane's own columns from ``tg.var_chks``; the block
-    variant reads the packed H."""
+    variant builds each lane's own columns from ``tg.var_chks``; the
+    others read the packed H."""
     B = _check("masked_solve", tg, syndromes, order, count, var_chks=True)
     variant = _variant("masked_solve", tg, variant)
     dev = syndromes.device
     x0 = torch.empty((B, tg.n), dtype=torch.uint8, device=dev)
     bad_row = torch.empty((B, tg.m), dtype=torch.bool, device=dev)
-    if B:
-        lib = _build.library()
+    scratch, chunks = _chunks(tg, B, variant, dev)
+    lib = _build.library() if chunks else None
+    for a, b in chunks:
         with torch.cuda.device(dev):
             rc = lib.ldpc_masked_solve(
-                syndromes.data_ptr(), order.data_ptr(), count.data_ptr(),
+                syndromes[a:b].data_ptr(), order[a:b].data_ptr(), count[a:b].data_ptr(),
                 tg.packed.data_ptr(), tg.var_chks.data_ptr(), tg.m, tg.n,
-                tg.packed.shape[1], tg.dv, B, int(variant == "warp"), x0.data_ptr(),
-                bad_row.data_ptr(), _stream(dev),
+                tg.packed.shape[1], tg.dv, b - a, VARIANTS.index(variant),
+                x0[a:b].data_ptr(), bad_row[a:b].data_ptr(),
+                None if scratch is None else scratch.data_ptr(), _stream(dev),
             )
         _build.check(lib, rc, "masked_solve")
         VARIANT_LAUNCHES["masked_solve"][variant] += 1
@@ -418,7 +562,7 @@ def masked_export_cuda(
             rc = lib.ldpc_masked_export(
                 syndromes.data_ptr(), order.data_ptr(), count.data_ptr(),
                 tg.packed.data_ptr(), tg.m, tg.n, tg.packed.shape[1], B,
-                int(variant == "warp"),
+                VARIANTS.index(variant),
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "masked_export")

@@ -66,6 +66,46 @@ def test_flip_reference_matches_jax(code, max_iter):
     assert ((got[0].numpy() @ graph.dense.T % 2)[conv] == syn[conv]).all()
 
 
+GROUPS = [1, 8, 32]
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("code", list(CODES))
+def test_flip_scan_reference_matches_plain_version_and_jax(code, group):
+    """The plain model of the kernel's scan (``group`` bits decided at once,
+    the first flip applied, the scan resumed after it) without p-flip: equal
+    to the plain sweep and to ``ldpc_tpu.ops.flip.make_flip_decoder``."""
+    H, syn = CODES[code]()
+    graph = compile_pcm(H)
+    tg = graph_to_torch(graph, "cpu")
+    s = torch.from_numpy(syn)
+    scan = tflip.flip_scan_reference(tg, s, graph.n, 0, 123, group)
+    plain = tflip.flip_reference(tg, s, graph.n, 0, 123)
+    want = jflip.make_flip_decoder(graph, graph.n, 0)(jnp.asarray(syn), jax.random.key(0))
+    for a, b, c in zip(scan, plain, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert (a.numpy() == np.asarray(c)).all()
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("pfreq,max_iter", [(0, 41), (1, 6), (3, 12)])
+def test_flip_scan_reference_matches_plain_version_with_pflip(pfreq, max_iter, group):
+    """With p-flip both draw the hashed coin of (seed, lane, sweep, bit), so
+    the scan equals the plain sweep bit for bit; lanes converge in the
+    middle of a scan and of a sweep."""
+    H = surface_code(5).hx
+    graph = compile_pcm(H)
+    tg = graph_to_torch(graph, "cpu")
+    s = torch.from_numpy(_random_syndromes(H, 256, 0.08, 9))
+    scan = tflip.flip_scan_reference(tg, s, max_iter, pfreq, 5, group)
+    plain = tflip.flip_reference(tg, s, max_iter, pfreq, 5)
+    for a, b in zip(scan, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    conv = plain[1].numpy()
+    assert conv.any() and not conv.all()
+    assert ((scan[0].numpy() @ graph.dense.T % 2)[conv] == s.numpy()[conv]).all()
+
+
 def test_coin_is_the_integer_hash():
     """The coin on int64 tensors equals the same hash on Python ints, and is
     close to fair."""

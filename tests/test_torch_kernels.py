@@ -1,7 +1,7 @@
-"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2' (csrc/osd0.cu),
-K3'-K5' (csrc/gf2_elim.cu, each in its warp and block variants, forced by
-the wrappers' ``variant`` keyword) and the flip sweep
-(csrc/flip.cu) held against their plain PyTorch versions on the card.
+"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2'-K5' (csrc/gf2_elim.cu,
+each in its warp, block and device variants, forced by the wrappers'
+``variant`` keyword) and the flip sweep (csrc/flip.cu) held against their
+plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -125,38 +125,111 @@ def test_k1_large_codes(dev, distance):
     assert ker.iterations.unique().numel() > 1  # lanes stop apart
 
 
+# K2'-K5' variants, each forced
+ELIM_VARIANTS = ["warp", "block", "device"]
+
+
+def _k2(tg, syn, order, rank, variant):
+    """One K2' call in a forced variant (None: the bare ``osd0``, which takes
+    the default), held against the plain version and the compact model; the
+    variant's counter moves (more than once only where the device variant
+    runs the batch in chunks)."""
+    counted = variant or gf2_cuda.elim_variant("osd0", tg.m, tg.n)
+    before = dict(gf2_cuda.VARIANT_LAUNCHES["osd0"])
+    total = gf2_cuda.LAUNCHES
+    if variant is None:
+        x_k, v_k = gf2_cuda.osd0(tg, syn, order, rank)
+    else:
+        x_k, v_k = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant=variant)
+    after = gf2_cuda.VARIANT_LAUNCHES["osd0"]
+    moved = after[counted] - before[counted]
+    assert moved == 1 or (counted == "device" and moved > 1)
+    assert gf2_cuda.LAUNCHES == total + moved
+    x_r, v_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    torch.cuda.synchronize()
+    assert x_k.dtype == x_r.dtype and v_k.dtype == v_r.dtype
+    assert torch.equal(x_k, x_r) and torch.equal(v_k, v_r)
+    x_c, v_c = gf2_cuda.osd0_compact_reference(tg, syn, order, rank)
+    assert torch.equal(x_c, x_r) and torch.equal(v_c, v_r)
+    return x_k, v_k
+
+
+@pytest.mark.parametrize("variant", [None, *ELIM_VARIANTS])
 @pytest.mark.parametrize("name", ["surface13", "toric20"])
-def test_k2_matches_plain_version(codes, name):
-    """Bit-identical x0 and validity; x0 solves H x = s on valid lanes."""
+def test_k2_matches_plain_version(codes, name, variant):
+    """Bit-identical x0 and validity in every variant; x0 solves H x = s on
+    valid lanes. On these BP-posterior orders a lane walks few columns,
+    a rare one into its second word."""
     graph, tg, syn, llr0 = codes[name]
     llr = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, 0.625).llr_posterior
     order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
     rank = gf2.batched_rank(graph.dense)
-    before = gf2_cuda.LAUNCHES
-    x_k, v_k = gf2_cuda.osd0(tg, syn, order, rank)
-    assert gf2_cuda.LAUNCHES == before + 1
-    x_r, v_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
-    torch.cuda.synchronize()
-    assert torch.equal(x_k, x_r)
-    assert torch.equal(v_k, v_r)
+    x_k, v_k = _k2(tg, syn, order, rank, variant)
     x, s, v = x_k.cpu().numpy(), syn.cpu().numpy(), v_k.cpu().numpy()
     assert v.all()
     assert ((x @ graph.dense.T) % 2 == s).all()
 
 
-def test_k2_invalid_lanes_match_plain_version(codes):
-    """Random syndromes of a rank-deficient H include ones outside its image."""
-    graph, tg, syn, _ = codes["toric20"]
+@pytest.mark.parametrize("variant", ELIM_VARIANTS)
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k2_invalid_lanes_match_plain_version(codes, name, variant):
+    """Random syndromes of a rank-deficient H include ones outside its
+    image: those lanes run to full rank and are invalid. With random orders
+    most lanes take more pivots than the warp variant's record holds (48 at
+    d=13, 327 at toric d=20), so it starts them again at full width."""
+    graph, tg, syn, _ = codes[name]
     rng = np.random.default_rng(3)
     s = torch.from_numpy(rng.integers(0, 2, (512, graph.m)).astype(np.uint8)).to(syn.device)
     order = torch.from_numpy(
         np.argsort(rng.random((512, graph.n)), axis=1).astype(np.int32)
     ).to(syn.device)
     rank = gf2.batched_rank(graph.dense)
-    x_k, v_k = gf2_cuda.osd0_cuda(tg, s, order, rank)
-    x_r, v_r = gf2_cuda.osd0_reference(tg, s, order, rank)
-    assert torch.equal(x_k, x_r) and torch.equal(v_k, v_r)
-    assert not bool(v_k.all())
+    all_cols = torch.full((512,), graph.n, device=syn.device)
+    walked = gf2_cuda.columns_walked(tg, s, order, all_cols, rank, True)
+    pivots = gf2_cuda.pivots_taken(tg, s, order, all_cols, rank, True)
+    assert int((walked > 64).sum()) > 256
+    assert int((pivots > (48 if name == "surface13" else 327)).sum()) > 256
+    _, v_k = _k2(tg, s, order, rank, variant)
+    if name == "toric20":
+        assert not bool(v_k.all())
+        assert bool((pivots[~v_k] == rank).all())  # an invalid lane reached full rank
+    else:
+        assert bool(v_k.all())  # the surface code's checks are independent
+
+
+@pytest.mark.parametrize("variant", ELIM_VARIANTS)
+@pytest.mark.parametrize("lanes", [1, 31, 33, 1001])
+def test_k2_odd_batches_mixed_lanes_and_zero_syndromes(codes, lanes, variant):
+    """Odd batches leave a block of 4 lanes part empty. Interleaved in one
+    launch: lanes that end early (BP-posterior orders), lanes that walk
+    several words and may start again at full width (random orders), zero
+    syndromes, and lanes that end in their second word, after the replay of
+    their recorded pivots (one error, its bit the lane's 41st column)."""
+    graph, tg, syn, order = _orders(codes, "surface13", lanes)
+    n = graph.n
+    rng = np.random.default_rng(lanes)
+    order_np, syn_np = order.cpu().numpy().copy(), syn.cpu().numpy().copy()
+    kind = np.arange(lanes) % 4
+    for b in np.flatnonzero(kind == 1):
+        order_np[b] = rng.permutation(n)
+    syn_np[kind == 2] = 0
+    for b in np.flatnonzero(kind == 3):
+        e = int(rng.integers(n))
+        others = rng.permutation(np.delete(np.arange(n), e))
+        order_np[b] = np.concatenate([others[:40], [e], others[40:]])
+        syn_np[b] = graph.dense[:, e]
+    order = torch.from_numpy(order_np).to(syn.device)
+    s = torch.from_numpy(syn_np).to(syn.device)
+    rank = gf2.batched_rank(graph.dense)
+    x_k, v_k = _k2(tg, s, order, rank, variant)
+    assert bool(v_k.all()) and not bool(x_k.cpu()[kind == 2].any())
+    assert ((x_k.cpu().numpy() @ graph.dense.T) % 2 == syn_np).all()
+    if lanes > 1:
+        all_cols = torch.full((lanes,), n, device=syn.device)
+        walked = gf2_cuda.columns_walked(tg, s, order, all_cols, rank, True).cpu().numpy()
+        assert walked[kind == 1].max() > 64 and walked[kind == 2].max() == 0
+        assert 0 < walked[kind == 0].max() <= 64
+        assert ((walked[kind == 3] > 32) & (walked[kind == 3] <= 64)).any()
 
 
 def _orders(codes, name, lanes=None):
@@ -168,8 +241,6 @@ def _orders(codes, name, lanes=None):
     return graph, tg, syn, torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
 
 
-# K3'-K5' variants, each forced
-ELIM_VARIANTS = ["warp", "block"]
 # counts at the edges of K4's one-word (register) rows, and 2 words
 COUNT_EDGES = [0, 1, 31, 32, 33, 63, 64]
 
@@ -196,12 +267,15 @@ def _assert_exports_equal(ker, ref):
 
 
 def _elim(kname, variant, *args):
-    """One K3'-K5' launch in a forced variant; its variant's counter moves."""
+    """One K3'-K5' launch in a forced variant; its variant's counter moves
+    (K4' more than once only where the device variant runs the batch in
+    chunks)."""
     before = dict(gf2_cuda.VARIANT_LAUNCHES[kname])
     out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
     after = gf2_cuda.VARIANT_LAUNCHES[kname]
-    assert after[variant] == before[variant] + 1
-    assert sum(after.values()) == sum(before.values()) + 1
+    moved = after[variant] - before[variant]
+    assert moved == 1 or (moved > 1 and (kname, variant) == ("masked_solve", "device"))
+    assert sum(after.values()) == sum(before.values()) + moved
     return out
 
 
@@ -243,8 +317,8 @@ def test_k3_k4_k5_default_variants(codes):
     K5' only while four lanes share a block (surface d=13, not toric
     d=20)."""
     graph20 = codes["toric20"][0]
-    for kname, variant in (("rref_export", "warp"), ("masked_solve", "warp"),
-                           ("masked_export", "block")):
+    for kname, variant in (("osd0", "warp"), ("rref_export", "warp"),
+                           ("masked_solve", "warp"), ("masked_export", "block")):
         assert gf2_cuda.elim_variant(kname, graph20.m, graph20.n) == variant
     graph, tg, syn, order = _orders(codes, "surface13", 257)
     for kname in gf2_cuda.VARIANT_LAUNCHES:
@@ -259,9 +333,13 @@ def test_k3_k4_k5_default_variants(codes):
         assert torch.equal(a, b)
     _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
                           gf2_cuda.masked_export_reference(tg, syn, order, cnt))
+    x0, valid = gf2_cuda.osd0(tg, syn, order, rank)
+    x0_r, valid_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    assert torch.equal(x0, x0_r) and torch.equal(valid, valid_r)
     for kname, by_variant in gf2_cuda.VARIANT_LAUNCHES.items():
         assert by_variant["warp"] == before[kname]["warp"] + 1
         assert by_variant["block"] == before[kname]["block"]
+        assert by_variant["device"] == before[kname]["device"]
 
 
 @pytest.mark.parametrize("variant", ELIM_VARIANTS)
@@ -279,7 +357,8 @@ def test_k4_k5_match_plain_versions(codes, name, count, variant):
 
 @pytest.mark.parametrize("lanes", [1, 31, 33])
 def test_k4_k5_odd_batches(codes, lanes):
-    """Batches that leave a block of 4 lanes part empty, every variant."""
+    """Batches that leave a block of 4 lanes part empty, every variant (the
+    device variant's blocks are lanes, and its scratch is the batch's)."""
     graph, tg, syn, order = _orders(codes, "surface13", lanes)
     _assert_k4_k5(tg, syn, order, _counts(graph, syn, "edges"))
 
@@ -300,7 +379,8 @@ def test_elim_zero_syndromes(codes, name):
 
 def test_elim_toric30(dev):
     """Toric d=30 (m = 900, 215 KB a lane in the warp variant): the block
-    variant by default, the warp variant when forced, both bit-identical."""
+    variant by default, the warp and device variants when forced, all
+    bit-identical."""
     graph = compile_pcm(toric_code(30, compute_logicals=False).hx)
     tg = graph_to_torch(graph, dev)
     for kname in gf2_cuda.VARIANT_LAUNCHES:
@@ -361,23 +441,84 @@ def test_wrappers_validate_inputs(codes):
         gf2_cuda.masked_solve_cuda(tg, syn, o32, cnt, variant="lane")
     with pytest.raises(ValueError, match="flip_cuda: syndromes must be uint8"):
         flip.flip_cuda(tg, syn.int(), 5, 0, 1)
-    # a working matrix beyond the card's shared memory is refused up front
+    # more rows than a variant's threads can own are refused: the launcher
+    # refuses the warp variant above 1,024, the wrapper a block above 32,768
     big = compile_pcm(toric_code(60, compute_logicals=False).hx)  # m = 3600, n = 7200
     tg_big = graph_to_torch(big, syn.device)
     s = torch.zeros((1, big.m), dtype=torch.uint8, device=syn.device)
     o = torch.zeros((1, big.n), dtype=torch.int32, device=syn.device)
     c = torch.zeros(1, dtype=torch.int32, device=syn.device)
-    with pytest.raises(ValueError, match="shared memory"):
-        gf2_cuda.osd0_cuda(tg_big, s, o, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        gf2_cuda.rref_export_cuda(tg_big, s, o, 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        gf2_cuda.masked_solve_cuda(tg_big, s, o, c)
-    with pytest.raises(ValueError, match="shared memory"):
-        gf2_cuda.masked_export_cuda(tg_big, s, o, c)
-    # the warp variant forced on more rows than it holds: the launcher refuses
     with pytest.raises(RuntimeError, match="launch failed"):
         gf2_cuda.masked_solve_cuda(tg_big, s, o, c, variant="warp")
+    # the block variant forced on a lane above a block's shared memory
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gf2_cuda.rref_export_cuda(tg_big, s, o, 1, variant="block")
+    # a refused launch leaves no error behind for the next one to report
+    bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 1, 0.625)
+    torch.cuda.synchronize()
+
+
+def _large_code(dev, distance, lanes, p=0.03):
+    """A toric code whose lane does not fit a block's shared memory, with
+    syndromes of random errors and BP-posterior orders."""
+    graph = compile_pcm(toric_code(distance, compute_logicals=False).hx)
+    tg = graph_to_torch(graph, dev)
+    rng = np.random.default_rng(distance)
+    errors = (rng.random((lanes, graph.n)) < p).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    llr0 = torch.from_numpy(channel_llr(np.full(graph.n, p))).to(dev)
+    llr = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, 0.625).llr_posterior
+    order = torch.argsort(llr, dim=1, stable=True).to(torch.int32).contiguous()
+    return graph, tg, syn, order
+
+
+@pytest.mark.parametrize("distance,lanes", [(31, 300), (60, 6)])
+def test_large_codes_take_the_device_variant(dev, distance, lanes):
+    """Toric d=31 (238,328 bytes a lane, just above a block's 232,448) and
+    d=60 (3.25 MB a lane): K2'-K5' take the device variant by themselves and
+    equal their plain versions bit for bit."""
+    graph, tg, syn, order = _large_code(dev, distance, lanes)
+    for kname in gf2_cuda.VARIANT_LAUNCHES:
+        assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "device"
+    rank = gf2.batched_rank(graph.dense)
+    before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
+    x0, valid = _k2(tg, syn, order, rank, None)
+    assert bool(valid.all())
+    assert ((x0.cpu().numpy() @ graph.dense.T) % 2 == syn.cpu().numpy()).all()
+    ker = gf2_cuda.rref_export(tg, syn, order, rank)
+    _assert_exports_equal(ker, gf2_cuda.rref_export_reference(tg, syn, order, rank))
+    assert bool((ker[2].sum(dim=1) == rank).all())
+    for kind in ("edges", "random"):
+        cnt = _counts(graph, syn, kind)
+        for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
+                        gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
+            assert torch.equal(a, b)
+        _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
+                              gf2_cuda.masked_export_reference(tg, syn, order, cnt))
+    for kname, by_variant in gf2_cuda.VARIANT_LAUNCHES.items():
+        assert by_variant["device"] > before[kname]["device"]
+        assert by_variant["warp"] == before[kname]["warp"]
+        assert by_variant["block"] == before[kname]["block"]
+
+
+def test_device_variant_runs_a_large_batch_in_chunks(codes, monkeypatch):
+    """A batch whose scratch would pass SCRATCH_BYTES runs in chunks of
+    lanes, one counted launch each, the last one part full."""
+    graph, tg, syn, order = _orders(codes, "surface13", 1001)
+    lane_bytes = 4 * (graph.m * tg.packed.shape[1] + graph.m)
+    monkeypatch.setattr(gf2_cuda, "SCRATCH_BYTES", 300 * lane_bytes)
+    rank = gf2.batched_rank(graph.dense)
+    cnt = _counts(graph, syn, "random")
+    before = {k: v["device"] for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
+    x0, valid = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant="device")
+    x4, bad = gf2_cuda.masked_solve_cuda(tg, syn, order, cnt, variant="device")
+    torch.cuda.synchronize()
+    for kname in ("osd0", "masked_solve"):
+        assert gf2_cuda.VARIANT_LAUNCHES[kname]["device"] == before[kname] + 4
+    x0_r, valid_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    x4_r, bad_r = gf2_cuda.masked_solve_reference(tg, syn, order, cnt)
+    assert torch.equal(x0, x0_r) and torch.equal(valid, valid_r)
+    assert torch.equal(x4, x4_r) and torch.equal(bad, bad_r)
 
 
 def test_k4_forest_solve_order_matches_plain_version(codes):
@@ -434,3 +575,16 @@ def test_flip_zero_syndromes_and_toric20(codes):
     graph20, tg20, syn20, _ = codes["toric20"]
     _assert_flip_equal(tg20, syn20, graph20.n, 0)
     _assert_flip_equal(tg20, syn20[:2048].contiguous(), 10, 3, seed=0xFFFFFFFF)
+
+
+def test_flip_converges_in_the_middle_of_a_scan(codes):
+    """One error a lane, at every bit in turn: the lane's flip lands at
+    every place of a 32-bit scan, and where it empties the syndrome the lane
+    stops there, mid-scan and mid-sweep, with that sweep reported."""
+    graph, tg, syn, _ = codes["surface13"]
+    errors = np.eye(graph.n, dtype=np.uint8)
+    s = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(syn.device)
+    dec, conv, iters = _assert_flip_equal(tg, s, graph.n, 0)
+    hit = conv.cpu().numpy() & (dec.cpu().numpy() == errors).all(axis=1)
+    assert bool((iters[conv] == 1).all())
+    assert len({int(j) % 32 for j in np.flatnonzero(hit)}) == 32  # every place of a scan

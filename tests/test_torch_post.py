@@ -325,3 +325,31 @@ def test_cascade_keeps_the_osd0_output(d13):
     assert (td.osd0_decoding_batch == got).all() and (td.osdw_decoding_batch == got).all()
     nz = syn.any(axis=1)
     assert (td.bp_decoding_batch[nz] == bp_out[nz]).all()
+
+
+def test_large_code_toric31_matches_jax():
+    """A code whose packed [H | s] (238,328 bytes a lane) does not fit one
+    block's shared memory on the card: toric d=31, 12 syndromes at p=0.03
+    made with numpy from a seed. ``BpOsdDecoder`` (``osd_0``) and
+    ``BpLsdDecoder`` on ``device="cpu"`` equal the JAX decoders, which
+    decode such a code on their XLA engine, and every row satisfies
+    H x = s. The card's path is held to the CPU path on the same code."""
+    from ldpc_tpu_torch.codes import toric_code
+
+    hx = toric_code(31, compute_logicals=False).hx
+    H = np.asarray(hx.todense(), np.uint8)
+    assert (H.shape[0] * (H.shape[1] // 32 + 1) + H.shape[0]) * 4 > 232448
+    errors = (np.random.default_rng(31).random((12, H.shape[1])) < 0.03).astype(np.uint8)
+    syn = (errors @ H.T % 2).astype(np.uint8)
+    kw = dict(error_rate=0.03, **KW)
+    for jax_cls, torch_cls, method in (
+        (ldpc_tpu.BpOsdDecoder, ldpc_tpu_torch.BpOsdDecoder, dict(osd_method="osd_0")),
+        (ldpc_tpu.BpLsdDecoder, ldpc_tpu_torch.BpLsdDecoder, dict(lsd_method="lsd_0")),
+    ):
+        jd = jax_cls(hx, **kw, **method)
+        td = torch_cls(hx, **kw, **method, device="cpu")
+        want = np.asarray(jd.decode_batch(syn))
+        got = td.decode_batch(syn)
+        assert not td.converge_batch.all()  # lanes reach the post-processor
+        assert (got == want).all()
+        assert ((got.astype(np.int64) @ H.T) % 2 == syn).all()

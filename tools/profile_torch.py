@@ -35,7 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-OWN_KERNELS = ("bp_warp_kernel", "osd0_kernel", "gf2_warp_export_kernel",
+OWN_KERNELS = ("bp_warp_kernel", "gf2_warp_osd0_kernel", "gf2_warp_export_kernel",
                "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel")
 
 
