@@ -44,8 +44,9 @@ import torch
 import ldpc_tpu_torch
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step
-from ldpc_tpu_torch.ops import _build, bp_cuda, flip, gf2, gf2_cuda, lsd, osd, uf
-from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
+from ldpc_tpu_torch.ops import _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, osd, uf
+from ldpc_tpu_torch.ops.bp import (
+    MINIMUM_SUM, PRODUCT_SUM, BpResult, channel_llr, serial_order_table)
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
 DISTANCE = 13
@@ -69,6 +70,13 @@ LARGE_CPU_ROWS = 32  # ... of which the CPU path decodes the first
 MC_BATCH = 16384
 MC_ROUNDS = 8
 MC_CALLS = 3
+SOFT_NOISE = 0.3  # soft syndromes (1 - 2 s) + SOFT_NOISE * N(0, 1), numpy seed 7
+SOFT_SIGMA = 0.3
+SOFT_CUTOFF = 10.0
+FOLD_LARGE_DISTANCE = 60  # toric code of the fold engines' device-state check
+FOLD_LARGE_ROWS = 16
+FOLD_LARGE_ITERS = 3  # ... at this depth: its plain version takes n steps a sweep
+GOLDEN = "tests/fixtures/bp_golden.npz"  # the reference C++ decoder's BP decodings
 
 
 def phase(name: str, **fields) -> None:
@@ -179,12 +187,21 @@ def main_workload():
     return code, H, workload(H, BATCH)[1]
 
 
+def soft_syndromes(syn: np.ndarray) -> np.ndarray:
+    """Soft syndromes of the hard ones: (1 - 2 s) + SOFT_NOISE * N(0, 1),
+    numpy seed 7."""
+    rng = np.random.default_rng(7)
+    return (1 - 2 * syn.astype(np.float64)) + SOFT_NOISE * rng.standard_normal(syn.shape)
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodePath:
     """One ``decode_batch`` configuration: ``make(device)`` builds the
     decoder, ``decode_batch(syndromes, *args)`` runs it; ``kernels`` are
     the launch counters that must move, ``solves`` the rows H x = s is
-    checked on (see :func:`drive_decoder`), ``rounds`` the timed calls."""
+    checked on (see :func:`drive_decoder`), ``rounds`` the timed calls;
+    ``inputs`` maps the hard syndromes to what ``decode_batch`` takes
+    (None: the syndromes themselves)."""
 
     key: str
     label: str
@@ -193,6 +210,7 @@ class DecodePath:
     rounds: int
     args: tuple = ()
     solves: str = "all"
+    inputs: Callable = None
 
 
 def decode_paths(code) -> list:
@@ -233,6 +251,16 @@ def decode_paths(code) -> list:
         P("bp_flip", "BpFlipDecoder", lambda d: T.BpFlipDecoder(
             hx, flip_iterations=0, device=d, **bp),
           ("flip", "bp_parallel"), C_ROUNDS, solves="converged"),
+        *(P(f"osd0_{sched}", f"osd_0[{sched}]", lambda d, sched=sched: T.BpOsdDecoder(
+            hx, osd_method="osd_0", schedule=sched, device=d, **bp),
+          ("bp_serial", "osd0"), B_ROUNDS) for sched in ("serial", "serial_relative")),
+        P("osd0_f64", "osd_0[float64]", lambda d: T.BpOsdDecoder(
+            hx, osd_method="osd_0", dtype="float64", device=d, **bp),
+          ("bp_parallel_exact", "osd0"), B_ROUNDS),
+        P("soft_osd0", "SoftInfoBpOsdDecoder[osd_0]", lambda d: T.SoftInfoBpOsdDecoder(
+            hx, error_rate=ERROR_RATE, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR,
+            osd_method="osd_0", cutoff=SOFT_CUTOFF, sigma=SOFT_SIGMA, device=d),
+          ("bp_soft_info", "osd0"), B_ROUNDS, solves="soft", inputs=soft_syndromes),
     ]
 
 
@@ -630,6 +658,9 @@ def reset_counters() -> None:
     flip.FLIP_LAUNCHES = 0
     uf.HOST_SYNCS = 0
     uf.GROWTH_ROUNDS = 0
+    bp_fold.LAUNCHES.update(dict.fromkeys(bp_fold.LAUNCHES, 0))
+    for by_state in bp_fold.STATE_LAUNCHES.values():
+        by_state.update(shared=0, device=0)
 
 
 def read_counters() -> dict:
@@ -643,58 +674,72 @@ def read_counters() -> dict:
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()
            for variant, count in by_variant.items()},
         "flip": flip.FLIP_LAUNCHES,
+        **bp_fold.LAUNCHES,
+        **{f"{kernel}_{state}_state": count
+           for kernel, by_state in bp_fold.STATE_LAUNCHES.items()
+           for state, count in by_state.items()},
         "host_syncs": uf.HOST_SYNCS,
         "growth_rounds": uf.GROWTH_ROUNDS,
     }
 
 
-ROW_CHECKS = ("all", "valid", "converged")
+ROW_CHECKS = ("all", "valid", "converged", "soft")
 
 
 def drive_decoder(p: DecodePath, H, syn_np, cpu_rows=CPU_ROWS):
-    """One path: ``p.make(device).decode_batch(syn_np, *p.args)`` on the whole
-    batch, with the launch counters set to 0 just before the first call and
-    read just after it. Checks H x = s on the rows the decoder guarantees it
-    for (``solves``: every row, the rows ``valid_batch`` marks, or the rows
-    ``converge_batch`` marks), that each kernel in ``kernels`` launched, and
-    that the first ``cpu_rows`` rows equal the CPU path's, with
-    ``converge_batch``, ``iter_batch`` and ``valid_batch`` where the decoder
-    has them; then times ``rounds`` calls after a settle call. Returns the
-    counters."""
+    """One path: ``p.make(device).decode_batch(x, *p.args)`` on the whole
+    batch (``x`` the syndromes, or ``p.inputs`` of them), with the launch
+    counters set to 0 just before the first call and read just after it.
+    Checks H x = s on the rows the decoder guarantees it for (``solves``:
+    every row, the rows ``valid_batch`` marks, the rows ``converge_batch``
+    marks, or, ``"soft"``, every row against its hardened final soft
+    syndrome, ``soft_syndrome_batch <= 0``, which soft-information BP may
+    have flipped from s), that each kernel in ``kernels`` launched, and that
+    the first ``cpu_rows`` rows equal the CPU path's, with
+    ``converge_batch``, ``iter_batch``, ``valid_batch`` and
+    ``soft_syndrome_batch`` where the decoder has them; then times
+    ``rounds`` calls after a settle call. Returns the counters."""
     label, make, kernels, rounds, args, solves = (
         p.label, p.make, p.kernels, p.rounds, p.args, p.solves)
     if solves not in ROW_CHECKS:
         raise ValueError(f"solves must be one of {ROW_CHECKS}, not {solves!r}")
+    x = syn_np if p.inputs is None else p.inputs(syn_np)
     reset_counters()
     dec = make("cuda")
     t0 = time.perf_counter()
-    out = dec.decode_batch(syn_np, *args)
+    out = dec.decode_batch(x, *args)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     counts = read_counters()
-    flags = {a: getattr(dec, a).copy() for a in ("converge_batch", "iter_batch", "valid_batch")
+    flags = {a: getattr(dec, a).copy()
+             for a in ("converge_batch", "iter_batch", "valid_batch", "soft_syndrome_batch")
              if getattr(dec, a, None) is not None}
     rows = {"all": np.ones(len(syn_np), bool), "valid": flags.get("valid_batch"),
-            "converged": flags.get("converge_batch")}[solves]
-    if not ((out.astype(np.int64) @ H.T) % 2 == syn_np)[rows].all():
+            "converged": flags.get("converge_batch"), "soft": np.ones(len(syn_np), bool)}[solves]
+    target = (flags["soft_syndrome_batch"] <= 0).astype(np.uint8) if solves == "soft" else syn_np
+    solved = ((out.astype(np.int64) @ H.T) % 2 == target).all(axis=1)
+    if not solved[rows].all():
         raise AssertionError(f"{label}: decode_batch output does not satisfy H x = s "
                              f"on the {solves} rows")
     missing = [k for k in kernels if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: the path skipped kernels {missing}: {counts}")
     cpu = make("cpu")
-    out_cpu = cpu.decode_batch(syn_np[:cpu_rows], *args)
+    out_cpu = cpu.decode_batch(x[:cpu_rows], *args)
     if not (out_cpu == out[:cpu_rows]).all() or any(
         not (getattr(cpu, a) == f[:cpu_rows]).all() for a, f in flags.items()
     ):
         raise AssertionError(f"{label}: decode_batch on the card differs from the CPU")
-    dec.decode_batch(syn_np, *args)  # settle
+    dec.decode_batch(x, *args)  # settle
     times = []
     for _ in range(rounds):
         t0 = time.perf_counter()
-        dec.decode_batch(syn_np, *args)
+        dec.decode_batch(x, *args)
         times.append(time.perf_counter() - t0)
     extra = {}
+    if solves == "soft":
+        extra["rows_solving_s"] = int(
+            ((out.astype(np.int64) @ H.T) % 2 == syn_np).all(axis=1).sum())
     if "converge_batch" in flags:
         extra["not_converged"] = int((~flags["converge_batch"]).sum())
     if "valid_batch" in flags:
@@ -742,6 +787,208 @@ def time_flip(name, tg, graph, syn, max_iter, pfreq, **extra):
         plain_reps=1, full_sweeps=sweeps, **extra,
     )
     return numbers, err
+
+
+FOLD_KERNELS = ("bp_serial", "bp_soft_info", "bp_parallel_exact")
+ORDER_NAMES = {bp_fold.ORDER_FIXED: "serial", bp_fold.ORDER_TABLE: "random",
+               bp_fold.ORDER_RELATIVE: "serial_relative"}
+
+
+def posterior_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over entries that differ (equal infinities and NaN
+    pairs count 0)."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return float(torch.where(same, 0.0, (a - b).abs()).max()) if a.numel() else 0.0
+
+
+def split(out):
+    """(BpResult, K7''s soft syndrome or None) of a fold engine's output."""
+    return (out, None) if isinstance(out, BpResult) else out
+
+
+def hold_fold(kernel, ker, ref, method, config):
+    """A fold engine's outputs against its plain version's: min-sum
+    bit-identical (decisions, posteriors, flags, iterations; K7' its soft
+    syndrome too), product-sum equal decisions, flags and iterations with
+    posteriors within rtol 1e-4 (float32) or 1e-9 (float64), atol 1e-5 (the
+    CUDA math library's tanh and log on both sides; a cumulative product may
+    round differently). Returns (differing lanes, largest error)."""
+    (kr, ks), (rr, rs) = split(ker), split(ref)
+    lanes = ((kr.decoding != rr.decoding).any(dim=1) | (kr.converged != rr.converged)
+             | (kr.iterations != rr.iterations))
+    nlanes = int(lanes.sum())
+    err = posterior_err(kr.llr_posterior, rr.llr_posterior)
+    if ks is not None:
+        err = max(err, posterior_err(ks, rs))
+    if method == MINIMUM_SUM:
+        if nlanes or err != 0.0:
+            raise AssertionError(f"{kernel} min-sum differs from its plain version: {config}")
+    else:
+        rtol = 1e-4 if kr.llr_posterior.dtype == torch.float32 else 1e-9
+        close = torch.isclose(kr.llr_posterior, rr.llr_posterior, rtol=rtol, atol=1e-5,
+                              equal_nan=True)
+        if nlanes or not bool(close.all()):
+            raise AssertionError(f"{kernel} product-sum beyond its tolerance: {config}")
+    return nlanes, err
+
+
+def fold_args(kernel, tg, syn, llr0, method, alpha, max_iter, mode=bp_fold.ORDER_FIXED):
+    """The plain version's and the wrapper's arguments for one call; the
+    random serial table is drawn on the card from a generator seeded 7."""
+    if kernel == "bp_serial":
+        order = None
+        if mode == bp_fold.ORDER_FIXED:
+            order = torch.arange(tg.n, dtype=torch.int32, device=syn.device)
+        elif mode == bp_fold.ORDER_TABLE:
+            gen = torch.Generator(device=syn.device)
+            gen.manual_seed(7)
+            order = serial_order_table(tg.n, max_iter, gen, syn.device)
+        return (tg, syn, llr0, method, max_iter, alpha, order, mode)
+    if kernel == "bp_soft_info":
+        return (tg, syn, llr0, max_iter, alpha, SOFT_CUTOFF)
+    return (tg, syn, llr0, method, max_iter, alpha)
+
+
+def fold_fns(kernel):
+    return getattr(bp_fold, f"{kernel}_reference"), getattr(bp_fold, f"{kernel}_cuda")
+
+
+def compare_fold(kernel, config, args, states=("shared", "device")):
+    """K6'-K8' (``kernel``) against the plain version on ``args``, once for
+    each of ``states`` (forced; None: the footprint's choice); each launch
+    must move its state's counter. Returns the first result and the largest
+    error."""
+    plain, cuda = fold_fns(kernel)
+    method = MINIMUM_SUM if kernel == "bp_soft_info" else args[3]
+    ref = plain(*args)
+    first, worst = None, 0.0
+    tg, lanes_in, llr0 = args[0], args[1], args[2]
+    relative = kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE
+    for state in states:
+        counted = state or bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, llr0.dtype,
+                                                 relative)
+        before = bp_fold.STATE_LAUNCHES[kernel][counted]
+        ker = cuda(*args, state=state)
+        torch.cuda.synchronize()
+        if bp_fold.STATE_LAUNCHES[kernel][counted] != before + 1:
+            raise AssertionError(f"{kernel}: the {counted} state's counter did not move")
+        nlanes, err = hold_fold(kernel, ker, ref, method, config)
+        res = split(ker)[0]
+        phase(f"{kernel}_vs_plain", config=config, dtype=str(llr0.dtype)[6:], state=counted,
+              lanes=lanes_in.shape[0], differing_lanes=nlanes, max_abs_err=err,
+              converged=int(res.converged.sum()), lane_iterations=int(res.iterations.sum()))
+        first = ker if first is None else first
+        worst = max(worst, err)
+    return first, worst
+
+
+def fold_ops(kernel, graph, lane_iterations: int, relative: bool = False) -> float:
+    """Operations of K6'-K8' over ``lane_iterations`` (a floor, each counted
+    once). K6'/K7' per edge: its check's other slots (|v|, a min compare, a
+    sign test each), the scale and the sign (2); per bit of degree d: each
+    slot's message folds d values (d*d adds), the posterior d adds and the
+    decision; per edge the syndrome test. K7' adds 8 per edge for the
+    virtual-update rules; serial-relative adds 2 compares per pair of bits
+    for the ranking. K8': K1''s count (:func:`k1_ops`) plus the reverse
+    pass, about d*(d+1)/2 adds a bit."""
+    rows = graph.chk_mask.sum(axis=1).astype(np.int64)
+    cols = graph.var_mask.sum(axis=1).astype(np.int64)
+    if kernel == "bp_parallel_exact":
+        per = 9 * graph.nnz + graph.n + int((cols * (cols + 1) // 2).sum())
+    else:
+        per = (3 * int((rows * (rows - 1)).sum()) + 2 * graph.nnz
+               + int((cols * cols).sum()) + int((cols + 1).sum()) + graph.nnz)
+        if kernel == "bp_soft_info":
+            per += 8 * graph.nnz
+        if relative:
+            per += 2 * graph.n * graph.n
+    return float(lane_iterations) * per
+
+
+def time_fold(name, kernel, graph, args, **extra):
+    """One K6'-K8' call at a main-path shape: the plain version once (its
+    time from CUDA events), the kernel held against it, then the kernel's
+    device time (:func:`device_ms`) and eager ``call_ms`` beside the bound:
+    the call's tensors moved once (inputs, graph arrays, schedule; outputs)
+    over the HBM rate, or :func:`fold_ops` over this run's lane-iterations.
+    Returns the kernels line's numbers and the largest error."""
+    plain, cuda = fold_fns(kernel)
+    method = MINIMUM_SUM if kernel == "bp_soft_info" else args[3]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    ref = plain(*args)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    ker = cuda(*args)
+    torch.cuda.synchronize()
+    nlanes, err = hold_fold(kernel, ker, ref, method, name)
+    res, soft_out = split(ker)
+    lane_iterations = int(res.iterations.sum())
+    tg = args[0]
+    graph_arrays = (tg.chk_bits_t, tg.var_edges_t) if kernel == "bp_parallel_exact" else (
+        tg.chk_bits, tg.var_edges)
+    order = args[6] if kernel == "bp_serial" and args[6] is not None else None
+    moved = nbytes(args[1], args[2], *graph_arrays, *res)
+    if order is not None:
+        moved += nbytes(order)
+    if soft_out is not None:
+        moved += nbytes(soft_out)
+    relative = kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE
+    bound_ms, bound_by = bound(moved, fold_ops(kernel, graph, lane_iterations, relative))
+    ms = device_ms(lambda: cuda(*args))
+    call_ms = cuda_ms(lambda: cuda(*args), 3)
+    max_iter = args[3] if kernel == "bp_soft_info" else args[4]
+    phase(name, shape=f"B={args[1].shape[0]},max_iter={max_iter}", dtype=str(args[2].dtype)[6:],
+          ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+          lane_iterations=lane_iterations, differing_lanes=nlanes, max_abs_err=err,
+          state=bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, args[2].dtype, relative),
+          **extra)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}, err
+
+
+GOLDEN_CONFIGS = [(0, 1, 1.0), (0, 0, 1.0), (0, 2, 1.0), (1, 1, 1.0), (1, 1, 0.625),
+                  (1, 1, 0.0), (1, 0, 1.0), (1, 0, 0.625), (1, 2, 0.625)]
+
+
+def golden_on_card() -> int:
+    """The reference C++ decoder's golden BP decodings replayed through
+    ``BpDecoder(device="cuda", dtype=float64)`` (max_iter 20) at
+    tests/test_bp_golden.py's tiers, min-sum held bit for bit with its
+    posteriors. Returns the configurations replayed."""
+    data = np.load(GOLDEN)
+    names = {0: "product_sum", 1: "minimum_sum"}
+    scheds = {0: "serial", 1: "parallel", 2: "serial_relative"}
+    count = 0
+    for cname in ("hamming3", "rep7", "ring8"):
+        H, syn = data[f"{cname}/pcm"], data[f"{cname}/syndromes"]
+        for method, sched, alpha in GOLDEN_CONFIGS:
+            key = f"{cname}/{method}_{sched}_{alpha}"
+            want_conv = data[f"{key}/conv"].astype(bool)
+            want_dec, want_iters = data[f"{key}/dec"], data[f"{key}/iters"]
+            d = ldpc_tpu_torch.BpDecoder(
+                H, error_channel=data[f"{cname}/channel"], max_iter=20,
+                bp_method=names[method], schedule=scheds[sched], ms_scaling_factor=alpha,
+                input_vector_type="syndrome", dtype="float64", device="cuda")
+            dec = d.decode_batch(syn)
+            conv, iters = d.converge_batch.astype(bool), d.iter_batch
+            llr = torch.from_numpy(d.log_prob_ratios_batch)
+            err = posterior_err(llr, torch.from_numpy(data[f"{key}/llr"]))
+            if method == 1 or sched == 1:
+                ok = (conv == want_conv).all() and (dec == want_dec).all() and (
+                    iters == want_iters).all() and err <= (0.0 if method == 1 else 1e-4)
+            elif sched == 0:
+                ok = (conv == want_conv).all() and (dec[want_conv] == want_dec[want_conv]).all() \
+                    and (iters[want_conv] == want_iters[want_conv]).all()
+            else:
+                ok = abs(int(conv.sum()) - int(want_conv.sum())) <= 8 and (
+                    dec[conv] @ H.T % 2 == syn[conv]).all()
+            if not ok:
+                raise AssertionError(f"golden BP replay on the card failed: {key}")
+            count += 1
+    return count
 
 
 def stats_record(make, syn_np, row, device) -> dict:
@@ -935,6 +1182,99 @@ def main() -> int:
         flip_err = max(flip_err, time_flip("flip_size_time", tgx, gx, syn, sweeps, pfreq,
                                            config=name)[1])
 
+    # ---- 5b. the fold engines K6'-K8', K1' with its factor fixed, golden -----
+    # each held against its plain version in both state variants (forced),
+    # on surface d=13, toric d=20 and toric d=60 (float64: above the shared
+    # budget, the device variant by default); then timed at the main paths'
+    # calls, each first held against the plain version at that shape
+    fold_err = dict.fromkeys(FOLD_KERNELS, 0.0)
+    llr0_64, llr20_64 = (
+        torch.from_numpy(channel_llr(np.full(g.n, ERROR_RATE), np.float64)).to(dev)
+        for g in (graph, graph20))
+    fix, tab, rel = bp_fold.ORDER_FIXED, bp_fold.ORDER_TABLE, bp_fold.ORDER_RELATIVE
+
+    def fold_compare(kernel, config, tgx, syn, l0, method, alpha, mode=fix,
+                     states=("shared", "device"), max_iter=MAX_ITER):
+        args = fold_args(kernel, tgx, syn, l0, method, alpha, max_iter, mode)
+        fold_err[kernel] = max(fold_err[kernel], compare_fold(kernel, config, args, states)[1])
+
+    for mode, method, alpha, l0, mname in (
+        (fix, MINIMUM_SUM, MS_FACTOR, llr0, "ms0.625"),
+        (fix, MINIMUM_SUM, MS_FACTOR, llr0_64, "ms0.625"),
+        (fix, PRODUCT_SUM, 1.0, llr0, "product_sum"),
+        (rel, MINIMUM_SUM, MS_FACTOR, llr0, "ms0.625"),
+        (rel, MINIMUM_SUM, 0.0, llr0_64, "ms_dynamic"),
+        (tab, MINIMUM_SUM, 0.0, llr0, "ms_dynamic"),
+        (tab, PRODUCT_SUM, 1.0, llr0_64, "product_sum"),
+    ):
+        fold_compare("bp_serial", f"surface13/{ORDER_NAMES[mode]}/{mname}", tg, syn_k, l0, method,
+                     alpha, mode)
+    fold_compare("bp_serial", "toric20/serial_relative/ms0.625", tg20, syn20, llr20_64,
+                 MINIMUM_SUM, MS_FACTOR, rel)
+    fold_compare("bp_serial", "toric20/serial/ms_dynamic", tg20, syn20, llr20, MINIMUM_SUM, 0.0)
+    tor60 = toric_code(FOLD_LARGE_DISTANCE, compute_logicals=False)
+    graph60 = compile_pcm(tor60.hx)
+    tg60 = graph_to_torch(graph60, dev)
+    syn60 = torch.from_numpy(workload(graph60.dense, FOLD_LARGE_ROWS)[1]).to(dev)
+    llr60_64 = torch.from_numpy(channel_llr(np.full(graph60.n, ERROR_RATE), np.float64)).to(dev)
+    for kernel in FOLD_KERNELS:
+        if bp_fold.state_variant(kernel, graph60.m, graph60.n, graph60.dc, graph60.dv,
+                                 torch.float64) != "device":
+            raise AssertionError(
+                f"toric d={FOLD_LARGE_DISTANCE} should take {kernel}'s device state")
+    fold_compare("bp_serial", f"toric{FOLD_LARGE_DISTANCE}/serial/ms0.625", tg60, syn60, llr60_64,
+                 MINIMUM_SUM, MS_FACTOR, states=(None,), max_iter=FOLD_LARGE_ITERS)
+
+    def scaled_soft(syn_np_rows, dtype):
+        soft = torch.from_numpy(soft_syndromes(syn_np_rows)).to(dev)
+        scale = torch.tensor(2.0 / (SOFT_SIGMA * SOFT_SIGMA), dtype=dtype, device=dev)
+        return (soft.to(dtype) * scale).contiguous()
+
+    for dtype, l0 in ((torch.float32, llr0), (torch.float64, llr0_64)):
+        fold_compare("bp_soft_info", "surface13/soft", tg,
+                     scaled_soft(syn_np[:KERNEL_BATCH], dtype), l0, MINIMUM_SUM, MS_FACTOR)
+    fold_compare("bp_soft_info", "toric20/soft", tg20,
+                 scaled_soft(syn20.cpu().numpy(), torch.float32), llr20, MINIMUM_SUM, MS_FACTOR,
+                 states=(None,))
+    for method, alpha, mname in ((MINIMUM_SUM, MS_FACTOR, "ms0.625"),
+                                 (MINIMUM_SUM, 0.0, "ms_dynamic"),
+                                 (PRODUCT_SUM, 1.0, "product_sum")):
+        fold_compare("bp_parallel_exact", f"surface13/{mname}", tg, syn_k, llr0_64, method, alpha)
+    fold_compare("bp_parallel_exact", "toric20/ms0.625", tg20, syn20, llr20_64, MINIMUM_SUM,
+                 MS_FACTOR)
+    fold_compare("bp_parallel_exact", f"toric{FOLD_LARGE_DISTANCE}/ms0.625", tg60, syn60, llr60_64,
+                 MINIMUM_SUM, MS_FACTOR, states=(None,))
+    # K1' with its factor fixed: single-scan
+    for alpha in (MS_FACTOR, 0.0):
+        ref = bp_cuda.bp_parallel_reference(tg, syn_k, llr0, MINIMUM_SUM, MAX_ITER, alpha,
+                                            dynamic_alpha=False)
+        ker = bp_cuda.bp_parallel_cuda(tg, syn_k, llr0, MINIMUM_SUM, MAX_ITER, alpha,
+                                       dynamic_alpha=False)
+        torch.cuda.synchronize()
+        nlanes, err = hold_fold("bp_parallel", ker, ref, MINIMUM_SUM, f"single_scan/{alpha}")
+        k1_err = max(k1_err, err)
+        phase("single_scan_vs_plain", config=f"surface13/ms{alpha}", lanes=syn_k.shape[0],
+              differing_lanes=nlanes, max_abs_err=err, converged=int(ker.converged.sum()))
+    phase("golden_on_card", fixture=GOLDEN, configs=golden_on_card(), dtype="float64")
+    fold_numbers = {}
+    for name, kernel, args, extra in (
+        ("bp_serial_time", "bp_serial",
+         fold_args("bp_serial", tg, syn_all, llr0, MINIMUM_SUM, MS_FACTOR, MAX_ITER),
+         {"schedule": "serial"}),
+        ("bp_serial_relative_time", "bp_serial",
+         fold_args("bp_serial", tg, syn_all, llr0, MINIMUM_SUM, MS_FACTOR, MAX_ITER, rel),
+         {"schedule": "serial_relative"}),
+        ("bp_soft_info_time", "bp_soft_info",
+         fold_args("bp_soft_info", tg, scaled_soft(syn_np, torch.float32), llr0, MINIMUM_SUM,
+                   MS_FACTOR, MAX_ITER), {}),
+        ("bp_parallel_exact_time", "bp_parallel_exact",
+         fold_args("bp_parallel_exact", tg, syn_all, llr0_64, MINIMUM_SUM, MS_FACTOR,
+                   MAX_ITER), {}),
+    ):
+        numbers, err = time_fold(name, kernel, graph, args, **extra)
+        fold_err[kernel] = max(fold_err[kernel], err)
+        fold_numbers.setdefault(kernel, numbers)
+
     # ---- 6. main paths: decode_batch -----------------------------------------
     paths = {p.key: p for p in decode_paths(code)}
     path = {key: drive_decoder(p, H, syn_np) for key, p in paths.items()}
@@ -986,8 +1326,8 @@ def main() -> int:
     if imported:
         raise AssertionError(f"the port imported the JAX side: {imported}")
 
-    # No PyTorch call computes BP, a GF(2) elimination or a flip sweep in
-    # one call, so library_ms is null on every kernel.
+    # No PyTorch call computes BP (any schedule), a GF(2) elimination or a
+    # flip sweep in one call, so library_ms is null on every kernel.
     # variant_launches: the main path's launches by variant (K1' by where a
     # lane's state lived; K2'-K5' warp, block or device; flip has one design,
     # a warp scanning a lane)
@@ -999,6 +1339,9 @@ def main() -> int:
 
     def elim_variants(name):
         return {v: f"{name}_{v}" for v in ELIM_VARIANTS}
+
+    def fold_states(name):
+        return {v: f"{name}_{v}_state" for v in ("shared", "device")}
 
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
@@ -1017,6 +1360,14 @@ def main() -> int:
               elim_numbers["masked_export"], elim_variants("masked_export")),
         entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"], flip_err,
               flip_numbers, {"warp_per_lane_scan": "flip"}),
+        entry("bp_serial", "bp_fold.cu", "ldpc_tpu/ops/bp.py:496", path["osd0_serial"],
+              fold_err["bp_serial"], fold_numbers["bp_serial"], fold_states("bp_serial"))
+        | {"launches_serial_relative": path["osd0_serial_relative"]["bp_serial"]},
+        entry("bp_soft_info", "bp_fold.cu", "ldpc_tpu/ops/bp.py:349", path["soft_osd0"],
+              fold_err["bp_soft_info"], fold_numbers["bp_soft_info"], fold_states("bp_soft_info")),
+        entry("bp_parallel_exact", "bp_fold.cu", "ldpc_tpu/ops/bp.py:251", path["osd0_f64"],
+              fold_err["bp_parallel_exact"], fold_numbers["bp_parallel_exact"],
+              fold_states("bp_parallel_exact")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """ldpc_tpu_torch: the PyTorch/CUDA port of ``ldpc_tpu``.
 
 A second package beside the JAX one, with the same public decoder API.
-Plain tensor code is PyTorch; every kernel (BP, the GF(2) eliminations of
-OSD-0, OSD-E/CS, LSD and union-find, and the flip sweep) is hand-written
+Plain tensor code is PyTorch; every kernel (parallel BP; serial,
+soft-information and fold-exact BP; the GF(2) eliminations of OSD-0,
+OSD-E/CS, LSD and union-find; and the flip sweep) is hand-written
 CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first use and
 launched through ``ctypes``.
 
@@ -21,10 +22,10 @@ __version__ = "0.1.0"
 
 from ldpc_tpu_torch import codes  # noqa: F401
 from ldpc_tpu_torch.decoders.belief_find import BeliefFindDecoder
-from ldpc_tpu_torch.decoders.bp_decoder import BpDecoder
+from ldpc_tpu_torch.decoders.bp_decoder import BpDecoder, SoftInfoBpDecoder
 from ldpc_tpu_torch.decoders.bp_flip import BpFlipDecoder, FlipDecoder
 from ldpc_tpu_torch.decoders.bplsd_decoder import BpLsdDecoder
-from ldpc_tpu_torch.decoders.bposd_decoder import BpOsdDecoder
+from ldpc_tpu_torch.decoders.bposd_decoder import BpOsdDecoder, SoftInfoBpOsdDecoder
 from ldpc_tpu_torch.decoders.lsd_decoder import LsdDecoder
 from ldpc_tpu_torch.decoders.union_find import UnionFindDecoder
 
@@ -36,6 +37,8 @@ __all__ = [
     "BpOsdDecoder",
     "FlipDecoder",
     "LsdDecoder",
+    "SoftInfoBpDecoder",
+    "SoftInfoBpOsdDecoder",
     "UnionFindDecoder",
     "codes",
     "__version__",

@@ -8,7 +8,9 @@
 //   v2c = llr_post[bit] - c2v                      (extrinsic, per edge)
 //   min-sum: exclusive min with first-occurrence argmin, sign parity of the
 //            other slots (v <= 0 counts negative) XOR the syndrome bit,
-//            scaled by alpha (fixed, or 1 - 2^-it when the factor is 0);
+//            scaled by alpha (fixed, or 1 - 2^-it when the factor is 0
+//            unless dynamic_alpha is 0: single-scan, ldpc_tpu/ops/bp.py:135,
+//            keeps the factor fixed even at 0);
 //   product-sum: exclusive prefix/suffix tanh products clipped at
 //            +-(1 - 1e-7), log((1+p)/(1-p)), signed by the syndrome bit;
 //   llr_new = llr0 + (sum of the bit's c2v in slot order);
@@ -90,6 +92,7 @@ struct Args {
   const int* var_edges_t;  // (dv, n) slot-major edge ids slot*m + check, pad = m*dc
   int m, n, dc, dv, B, max_iter;
   float ms_scaling;
+  int dynamic_alpha;       // 0: alpha stays ms_scaling even when it is 0
   float* c2v;              // (B, m*dc) scratch of the device-memory variant
   float* post;             // (B, n) posterior
   uint8_t* dec;            // (B, n) hard decisions
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
   int it = 0;
   while (it < a.max_iter) {
     ++it;
-    const float alpha = (kMinSum && a.ms_scaling == 0.0f)
+    const float alpha = (kMinSum && a.dynamic_alpha && a.ms_scaling == 0.0f)
                             ? 1.0f - ldexpf(1.0f, -it)
                             : a.ms_scaling;
 
@@ -317,7 +320,7 @@ int ldpc_bp_shared_state(int m, int n, int dc) {
 int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
                      const void* var_edges_t, int m, int n, int dc, int dv,
                      int B, int max_iter, int min_sum, float ms_scaling,
-                     int shared, void* c2v, void* post, void* dec,
+                     int dynamic_alpha, int shared, void* c2v, void* post, void* dec,
                      void* conv, void* iters, void* stream) {
   Args a;
   a.synd = static_cast<const uint8_t*>(synd);
@@ -331,6 +334,7 @@ int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
   a.B = B;
   a.max_iter = max_iter;
   a.ms_scaling = ms_scaling;
+  a.dynamic_alpha = dynamic_alpha;
   a.c2v = static_cast<float*>(c2v);
   a.post = static_cast<float*>(post);
   a.dec = static_cast<uint8_t*>(dec);

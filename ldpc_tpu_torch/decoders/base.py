@@ -3,8 +3,9 @@
 Port of ``ldpc_tpu.decoders.base``: the same constructor kwargs, string
 aliases, properties, validation errors and the ldpc-v1 ``channel_probs``
 hook, plus an explicit ``device`` on which the decoder's tensors live.
-Only the parallel schedule in float32 is ported; the serial schedules and
-the float64 exact mode are ROADMAP queue 1 item 12.
+Every schedule (parallel, serial, serial-relative, random serial) runs in
+float32 or float64: parallel float32 on kernel K1', parallel float64 on K8',
+the serial schedules on K6' (:mod:`ldpc_tpu_torch.ops.bp`).
 """
 
 import warnings
@@ -23,7 +24,13 @@ _SYNDROME = 0
 _RECEIVED_VECTOR = 1
 _AUTO = 2
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 12)"
+
+def _refuse_float64(decoder, name: str) -> None:
+    """Decoders whose post-processors are float32 only refuse float64."""
+    if decoder._dtype == torch.float64:
+        raise NotImplementedError(
+            f"{name} in float64 is not ported yet (ROADMAP queue 1 item 2b)"
+        )
 
 
 def _to_numpy(x) -> np.ndarray:
@@ -61,10 +68,8 @@ class BpDecoderBase:
         random_schedule_seed = kwargs.pop("random_schedule_seed", 0)
         serial_schedule_order = kwargs.pop("serial_schedule_order", None)
         channel_probs = kwargs.pop("channel_probs", [None])
-        dtype = kwargs.pop("dtype", torch.float32)
+        self._dtype = bp_ops.torch_dtype(kwargs.pop("dtype", torch.float32))
         self._device = resolve_device(kwargs.pop("device", "cuda"))
-        if dtype not in (torch.float32, np.float32, "float32"):
-            raise NotImplementedError(f"dtype={dtype} is {_NOT_PORTED}")
 
         if not isinstance(pcm, (np.ndarray, scipy.sparse.spmatrix)):
             raise TypeError(
@@ -143,22 +148,42 @@ class BpDecoderBase:
         self._decoder_cache.clear()
 
     def _bp_fn(self, iters: int):
-        """The batched parallel-schedule BP program at ``iters`` depth."""
-        key = ("bp", self._bp_method, iters, float(self._ms_scaling_factor))
+        """The batched BP program of the current schedule and dtype at
+        ``iters`` depth: ``decode(syndromes, init_llr)``."""
+        key = ("bp", self._bp_method, self._schedule, self._random_serial_schedule,
+               self._dtype, iters, float(self._ms_scaling_factor))
         fn = self._decoder_cache.get(key)
         if fn is None:
-            fn = bp_ops.make_parallel_decoder(
-                self.graph,
-                self._bp_method,
-                iters,
-                self._ms_scaling_factor,
-                self._device,
-            )
+            args = (self.graph, self._bp_method, iters, self._ms_scaling_factor, self._device)
+            if self._schedule == bp_ops.PARALLEL:
+                fn = bp_ops.make_parallel_decoder(*args, dtype=self._dtype)
+            else:
+                serial = bp_ops.make_serial_decoder(
+                    *args, schedule_mode=self._schedule,
+                    random_serial_schedule=self._random_serial_schedule, dtype=self._dtype,
+                )
+
+                def fn(syn, init_llr, serial=serial):
+                    return serial(syn, init_llr, self._schedule_array(), self._schedule_key())
+
             self._decoder_cache[key] = fn
         return fn
 
+    def _schedule_array(self) -> np.ndarray:
+        if self._serial_schedule_order is not None:
+            return np.asarray(self._serial_schedule_order, dtype=np.int32)
+        return np.arange(self.n, dtype=np.int32)
+
+    def _schedule_key(self) -> Optional[torch.Generator]:
+        """The random serial schedule's generator, seeded anew on each call
+        (0: the clock), as the JAX package draws a key per call."""
+        if not self._random_serial_schedule:
+            return None
+        return bp_ops.schedule_generator(self._random_schedule_seed, self._device)
+
     def _init_llr(self) -> torch.Tensor:
-        return torch.from_numpy(bp_ops.channel_llr(self._channel)).to(self._device)
+        llr = bp_ops.channel_llr(self._channel, dtype=np.float64)
+        return torch.from_numpy(llr).to(device=self._device, dtype=self._dtype)
 
     def _run_bp_batch(self, syndromes, iters: Optional[int] = None):
         """Run batched BP on (B, m) syndromes; results stay on the device."""
@@ -225,9 +250,13 @@ class BpDecoderBase:
         iterations on the whole batch, then full depth on the lanes that
         failed it, compacted. Lanes flagged in ``done`` count as converged
         after phase 1. Per-lane BP is deterministic, so the result equals
-        one full-depth run. Returns ``(BpResult with the merged results,
-        the indices of the lanes full-depth BP fails)``; two host syncs."""
-        p1 = min(self._CASCADE_ITERS, self._max_iter)
+        one full-depth run. Only the parallel float32 schedule cascades, as
+        in the JAX package; the others run once at full depth (a random
+        serial schedule draws its permutations per run). Returns ``(BpResult
+        with the merged results, the indices of the lanes full-depth BP
+        fails)``; one or two host syncs."""
+        cascade = self._schedule == bp_ops.PARALLEL and self._dtype == torch.float32
+        p1 = min(self._CASCADE_ITERS, self._max_iter) if cascade else self._max_iter
         bp = self._run_bp_batch(syn, p1)
         dec, llr = bp.decoding, bp.llr_posterior
         conv, iters = bp.converged | done, bp.iterations
@@ -393,8 +422,10 @@ class BpDecoderBase:
         sval = str(value).lower()
         if sval in ("parallel", "p", "0"):
             self._schedule = bp_ops.PARALLEL
-        elif sval in ("serial", "s", "1", "serial_relative", "sr", "2"):
-            raise NotImplementedError(f"The '{value}' schedule is {_NOT_PORTED}")
+        elif sval in ("serial", "s", "1"):
+            self._schedule = bp_ops.SERIAL
+        elif sval in ("serial_relative", "sr", "2"):
+            self._schedule = bp_ops.SERIAL_RELATIVE
         else:
             raise ValueError(
                 f"The BP schedule method '{value}' is invalid. Please choose "

@@ -1,4 +1,4 @@
-"""BpDecoder (port of ``ldpc_tpu.decoders.bp_decoder.BpDecoder``)."""
+"""BpDecoder and SoftInfoBpDecoder (port of ``ldpc_tpu.decoders.bp_decoder``)."""
 
 from typing import List, Optional, Union
 
@@ -12,6 +12,7 @@ from ldpc_tpu_torch.decoders.base import (
     _SYNDROME,
     _to_numpy,
 )
+from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops import gf2
 
 
@@ -21,12 +22,13 @@ class BpDecoder(BpDecoderBase):
     Parameters mirror ``ldpc_tpu.BpDecoder``: ``pcm``, ``error_rate``,
     ``error_channel``, ``max_iter`` (0 = block length), ``bp_method``
     ('product_sum'/'minimum_sum' + aliases), ``ms_scaling_factor``
-    (0.0 = dynamic 1-2^-iter), ``schedule`` (only 'parallel' is ported),
-    ``omp_thread_count`` (unused), ``random_schedule_seed``,
-    ``serial_schedule_order``, ``input_vector_type``,
-    ``random_serial_schedule``; plus ``device``, where the decoder's
-    tensors live: ``"cuda"`` by default, ``"cpu"`` runs the kernels' plain
-    versions.
+    (0.0 = dynamic 1-2^-iter), ``schedule``
+    ('parallel'/'serial'/'serial_relative' + aliases), ``omp_thread_count``
+    (unused), ``random_schedule_seed``, ``serial_schedule_order``,
+    ``input_vector_type``, ``random_serial_schedule``, ``dtype`` (float32,
+    or float64 for the fold-exact engines); plus ``device``, where the
+    decoder's tensors live: ``"cuda"`` by default, ``"cpu"`` runs the
+    kernels' plain versions.
     """
 
     def __init__(
@@ -122,7 +124,7 @@ class BpDecoder(BpDecoderBase):
         bit_packed_syndromes: bool = False,
         bit_packed_output: bool = False,
     ) -> np.ndarray:
-        """Decode a (B, m) batch of syndromes with one full-depth K1' run.
+        """Decode a (B, m) batch of syndromes with one full-depth BP run.
 
         Returns the (B, n) decodings; per-element results are exposed as
         ``converge_batch``, ``iter_batch`` and ``log_prob_ratios_batch``.
@@ -146,3 +148,118 @@ class BpDecoder(BpDecoderBase):
         if bit_packed_output:
             return _to_numpy(gf2.pack_bits_u8(result.decoding))
         return _to_numpy(result.decoding)
+
+    def _single_scan_fn(self):
+        key = ("single_scan", self._max_iter, float(self._ms_scaling_factor), self._dtype)
+        fn = self._decoder_cache.get(key)
+        if fn is None:
+            fn = bp_ops.make_single_scan_decoder(
+                self.graph, self._max_iter, self._ms_scaling_factor, self._device,
+                dtype=self._dtype,
+            )
+            self._decoder_cache[key] = fn
+        return fn
+
+    def decode_single_scan(self, syndrome: np.ndarray) -> np.ndarray:
+        """Min-sum single-scan BP decode of one syndrome. Ignores
+        ``bp_method`` and ``schedule``: single-scan is min-sum with the
+        fixed ``ms_scaling_factor`` by construction. float32 only."""
+        syndrome = np.asarray(syndrome)
+        if len(syndrome) != self.m:
+            raise ValueError(
+                f"The syndrome must have length {self.m}. Not {len(syndrome)}."
+            )
+        dtype = syndrome.dtype
+        if not syndrome.any():
+            self._converge = True
+            return np.zeros(self.n, dtype=dtype)
+        result = self._single_scan_fn()(syndrome[None, :].astype(np.uint8), self._init_llr())
+        self._store_single_result(result)
+        return self._decoding.astype(dtype)
+
+
+class SoftInfoBpDecoder(BpDecoderBase):
+    """Soft-syndrome min-sum BP decoder (arXiv:2205.02341).
+
+    Accounts for uncertainty in the syndrome readout with a serial schedule
+    and virtual syndrome-update rules below the ``cutoff`` magnitude; the
+    soft syndromes are log-likelihoods scaled by 2/sigma^2 (kernel K7').
+    ``device`` is where the decoder's tensors live.
+    """
+
+    def __init__(
+        self,
+        pcm: Union[np.ndarray, scipy.sparse.spmatrix],
+        error_rate: Optional[float] = None,
+        error_channel: Optional[List[float]] = None,
+        max_iter: Optional[int] = 0,
+        bp_method: Optional[str] = "minimum_sum",
+        ms_scaling_factor: Optional[float] = 1.0,
+        cutoff: Optional[float] = np.inf,
+        sigma: float = 2.0,
+        device="cuda",
+        **kwargs,
+    ):
+        super().__init__(
+            pcm,
+            error_rate=error_rate,
+            error_channel=error_channel,
+            max_iter=max_iter,
+            bp_method=bp_method,
+            ms_scaling_factor=ms_scaling_factor,
+            device=device,
+            **kwargs,
+        )
+        self.cutoff = cutoff
+        if not isinstance(sigma, float) or sigma <= 0:
+            raise ValueError("The sigma value must be a float greater than 0.")
+        self.sigma = sigma
+        self.schedule = "serial"
+        self.bp_method = "minimum_sum"
+        self.input_vector_type = "syndrome"
+        self._soft_syndrome = np.zeros(self.m)
+        self.soft_syndrome_batch = None
+
+    def _soft_decode_fn(self):
+        key = ("soft", self._max_iter, float(self._ms_scaling_factor), self._dtype)
+        fn = self._decoder_cache.get(key)
+        if fn is None:
+            fn = bp_ops.make_soft_info_decoder(
+                self.graph, self._max_iter, self._ms_scaling_factor, self._device,
+                dtype=self._dtype,
+            )
+            self._decoder_cache[key] = fn
+        return fn
+
+    def decode(self, soft_info_syndrome: np.ndarray) -> np.ndarray:
+        """Decode a single soft syndrome (length m, log-likelihood values)."""
+        out = self.decode_batch(np.asarray(soft_info_syndrome, dtype=np.float64)[None, :])
+        return out[0]
+
+    def decode_batch(self, soft_syndromes: np.ndarray) -> np.ndarray:
+        """Decode a (B, m) batch of soft syndromes; the final soft syndromes
+        are kept in ``soft_syndrome_batch``."""
+        soft_syndromes = np.atleast_2d(np.asarray(soft_syndromes, dtype=np.float64))
+        if soft_syndromes.shape[1] != self.m:
+            raise ValueError(
+                f"The syndrome must have length {self.m}. Not {soft_syndromes.shape[1]}."
+            )
+        result, soft_out = self._soft_decode_fn()(
+            soft_syndromes, self._init_llr(), float(self.cutoff), float(self.sigma)
+        )
+        self.converge_batch = _to_numpy(result.converged)
+        self.iter_batch = _to_numpy(result.iterations)
+        self._llr_batch = result.llr_posterior
+        self._converge = bool(self.converge_batch[0])
+        self._iter = int(self.iter_batch[0])
+        self._log_prob_ratios = _to_numpy(result.llr_posterior[0])
+        self.soft_syndrome_batch = _to_numpy(soft_out)
+        self._soft_syndrome = self.soft_syndrome_batch[0]
+        decodings = _to_numpy(result.decoding)
+        self._decoding = decodings[0]
+        return decodings
+
+    @property
+    def soft_syndrome(self) -> np.ndarray:
+        """The updated soft syndrome after decoding."""
+        return np.asarray(self._soft_syndrome)

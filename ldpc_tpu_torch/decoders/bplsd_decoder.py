@@ -21,7 +21,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
+from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy, _refuse_float64
 from ldpc_tpu_torch.decoders.lsd_common import (
     METHOD_NAMES,
     Statistics,
@@ -87,6 +87,7 @@ class BpLsdDecoder(BpDecoderBase):
             device=device,
             **kwargs,
         )
+        _refuse_float64(self, "BpLsdDecoder")
         self._lsd_method = 0
         self._lsd_order = 0
         self.lsd_method = lsd_method

@@ -1,10 +1,12 @@
-"""BpOsdDecoder: belief propagation + ordered-statistics fallback.
+"""BpOsdDecoder and SoftInfoBpOsdDecoder: belief propagation +
+ordered-statistics fallback.
 
-Port of ``ldpc_tpu.decoders.bposd_decoder.BpOsdDecoder`` for OSD-0, OSD-E,
-OSD-CS and OSD off. ``decode_batch`` runs the two-phase BP cascade of
-:meth:`BpDecoderBase._decode_cascade` and OSD on the lanes full-depth BP
-fails: kernel K2' at order 0, kernel K3' and the candidate sweep of
-:mod:`ldpc_tpu_torch.ops.osd` above it.
+Port of ``ldpc_tpu.decoders.bposd_decoder`` for OSD-0, OSD-E, OSD-CS and
+OSD off. ``BpOsdDecoder.decode_batch`` runs the BP of
+:meth:`BpDecoderBase._decode_cascade` (two phases for parallel float32, one
+full-depth run otherwise) and OSD on the lanes full-depth BP fails, in the
+decoder's dtype: kernel K2' at order 0, kernel K3' and the candidate sweep
+of :mod:`ldpc_tpu_torch.ops.osd` above it.
 """
 
 import warnings
@@ -12,8 +14,10 @@ from typing import List, Optional, Union
 
 import numpy as np
 import scipy.sparse
+import torch
 
 from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
+from ldpc_tpu_torch.decoders.bp_decoder import SoftInfoBpDecoder
 from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.ops import osd as osd_ops
 
@@ -149,6 +153,7 @@ class BpOsdDecoder(BpDecoderBase):
                 self._osd_method,
                 self._osd_order,
                 self._device,
+                dtype=self._dtype,
             )
             self._decoder_cache[key] = fn
         return fn
@@ -248,3 +253,61 @@ class BpOsdDecoder(BpDecoderBase):
         if self._converge:
             return self.bp_decoding
         return np.asarray(self._osdw_decoding).astype(int)
+
+
+class SoftInfoBpOsdDecoder(SoftInfoBpDecoder):
+    """Soft-syndrome BP with an OSD fallback.
+
+    Serial min-sum soft-info BP (arXiv:2205.02341, kernel K7'); on the
+    lanes that do not converge the final soft syndrome is hardened (value
+    <= 0 -> 1) and OSD runs on it, guided by the BP posteriors.
+    """
+
+    def __init__(
+        self,
+        pcm: Union[np.ndarray, scipy.sparse.spmatrix],
+        error_rate: Optional[float] = None,
+        error_channel: Optional[List[float]] = None,
+        max_iter: Optional[int] = 0,
+        ms_scaling_factor: Optional[float] = 1.0,
+        osd_method: Union[str, int, float] = 0,
+        osd_order: int = 0,
+        cutoff: Optional[float] = np.inf,
+        sigma: float = 2.0,
+        device="cuda",
+        **kwargs,
+    ):
+        super().__init__(
+            pcm,
+            error_rate=error_rate,
+            error_channel=error_channel,
+            max_iter=max_iter,
+            ms_scaling_factor=ms_scaling_factor,
+            cutoff=cutoff,
+            sigma=sigma,
+            device=device,
+            **kwargs,
+        )
+        self._osd_method = 0
+        self._osd_order = 0
+        self.osd_method = osd_method
+        self.osd_order = osd_order
+
+    osd_method = BpOsdDecoder.osd_method
+    osd_order = BpOsdDecoder.osd_order
+    _invalidate_osd = BpOsdDecoder._invalidate_osd
+    _osd_decode_fn = BpOsdDecoder._osd_decode_fn
+
+    def decode_batch(self, soft_syndromes: np.ndarray) -> np.ndarray:
+        bp_out = super().decode_batch(soft_syndromes)
+        conv = self.converge_batch
+        if conv.all() or self._osd_method == osd_ops.OSD_OFF:
+            return bp_out
+        failed = torch.from_numpy(np.flatnonzero(~conv)).to(self._device)
+        soft = torch.from_numpy(self.soft_syndrome_batch).to(self._device)
+        hard = (soft[failed] <= 0).to(torch.uint8)
+        _, osdw, _ = self._osd_decode_fn()(hard, self._llr_batch[failed])
+        out = bp_out.copy()
+        out[failed.cpu().numpy()] = _to_numpy(osdw)
+        self._decoding = out[0]
+        return out

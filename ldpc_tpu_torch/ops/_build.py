@@ -33,11 +33,13 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-    #  min_sum, ms_scaling, shared, c2v, post, dec, conv, iters, stream)
+    #  min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+    #  iters, stream)
     "ldpc_bp_parallel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _P, _P, _P, _P, _P, _P],
+                         ctypes.c_float, _I, _I, _P, _P, _P, _P, _P, _P],
     # (m, n, dc) -> 1 when K1 keeps a lane's state in shared memory
     "ldpc_bp_shared_state": [_I, _I, _I],
     # (kernel: 0 K3', 1 K4', 2 K5', 3 K2'; m, n) -> the variant it takes by
@@ -57,6 +59,23 @@ _SIGNATURES = {
     # (syndromes, order, count, packed_h, m, n, Wp, B, variant, M,
     #  col_of_row, used, stream)
     "ldpc_masked_export": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # (engine: 0 K6', 1 K7', 2 K8'; m, n, dc, dv, elem bytes, relative) -> 1
+    # when the fold engines keep a lane's state in shared memory
+    "ldpc_bp_fold_shared_state": [_I, _I, _I, _I, _I, _I, _I],
+    # (syndromes, llr0, chk_bits, var_edges, order, m, n, dc, dv, B,
+    #  max_iter, order_mode, min_sum, f64, ms_scaling, shared, msg, sched,
+    #  post, dec, conv, iters, stream)
+    "ldpc_bp_serial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _D, _I, _P, _P, _P, _P, _P, _P, _P],
+    # (soft, llr0, chk_bits, var_edges, m, n, dc, dv, B, max_iter, f64,
+    #  ms_scaling, cutoff, shared, msg, synd, post, dec, soft_out, conv,
+    #  iters, stream)
+    "ldpc_bp_soft_info": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+                          _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
+    #  min_sum, ms_scaling, shared, msg, post, dec, conv, iters, stream)
+    "ldpc_bp_parallel_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _D, _I, _P, _P, _P, _P, _P, _P],
     # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
     "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,

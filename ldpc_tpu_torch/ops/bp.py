@@ -1,11 +1,17 @@
-"""Batched parallel-schedule belief propagation (port of ``ldpc_tpu.ops.bp``).
+"""Batched belief propagation (port of ``ldpc_tpu.ops.bp``).
 
 Holds the method and schedule constants, the batch-major result type, the
-channel LLRs and the decoder builder. The message passing itself lives in
-:mod:`ldpc_tpu_torch.ops.bp_cuda`: kernel K1' on a CUDA device, its plain
-PyTorch version on the CPU.
+channel LLRs and the decoder builders. The message passing itself lives in
+the kernels' modules, each kernel on a CUDA device and its plain PyTorch
+version on the CPU:
+
+- :mod:`ldpc_tpu_torch.ops.bp_cuda`: K1', float32 parallel BP, and with a
+  fixed factor the single-scan engine;
+- :mod:`ldpc_tpu_torch.ops.bp_fold`: K6' serial and serial-relative BP, K7'
+  soft-information BP and K8' fold-exact float64 parallel BP.
 """
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -26,7 +32,7 @@ class BpResult(NamedTuple):
     """Batched BP outputs, batch-major at the API boundary."""
 
     decoding: torch.Tensor  # (B, n) uint8
-    llr_posterior: torch.Tensor  # (B, n) float32
+    llr_posterior: torch.Tensor  # (B, n) in the decoder's dtype
     converged: torch.Tensor  # (B,) bool
     iterations: torch.Tensor  # (B,) int32
 
@@ -38,37 +44,199 @@ def channel_llr(error_channel: np.ndarray, dtype=np.float32) -> np.ndarray:
         return (np.log((1.0 - p) / p)).astype(dtype)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A decoder's dtype as a torch dtype: float32 or float64, given as a
+    torch or numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        name = np.dtype(dtype).name
+    if name not in ("float32", "float64"):
+        raise ValueError(f"dtype must be float32 or float64, not {dtype!r}")
+    return getattr(torch, name)
+
+
+def _tensors(device, dtype):
+    """The batch-in, LLR-in conversion every builder's ``decode`` does."""
+
+    def convert(batch, batch_dtype, init_llr):
+        batch = torch.as_tensor(batch, dtype=batch_dtype, device=device).contiguous()
+        init_llr = torch.as_tensor(init_llr, device=device).to(dtype).contiguous()
+        return batch, init_llr
+
+    return convert
+
+
 def make_parallel_decoder(
     graph: PcmGraph,
     bp_method: int,
     max_iter: int,
     ms_scaling_factor: float,
     device,
+    dtype=torch.float32,
 ):
     """Build a batched parallel-schedule BP decoder on ``device``.
 
-    Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,) float32) ->
-    BpResult``. Each lane stops at its first convergence; the decision,
-    posterior and iteration count are those of that iteration (or of
-    ``max_iter``). float32 only: the float64 exact mode is ROADMAP queue 1
-    item 12.
+    Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,)) -> BpResult``.
+    Each lane stops at its first convergence; the decision, posterior and
+    iteration count are those of that iteration (or of ``max_iter``).
+    float32 runs K1' (the gather-only engine); float64 runs K8', the
+    fold-exact engine the golden fixtures are replayed in.
+    """
+    from ldpc_tpu_torch.ops import bp_cuda, bp_fold
+    from ldpc_tpu_torch.ops.pcm import graph_to_torch
+
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    tg = graph_to_torch(graph, device)
+    convert = _tensors(device, dtype)
+
+    def decode(syndromes: torch.Tensor, init_llr: torch.Tensor) -> BpResult:
+        syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)
+        engine = bp_cuda.bp_parallel if dtype == torch.float32 else bp_fold.bp_parallel_exact
+        return engine(tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor)
+
+    return decode
+
+
+def make_single_scan_decoder(
+    graph: PcmGraph,
+    max_iter: int,
+    ms_scaling_factor: float,
+    device,
+    dtype=torch.float32,
+):
+    """Min-sum "single-scan" BP: the parallel schedule's recurrence (the
+    JAX package shares its engine, ``ldpc_tpu/ops/bp.py:135``), min-sum
+    only, with the fixed ``ms_scaling_factor`` even at 0. Runs K1' with its
+    dynamic factor off; float32 only (ROADMAP queue 1 item 2b).
+
+    Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,)) -> BpResult``.
     """
     from ldpc_tpu_torch.ops import bp_cuda
     from ldpc_tpu_torch.ops.pcm import graph_to_torch
 
+    if torch_dtype(dtype) != torch.float32:
+        raise NotImplementedError(
+            "single-scan BP in float64 is not ported yet (ROADMAP queue 1 item 2b)"
+        )
     device = resolve_device(device)
     tg = graph_to_torch(graph, device)
+    convert = _tensors(device, torch.float32)
 
     def decode(syndromes: torch.Tensor, init_llr: torch.Tensor) -> BpResult:
-        syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device)
-        init_llr = torch.as_tensor(init_llr, dtype=torch.float32, device=device)
+        syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)
         return bp_cuda.bp_parallel(
-            tg,
-            syndromes.contiguous(),
-            init_llr.contiguous(),
-            bp_method,
-            max_iter,
-            ms_scaling_factor,
+            tg, syndromes, init_llr, MINIMUM_SUM, max_iter, ms_scaling_factor,
+            dynamic_alpha=False,
+        )
+
+    return decode
+
+
+def serial_order_table(
+    n: int, max_iter: int, generator: torch.Generator, device
+) -> torch.Tensor:
+    """The random serial schedule: one permutation of the n bits for each
+    iteration, (max_iter, n) int32 on ``device``, drawn by ``torch.randperm``
+    from ``generator`` (which must live on ``device``'s type). It takes
+    ``max_iter * n * 4`` bytes: 1.1 MB at surface d=13 and 30 iterations,
+    207 MB for toric d=60 at max_iter = n."""
+    rows = [torch.randperm(n, generator=generator, device=device) for _ in range(max_iter)]
+    if not rows:
+        return torch.zeros((0, n), dtype=torch.int32, device=device)
+    return torch.stack(rows).to(torch.int32)
+
+
+def schedule_generator(seed: int, device) -> torch.Generator:
+    """A generator for the random serial schedule on ``device``, seeded from
+    ``random_schedule_seed`` (0 means the clock, as in the JAX package)."""
+    if seed == 0:
+        seed = time.time_ns() & 0x7FFFFFFF
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(seed)
+    return gen
+
+
+def make_serial_decoder(
+    graph: PcmGraph,
+    bp_method: int,
+    max_iter: int,
+    ms_scaling_factor: float,
+    device,
+    schedule_mode: int = SERIAL,
+    random_serial_schedule: bool = False,
+    dtype=torch.float32,
+):
+    """Build a batched serial-schedule BP decoder on ``device`` (K6').
+
+    Bits update one at a time, each reading the messages the bits before it
+    wrote. Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,),
+    schedule: (n,) int, key) -> BpResult``. As in the JAX package
+    ``schedule`` is ignored when ``random_serial_schedule`` (each iteration
+    a permutation; ``key`` is a ``torch.Generator`` on ``device``'s type,
+    see :func:`schedule_generator`, or an (>= max_iter, n) table of
+    permutations, see :func:`serial_order_table`) or when ``schedule_mode``
+    is SERIAL_RELATIVE (each lane's posteriors ranked most reliable first at
+    the start of each iteration, equal ones in index order).
+    """
+    from ldpc_tpu_torch.ops import bp_fold
+    from ldpc_tpu_torch.ops.pcm import graph_to_torch
+
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    tg = graph_to_torch(graph, device)
+    convert = _tensors(device, dtype)
+    n = graph.n
+
+    def decode(syndromes, init_llr, schedule=None, key=None) -> BpResult:
+        syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)
+        if random_serial_schedule:
+            mode = bp_fold.ORDER_TABLE
+            order = key if isinstance(key, torch.Tensor) else serial_order_table(
+                n, max_iter, key, device)
+        elif schedule_mode == SERIAL_RELATIVE:
+            mode, order = bp_fold.ORDER_RELATIVE, None
+        else:
+            mode = bp_fold.ORDER_FIXED
+            order = torch.arange(n) if schedule is None else schedule
+        if order is not None:
+            order = torch.as_tensor(order, device=device).to(torch.int32).contiguous()
+        return bp_fold.bp_serial(
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor, order, mode
+        )
+
+    return decode
+
+
+def make_soft_info_decoder(
+    graph: PcmGraph,
+    max_iter: int,
+    ms_scaling_factor: float,
+    device,
+    dtype=torch.float32,
+):
+    """Build a batched soft-syndrome serial min-sum BP decoder on
+    ``device`` (K7', arXiv:2205.02341).
+
+    Returns ``decode(soft_syndromes: (B, m), init_llr: (n,), cutoff, sigma)
+    -> (BpResult, soft_syndrome_out: (B, m))``. The soft syndromes are cast
+    to ``dtype`` and scaled by 2/sigma^2 (that factor rounded once to
+    ``dtype``) before the sweep; the hard syndrome bit is ``soft <= 0``.
+    """
+    from ldpc_tpu_torch.ops import bp_fold
+    from ldpc_tpu_torch.ops.pcm import graph_to_torch
+
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    tg = graph_to_torch(graph, device)
+    convert = _tensors(device, dtype)
+
+    def decode(soft_syndromes, init_llr, cutoff: float, sigma: float):
+        soft, init_llr = convert(soft_syndromes, dtype, init_llr)
+        scale = torch.tensor(2.0 / (sigma * sigma), dtype=dtype, device=device)
+        return bp_fold.bp_soft_info(
+            tg, (soft * scale).contiguous(), init_llr, max_iter, ms_scaling_factor, cutoff
         )
 
     return decode

@@ -2,7 +2,9 @@
 
 - :func:`bp_parallel_reference` is the plain PyTorch version: the f32
   gather-only engine of ``ldpc_tpu/ops/bp.py`` (``_make_parallel_decoder_
-  fast``), op for op.
+  fast``), op for op. With ``dynamic_alpha=False`` it is the single-scan
+  engine (``make_single_scan_decoder``): min-sum keeps the fixed factor
+  even at 0.
 - :func:`bp_parallel_cuda` launches ``csrc/bp_parallel.cu`` on a CUDA
   tensor and counts the launch in :data:`LAUNCHES`, and by where the
   lanes' state lived in :data:`STATE_LAUNCHES`.
@@ -67,6 +69,7 @@ def bp_parallel_reference(
     bp_method: int,
     max_iter: int,
     ms_scaling_factor: float,
+    dynamic_alpha: bool = True,
 ) -> BpResult:
     """Plain PyTorch parallel-schedule BP on (B, m) uint8 syndromes."""
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
@@ -90,7 +93,7 @@ def bp_parallel_reference(
     it = 0
     while it < max_iter and not bool(conv.all()):
         it += 1
-        if bp_method == MINIMUM_SUM and ms_scaling_factor == 0.0:
+        if dynamic_alpha and bp_method == MINIMUM_SUM and ms_scaling_factor == 0.0:
             alpha = torch.tensor(1.0 - 2.0**-it, dtype=torch.float32, device=dev)
         else:
             alpha = torch.tensor(ms_scaling_factor, dtype=torch.float32, device=dev)
@@ -146,6 +149,7 @@ def bp_parallel_cuda(
     max_iter: int,
     ms_scaling_factor: float,
     state: Optional[str] = None,
+    dynamic_alpha: bool = True,
 ) -> BpResult:
     """Launch K1' (``csrc/bp_parallel.cu``) on CUDA tensors: one warp per
     lane, several lanes per block. ``state`` forces where a lane's state
@@ -192,7 +196,7 @@ def bp_parallel_cuda(
                 tg.chk_bits_t.data_ptr(), tg.var_edges_t.data_ptr(),
                 m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), float(ms_scaling_factor),
-                int(shared),
+                int(dynamic_alpha), int(shared),
                 c2v.data_ptr(), llr.data_ptr(), dec.data_ptr(),
                 conv.data_ptr(), iters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
@@ -210,15 +214,18 @@ def bp_parallel(
     bp_method: int,
     max_iter: int,
     ms_scaling_factor: float,
+    dynamic_alpha: bool = True,
 ) -> BpResult:
     """K1' on a CUDA tensor, its plain version on a CPU tensor."""
     kind = syndromes.device.type
     if kind == "cpu":
         return bp_parallel_reference(
-            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor,
+            dynamic_alpha,
         )
     if kind == "cuda":
         return bp_parallel_cuda(
-            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor,
+            dynamic_alpha=dynamic_alpha,
         )
     raise ValueError(f"bp_parallel: no kernel for device {syndromes.device}")

@@ -18,8 +18,9 @@ order (:mod:`ldpc_tpu_torch.ops.gf2_cuda`).
 The sweep gathers R's columns by index instead of the JAX package's one-hot
 contractions, works through the lanes in chunks so that the unpacked R
 stays small, and sums each score over the rows in row order with one
-float32 addition per row: the same additions on every device, so a tie is
-broken the same way on the CPU and on the card.
+addition per row in the decoder's dtype (float32, or float64 after the
+fold-exact BP): the same additions on every device, so a tie is broken the
+same way on the CPU and on the card.
 """
 
 import numpy as np
@@ -79,7 +80,7 @@ def pattern_table(method: int, order: int) -> np.ndarray:
 
 def weigh_rows(y: torch.Tensor, wrow: torch.Tensor) -> torch.Tensor:
     """Weight of each candidate's pivot part: (B, C, m) bool solution bits,
-    (B, m) float32 row weights -> (B, C) float32, summed in row order."""
+    (B, m) row weights -> (B, C) in their dtype, summed in row order."""
     terms = torch.where(y, wrow[:, None, :], 0.0)
     acc = terms[:, :, 0].clone()
     for r in range(1, y.shape[2]):
@@ -101,13 +102,15 @@ def make_osd_decoder(
     osd_method: int,
     osd_order: int,
     device,
+    dtype=torch.float32,
 ):
     """Build a batched OSD decoder on ``device``.
 
-    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n) float32) ->
-    (osd0: (B, n) uint8, osdw: (B, n) uint8, valid: (B,) bool)``; at order
-    0 the two decodings are the same tensor. ``channel`` only weighs the
-    candidates of higher orders.
+    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) -> (osd0: (B, n)
+    uint8, osdw: (B, n) uint8, valid: (B,) bool)``; at order 0 the two
+    decodings are the same tensor. The reliability order and the candidate
+    weights are taken in ``dtype`` (float32 or float64, the BP engine's).
+    ``channel`` only weighs the candidates of higher orders.
     """
     m, n = graph.m, graph.n
     rank = gf2.batched_rank(graph.dense)
@@ -122,9 +125,9 @@ def make_osd_decoder(
     with np.errstate(divide="ignore"):
         w_np = np.log(1.0 / np.asarray(channel, dtype=np.float64))
     # pad column n (the rows no pivot owns) weighs nothing
-    weights_pad = torch.from_numpy(
-        np.concatenate([w_np, [0.0]]).astype(np.float32)
-    ).to(device)
+    weights_pad = torch.from_numpy(np.concatenate([w_np, [0.0]])).to(
+        device=device, dtype=dtype
+    )
     chunk = max(1, _CHUNK_ELEMENTS // (m * (n + P + 1)))
 
     def sweep(words, col_of_row, used, llrs):
@@ -186,7 +189,7 @@ def make_osd_decoder(
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device)
-        llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
+        llrs = torch.as_tensor(llrs, device=device).to(dtype)
         # least-reliable-first; stable, as the reference's qsort is on
         # distinct keys
         order = torch.argsort(llrs, dim=1, stable=True).to(torch.int32)

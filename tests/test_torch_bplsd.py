@@ -192,8 +192,9 @@ def test_bplsd_imports_no_jax():
     """A fresh process imports the port, decodes on the CPU with every
     decoder of the port (BpLsdDecoder at order 0 and 3 with statistics,
     BpOsdDecoder, UnionFindDecoder in both modes, BeliefFindDecoder,
-    LsdDecoder, FlipDecoder, BpFlipDecoder, BpDecoder, one device
-    Monte-Carlo step), and never
+    LsdDecoder, FlipDecoder, BpFlipDecoder, BpDecoder with every schedule,
+    float64, single-scan, SoftInfoBpDecoder, SoftInfoBpOsdDecoder, one
+    device Monte-Carlo step), and never
     imports jax or any module of the JAX package ``ldpc_tpu``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
@@ -230,6 +231,19 @@ def test_bplsd_imports_no_jax():
         "assert ((H @ d.decode(s)) % 2 == s).all()\n"
         "d = ldpc_tpu_torch.BpDecoder(code.hx, error_rate=0.1, max_iter=5, device='cpu')\n"
         "d.decode(s)\n"
+        "d.decode_single_scan(s)\n"
+        "for kw in ({'schedule': 'serial'}, {'schedule': 'serial_relative'},\n"
+        "           {'schedule': 'serial', 'random_serial_schedule': True},\n"
+        "           {'dtype': 'float64'}, {'schedule': 'serial', 'dtype': 'float64'}):\n"
+        "    d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.1, max_iter=5,\n"
+        "                                    device='cpu', **kw)\n"
+        "    assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "soft = np.where(s == 1, -20.0, 20.0)  # confident: no virtual update\n"
+        "d = ldpc_tpu_torch.SoftInfoBpDecoder(code.hx, error_rate=0.1, max_iter=5, device='cpu')\n"
+        "d.decode(soft)\n"
+        "d = ldpc_tpu_torch.SoftInfoBpOsdDecoder(code.hx, error_rate=0.1, max_iter=5,\n"
+        "                                        device='cpu')\n"
+        "assert ((H @ d.decode(soft)) % 2 == s).all()\n"
         "import torch\n"
         "from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step\n"
         "step, runs = make_mc_decoder_step(code.hx, 0.05, batch_size=512, max_iter=5,\n"

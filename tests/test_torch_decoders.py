@@ -195,14 +195,23 @@ def test_constructor_defaults_and_validation():
 
 
 def test_unported_options_raise_not_implemented():
+    """What is still refused: float64 in the decoders whose post-processors
+    are float32 only, and single-scan in float64 (ROADMAP queue 1). The
+    serial schedules and float64 BP+OSD are ported."""
     H = rep_code(3)
+    for cls in (ldpc_tpu_torch.BpLsdDecoder, ldpc_tpu_torch.BeliefFindDecoder,
+                ldpc_tpu_torch.BpFlipDecoder):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            cls(H, error_rate=0.1, dtype=torch.float64, device="cpu")
+    d64 = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, dtype=np.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        d64.decode_single_scan(np.array([1, 0], np.uint8))
     for schedule in ("serial", "serial_relative"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, schedule=schedule, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, schedule="serial", device="cpu")
+        d = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, schedule=schedule, device="cpu")
+        assert d.schedule == schedule
+    d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, dtype="float64", device="cpu")
+    assert (d.decode_batch(np.array([[1, 0]], np.uint8)) == [[1, 0, 0]]).all()
+    assert d.log_prob_ratios_batch.dtype == np.float64
     # OSD-CS and LSD's per-cluster statistics are ported now
     d = ldpc_tpu_torch.BpOsdDecoder(H, error_rate=0.1, osd_method="osd_cs", osd_order=2, device="cpu")
     assert (d.decode_batch(np.array([[1, 0]], np.uint8)) == [[1, 0, 0]]).all()

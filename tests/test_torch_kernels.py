@@ -1,7 +1,9 @@
 """The CUDA kernels K1' (csrc/bp_parallel.cu), K2'-K5' (csrc/gf2_elim.cu,
 each in its warp, block and device variants, forced by the wrappers'
-``variant`` keyword) and the flip sweep (csrc/flip.cu) held against their
-plain PyTorch versions on the card.
+``variant`` keyword), the flip sweep (csrc/flip.cu) and the fold engines
+K6'-K8' (csrc/bp_fold.cu, each with its lane state in shared or device
+memory, forced by ``state``) held against their plain PyTorch versions on
+the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -15,8 +17,9 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.codes import surface_code, toric_code
-from ldpc_tpu_torch.ops import bp_cuda, flip, gf2, gf2_cuda
-from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr
+import ldpc_tpu_torch
+from ldpc_tpu_torch.ops import bp_cuda, bp_fold, flip, gf2, gf2_cuda
+from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr, serial_order_table
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
 pytestmark = pytest.mark.cuda
@@ -588,3 +591,244 @@ def test_flip_converges_in_the_middle_of_a_scan(codes):
     hit = conv.cpu().numpy() & (dec.cpu().numpy() == errors).all(axis=1)
     assert bool((iters[conv] == 1).all())
     assert len({int(j) % 32 for j in np.flatnonzero(hit)}) == 32  # every place of a scan
+
+
+# ---- K6'-K8', the fold engines (csrc/bp_fold.cu) ------------------------------
+
+FOLD_LANES = 1024
+FIX, TAB, REL = bp_fold.ORDER_FIXED, bp_fold.ORDER_TABLE, bp_fold.ORDER_RELATIVE
+
+
+def _order(mode, n, max_iter, dev):
+    if mode == FIX:
+        return torch.arange(n, dtype=torch.int32, device=dev)
+    if mode == TAB:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        return serial_order_table(n, max_iter, gen, dev)
+    return None
+
+
+def _assert_fold_equal(ker, ref, method):
+    """Min-sum: every output bit-identical (same operations in the same
+    order, no FMA contraction). Product-sum: decisions, flags and
+    iterations identical, posteriors within rtol 1e-4 (float32) or 1e-9
+    (float64): tanh and log of the CUDA math library on both sides."""
+    (kr, ks), (rr, rs) = [(x, None) if isinstance(x, bp_fold.BpResult) else x for x in (ker, ref)]
+    assert torch.equal(kr.converged, rr.converged)
+    assert torch.equal(kr.iterations, rr.iterations)
+    assert torch.equal(kr.decoding, rr.decoding)
+    if method == MINIMUM_SUM:
+        assert torch.equal(kr.llr_posterior, rr.llr_posterior)
+        if ks is not None:
+            assert torch.equal(ks, rs)
+    else:
+        rtol = 1e-4 if kr.llr_posterior.dtype == torch.float32 else 1e-9
+        torch.testing.assert_close(kr.llr_posterior, rr.llr_posterior, rtol=rtol, atol=1e-5,
+                                   equal_nan=True)
+
+
+def _fold_call(kernel, args, state):
+    """The kernel in ``state`` (None: the footprint's choice, through the
+    dispatcher) against its plain version; the state's counter moves by
+    one."""
+    tg, llr0 = args[0], args[2]
+    relative = kernel == "bp_serial" and args[-1] == REL
+    counted = state or bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, llr0.dtype,
+                                             relative)
+    before, launches = bp_fold.STATE_LAUNCHES[kernel][counted], bp_fold.LAUNCHES[kernel]
+    if state is None:
+        ker = getattr(bp_fold, kernel)(*args)
+    else:
+        ker = getattr(bp_fold, f"{kernel}_cuda")(*args, state=state)
+    torch.cuda.synchronize()
+    assert bp_fold.STATE_LAUNCHES[kernel][counted] == before + 1
+    assert bp_fold.LAUNCHES[kernel] == launches + 1
+    ref = getattr(bp_fold, f"{kernel}_reference")(*args)
+    return ker, ref
+
+
+def _llr0(graph, dev, dtype, p=P):
+    return torch.from_numpy(channel_llr(np.full(graph.n, p), np.float64)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("mode,method,alpha,dtype", [
+    (FIX, MINIMUM_SUM, 0.625, torch.float32), (FIX, PRODUCT_SUM, 1.0, torch.float64),
+    (TAB, MINIMUM_SUM, 0.0, torch.float32), (REL, MINIMUM_SUM, 0.625, torch.float64),
+    (REL, PRODUCT_SUM, 1.0, torch.float32),
+])
+def test_k6_matches_plain_version(codes, mode, method, alpha, dtype, state):
+    graph, tg, syn, _ = codes["surface13"]
+    s = syn[:FOLD_LANES].contiguous()
+    args = (tg, s, _llr0(graph, s.device, dtype), method, 30, alpha,
+            _order(mode, graph.n, 30, s.device), mode)
+    ker, ref = _fold_call("bp_serial", args, state)
+    _assert_fold_equal(ker, ref, method)
+    assert ker.llr_posterior.dtype == dtype
+
+
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_fold_engines_odd_batches_and_lanes_apart(codes, lanes):
+    """Odd batches, a lane that converges in iteration 1 (a zero syndrome)
+    beside one that runs to max_iter (an odd-weight syndrome, which no
+    toric-code error makes: every bit lies in two checks), in every engine
+    and both states; max_iter 0 returns llr0 and zeros."""
+    graph, tg, syn, _ = codes["toric20"]
+    dev = syn.device
+    s = syn[:lanes].clone()
+    s[0] = 0
+    if lanes > 1:
+        odd = np.random.default_rng(3).integers(0, 2, graph.m).astype(np.uint8)
+        odd[0] ^= 1 - odd.sum() % 2
+        s[1] = torch.from_numpy(odd)
+    for max_iter in (0, 30):
+        for state in ("shared", "device"):
+            for dtype in (torch.float32, torch.float64):
+                l0 = _llr0(graph, dev, dtype)
+                soft = ((1 - 2 * s.to(dtype)) * 5).contiguous()
+                calls = [("bp_serial", (tg, s, l0, MINIMUM_SUM, max_iter, 0.625, None, REL)),
+                         ("bp_soft_info", (tg, soft, l0, max_iter, 0.625, 3.0))]
+                if dtype == torch.float64:
+                    calls.append(("bp_parallel_exact", (tg, s, l0, MINIMUM_SUM, max_iter, 0.625)))
+                for kernel, args in calls:
+                    ker, ref = _fold_call(kernel, args, state)
+                    _assert_fold_equal(ker, ref, MINIMUM_SUM)
+                    res = ker if isinstance(ker, bp_fold.BpResult) else ker[0]
+                    if max_iter == 0:
+                        assert torch.equal(res.llr_posterior, l0.expand(lanes, -1))
+                        assert not bool(res.decoding.any() or res.converged.any())
+                    else:
+                        assert bool(res.converged[0]) and int(res.iterations[0]) == 1
+                        if lanes > 1:
+                            assert not bool(res.converged[1]) and int(res.iterations[1]) == 30
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_matches_plain_version(codes, dtype, state):
+    """Soft syndromes (1 - 2 s) + 0.3 N(0, 1) scaled by 2/0.3^2, cutoff 10:
+    the virtual-update rules fire, and the final soft syndrome is held too."""
+    graph, tg, syn, _ = codes["surface13"]
+    s = syn[:FOLD_LANES]
+    noise = np.random.default_rng(7).standard_normal(tuple(s.shape))
+    soft = ((1 - 2 * s.double().cpu()) + 0.3 * torch.from_numpy(noise)).to(s.device)
+    soft = (soft.to(dtype) * torch.tensor(2 / 0.09, dtype=dtype, device=s.device)).contiguous()
+    args = (tg, soft, _llr0(graph, s.device, dtype), 30, 0.625, 10.0)
+    ker, ref = _fold_call("bp_soft_info", args, state)
+    _assert_fold_equal(ker, ref, MINIMUM_SUM)
+    assert not torch.equal(ker[1], soft)  # the rules changed some check
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("method,alpha", [(MINIMUM_SUM, 0.625), (MINIMUM_SUM, 0.0),
+                                          (PRODUCT_SUM, 1.0)])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k8_matches_plain_version(codes, name, method, alpha, state):
+    graph, tg, syn, _ = codes[name]
+    s = syn[:FOLD_LANES].contiguous()
+    args = (tg, s, _llr0(graph, s.device, torch.float64), method, 30, alpha)
+    ker, ref = _fold_call("bp_parallel_exact", args, state)
+    _assert_fold_equal(ker, ref, method)
+
+
+def test_fold_engines_toric20_serial(codes):
+    """Toric d=20 (n=800) in its default state: serial-relative float64
+    (shared, 23.7 KB a lane) and serial float32 in a given order."""
+    graph, tg, syn, _ = codes["toric20"]
+    s = syn[:256].contiguous()
+    order = torch.from_numpy(np.random.default_rng(2).permutation(graph.n).astype(np.int32))
+    for args in ((tg, s, _llr0(graph, s.device, torch.float64), MINIMUM_SUM, 30, 0.625, None, REL),
+                 (tg, s, _llr0(graph, s.device, torch.float32), MINIMUM_SUM, 30, 0.0,
+                  order.to(s.device), FIX)):
+        ker, ref = _fold_call("bp_serial", args, None)
+        _assert_fold_equal(ker, ref, MINIMUM_SUM)
+
+
+def test_fold_engines_toric60_take_device_state(dev):
+    """Toric d=60 in float64 (m=3600, n=7200: a lane's state is 180 KB) is
+    above the shared budget: each engine takes its device state by itself
+    and equals its plain version; no code is refused for its size."""
+    graph = compile_pcm(toric_code(60, compute_logicals=False).hx)
+    tg = graph_to_torch(graph, dev)
+    rng = np.random.default_rng(60)
+    errors = (rng.random((6, graph.n)) < 0.01).astype(np.uint8)
+    s = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    l0 = _llr0(graph, dev, torch.float64)
+    soft = ((1 - 2 * s.double()) * 8).contiguous()
+    for kernel, args in (("bp_serial", (tg, s, l0, MINIMUM_SUM, 2, 0.625,
+                                        _order(FIX, graph.n, 2, dev), FIX)),
+                         ("bp_soft_info", (tg, soft, l0, 2, 0.625, 5.0)),
+                         ("bp_parallel_exact", (tg, s, l0, MINIMUM_SUM, 30, 0.625))):
+        assert bp_fold.state_variant(kernel, graph.m, graph.n, graph.dc, graph.dv,
+                                     torch.float64) == "device"
+        ker, ref = _fold_call(kernel, args, None)
+        _assert_fold_equal(ker, ref, MINIMUM_SUM)
+
+
+@pytest.mark.parametrize("alpha", [0.625, 0.0])
+def test_k1_fixed_alpha_matches_plain_version(codes, alpha):
+    """Single-scan: K1' with its dynamic factor off, both states."""
+    _, tg, syn, llr0 = codes["surface13"]
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, MINIMUM_SUM, 30, alpha, dynamic_alpha=False)
+    for state in ("shared", "device"):
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 30, alpha, state=state,
+                                       dynamic_alpha=False)
+        torch.cuda.synchronize()
+        _assert_k1_equal(ker, ref, MINIMUM_SUM)
+
+
+def test_fold_wrappers_validate_inputs(codes):
+    graph, tg, syn, _ = codes["surface13"]
+    l64 = _llr0(graph, syn.device, torch.float64)
+    order = torch.arange(graph.n, dtype=torch.int32, device=syn.device)
+    with pytest.raises(ValueError, match="bp_serial_cuda: inputs must be on a CUDA device"):
+        bp_fold.bp_serial_cuda(graph_to_torch(graph, "cpu"), syn.cpu(), l64.cpu(), MINIMUM_SUM,
+                               5, 0.625, order.cpu(), FIX)
+    with pytest.raises(ValueError, match="init_llr must be one of"):
+        bp_fold.bp_serial_cuda(tg, syn, l64.half(), MINIMUM_SUM, 5, 0.625, order, FIX)
+    with pytest.raises(ValueError, match="syndromes must be uint8"):
+        bp_fold.bp_serial_cuda(tg, syn.int(), l64, MINIMUM_SUM, 5, 0.625, order, FIX)
+    with pytest.raises(ValueError, match="order must be int32"):
+        bp_fold.bp_serial_cuda(tg, syn, l64, MINIMUM_SUM, 5, 0.625, order.long(), FIX)
+    with pytest.raises(ValueError, match="order must have shape"):
+        bp_fold.bp_serial_cuda(tg, syn, l64, MINIMUM_SUM, 5, 0.625, order[None], TAB)
+    with pytest.raises(ValueError, match="input must be contiguous"):
+        bp_fold.bp_serial_cuda(tg, syn.t().contiguous().t(), l64, MINIMUM_SUM, 5, 0.625, order,
+                               FIX)
+    with pytest.raises(ValueError, match="bp_parallel_exact_cuda: init_llr must be one of"):
+        bp_fold.bp_parallel_exact_cuda(tg, syn, l64.float(), MINIMUM_SUM, 5, 0.625)
+    with pytest.raises(ValueError, match="soft must have init_llr's dtype"):
+        bp_fold.bp_soft_info_cuda(tg, syn.float(), l64, 5, 0.625, 1.0)
+    with pytest.raises(ValueError, match="state must be"):
+        bp_fold.bp_parallel_exact_cuda(tg, syn, l64, MINIMUM_SUM, 5, 0.625, state="lane")
+
+
+@pytest.mark.parametrize("cls,kw,kernel", [
+    ("BpOsdDecoder", {"schedule": "serial"}, "bp_serial"),
+    ("BpOsdDecoder", {"schedule": "serial_relative"}, "bp_serial"),
+    ("BpOsdDecoder", {"schedule": "serial", "random_serial_schedule": True}, "bp_serial"),
+    ("BpOsdDecoder", {"dtype": "float64"}, "bp_parallel_exact"),
+    ("BpLsdDecoder", {"schedule": "serial"}, "bp_serial"),
+    ("BeliefFindDecoder", {"schedule": "serial_relative"}, "bp_serial"),
+    ("BpFlipDecoder", {"schedule": "serial"}, "bp_serial"),
+], ids=lambda v: v if isinstance(v, str) else "-".join(f"{k}={x}" for k, x in v.items()))
+def test_fold_launch_counters_move_on_each_path(codes, cls, kw, kernel):
+    """Each decoder on the card goes through its fold engine, once a batch
+    (only the parallel float32 schedule cascades), and its first rows equal
+    the CPU path's (but for the random schedule, whose permutations each
+    device's generator draws)."""
+    graph, _, syn, _ = codes["surface13"]
+    syn_np = syn[:512].cpu().numpy()
+
+    def make(device):
+        return getattr(ldpc_tpu_torch, cls)(graph.dense, error_rate=P, max_iter=30,
+                                            ms_scaling_factor=0.625, device=device, **kw)
+
+    before = bp_fold.LAUNCHES[kernel]
+    out = make("cuda").decode_batch(syn_np)
+    assert bp_fold.LAUNCHES[kernel] == before + 1
+    if cls != "BpFlipDecoder":  # BpFlip guarantees H x = s on converged rows only
+        assert ((out.astype(np.int64) @ graph.dense.T % 2) == syn_np).all()
+    if not kw.get("random_serial_schedule"):
+        assert (make("cpu").decode_batch(syn_np[:32]) == out[:32]).all()

@@ -6,7 +6,8 @@ from the repository root, on a machine with a CUDA device and ``nvcc``.
 The workload and the configurations are ``chip_smoke.py``'s, imported
 from it (``main_workload``, ``decode_paths``, ``mc_step``): every
 ``decode_batch`` configuration decodes the same 65,536 d=13 surface-code
-syndromes, and the device Monte-Carlo step runs 16,384 x 8 rounds. For
+syndromes (soft-information BP their soft versions), and the device
+Monte-Carlo step runs 16,384 x 8 rounds. For
 each: two warm-up calls, the median of three unprofiled calls,
 then one call under ``torch.profiler`` (CPU and CUDA activities). From the
 profiler's trace: the device's busy time, the union of its kernel, copy and
@@ -36,7 +37,7 @@ import chip_smoke  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("bp_warp_kernel", "gf2_warp_osd0_kernel", "gf2_warp_export_kernel",
-               "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel")
+               "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel", "fold_kernel")
 
 
 def busy_us(intervals):
@@ -127,7 +128,8 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__, "syndromes": len(syn), "configs": {}}
     for p in chip_smoke.decode_paths(code):
         dec = p.make("cuda")
-        out = profile_call(lambda: dec.decode_batch(syn, *p.args))
+        x = syn if p.inputs is None else p.inputs(syn)
+        out = profile_call(lambda: dec.decode_batch(x, *p.args))
         out["syndromes_per_s"] = len(syn) / (out["unprofiled_ms"] / 1e3)
         report(record, p.label, out)
     step, runs = chip_smoke.mc_step(code, "cuda")
