@@ -32,6 +32,7 @@ is a JSON object describing each kernel; the last line is ``{"ok": true,
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -888,9 +889,11 @@ def fold_ops(kernel, graph, lane_iterations: int, relative: bool = False) -> flo
     sign test each), the scale and the sign (2); per bit of degree d: each
     slot's message folds d values (d*d adds), the posterior d adds and the
     decision; per edge the syndrome test. K7' adds 8 per edge for the
-    virtual-update rules; serial-relative adds 2 compares per pair of bits
-    for the ranking. K8': K1''s count (:func:`k1_ops`) plus the reverse
-    pass, about d*(d+1)/2 adds a bit."""
+    virtual-update rules; serial-relative adds n*ceil(log2 n) compares for
+    the ranking, what a comparison sort needs (K6''s counting rank does
+    n*n: that is the kernel's choice, not the function's work). K8': K1''s
+    count (:func:`k1_ops`) plus the reverse pass, about d*(d+1)/2 adds a
+    bit."""
     rows = graph.chk_mask.sum(axis=1).astype(np.int64)
     cols = graph.var_mask.sum(axis=1).astype(np.int64)
     if kernel == "bp_parallel_exact":
@@ -901,7 +904,7 @@ def fold_ops(kernel, graph, lane_iterations: int, relative: bool = False) -> flo
         if kernel == "bp_soft_info":
             per += 8 * graph.nnz
         if relative:
-            per += 2 * graph.n * graph.n
+            per += graph.n * math.ceil(math.log2(graph.n))
     return float(lane_iterations) * per
 
 

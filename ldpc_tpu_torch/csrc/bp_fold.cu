@@ -50,11 +50,11 @@
 //     lane leaves at once and its block's shared memory and registers come
 //     free for the next lane, so the long sweeps of the lanes BP fails (at
 //     d=13 two thirds of the lane-iterations) do not hold finished lanes'
-//     slots. tools/fold_block_shape.py measures 1, 2 and 4 lanes a block
-//     (the LDPC_FOLD_LANES build macro). In K6'/K7' the warp's threads take
-//     the bit's dv checks (one thread a check, its row in row order), the c2v
-//     values meet in a dv-entry scratch, and each slot's thread folds its own
-//     message; in K8' threads stride over checks, then over bits, as in K1'.
+//     slots (it beat 2 and 4 lanes a block on the H100; see PERF.md). In
+//     K6'/K7' the warp's threads take the bit's dv checks (one thread a
+//     check, its row in row order), the c2v values meet in a dv-entry
+//     scratch, and each slot's thread folds its own message; in K8' threads
+//     stride over checks, then over bits, as in K1'.
 //   - A lane's state (messages m*dc, posteriors n, decisions n, syndrome m;
 //     K7' its soft syndrome m; serial-relative its schedule n) lives in shared
 //     memory while it fits kLaneBudget, otherwise in a lane-major scratch in
@@ -69,10 +69,6 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-#ifndef LDPC_FOLD_LANES
-#define LDPC_FOLD_LANES 1
-#endif
-constexpr int kLanesPerBlock = LDPC_FOLD_LANES;  // lanes (warps) per block
 // A lane's state lives in shared memory up to this many bytes (K1''s budget:
 // 9 lanes at the budget fit an SM).
 constexpr size_t kLaneBudget = 24 * 1024;
@@ -370,16 +366,14 @@ __device__ __forceinline__ void rank_bits(int n, int t, const T* post, int* sche
 }
 
 template <typename T, int kEngine, bool kMinSum, bool kShared, int CAP>
-__global__ void __launch_bounds__(32 * kLanesPerBlock) fold_kernel(const FoldArgs<T> a) {
+__global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x * kLanesPerBlock + w;
-  if (b >= a.B) return;  // whole warps only; no block barrier follows
+  const int t = threadIdx.x;  // a block is one warp, one lane
+  const int b = blockIdx.x;
   const int m = a.m, n = a.n, dc = a.dc, E = m * dc;
   const bool relative = kEngine == kSerial && a.order_mode == kOrderRelative;
   const Layout L = lane_layout(kEngine, m, n, dc, a.dv, sizeof(T), relative, kShared);
-  unsigned char* base = smem + (size_t)w * L.total;
+  unsigned char* base = smem;
   T* c2v = reinterpret_cast<T*>(base + L.c2v);
   T* msg;
   T* post;
@@ -482,7 +476,7 @@ template <typename T, int kEngine, bool kMinSum, bool kShared, int CAP>
 int launch(const FoldArgs<T>& a, cudaStream_t stream) {
   auto kernel = fold_kernel<T, kEngine, kMinSum, kShared, CAP>;
   const bool relative = kEngine == kSerial && a.order_mode == kOrderRelative;
-  const size_t smem = (size_t)kLanesPerBlock *
+  const size_t smem =
       lane_layout(kEngine, a.m, a.n, a.dc, a.dv, sizeof(T), relative, kShared).total;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -492,8 +486,7 @@ int launch(const FoldArgs<T>& a, cudaStream_t stream) {
       return (int)err;
     }
   }
-  const int blocks = (a.B + kLanesPerBlock - 1) / kLanesPerBlock;
-  kernel<<<blocks, 32 * kLanesPerBlock, smem, stream>>>(a);
+  kernel<<<a.B, 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

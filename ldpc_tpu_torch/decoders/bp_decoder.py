@@ -4,6 +4,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 import scipy.sparse
+import torch
 
 from ldpc_tpu_torch.decoders.base import (
     BpDecoderBase,
@@ -218,7 +219,7 @@ class SoftInfoBpDecoder(BpDecoderBase):
         self.bp_method = "minimum_sum"
         self.input_vector_type = "syndrome"
         self._soft_syndrome = np.zeros(self.m)
-        self.soft_syndrome_batch = None
+        self._soft_out = None  # the last batch's final soft syndromes
 
     def _soft_decode_fn(self):
         key = ("soft", self._max_iter, float(self._ms_scaling_factor), self._dtype)
@@ -244,8 +245,10 @@ class SoftInfoBpDecoder(BpDecoderBase):
             raise ValueError(
                 f"The syndrome must have length {self.m}. Not {soft_syndromes.shape[1]}."
             )
+        # cast on the host: the card receives the decoder's dtype
+        soft_in = torch.from_numpy(soft_syndromes).to(self._dtype)
         result, soft_out = self._soft_decode_fn()(
-            soft_syndromes, self._init_llr(), float(self.cutoff), float(self.sigma)
+            soft_in, self._init_llr(), float(self.cutoff), float(self.sigma)
         )
         self.converge_batch = _to_numpy(result.converged)
         self.iter_batch = _to_numpy(result.iterations)
@@ -253,8 +256,8 @@ class SoftInfoBpDecoder(BpDecoderBase):
         self._converge = bool(self.converge_batch[0])
         self._iter = int(self.iter_batch[0])
         self._log_prob_ratios = _to_numpy(result.llr_posterior[0])
-        self.soft_syndrome_batch = _to_numpy(soft_out)
-        self._soft_syndrome = self.soft_syndrome_batch[0]
+        self._soft_out = soft_out
+        self._soft_syndrome = _to_numpy(soft_out[0])
         decodings = _to_numpy(result.decoding)
         self._decoding = decodings[0]
         return decodings
@@ -263,3 +266,11 @@ class SoftInfoBpDecoder(BpDecoderBase):
     def soft_syndrome(self) -> np.ndarray:
         """The updated soft syndrome after decoding."""
         return np.asarray(self._soft_syndrome)
+
+    @property
+    def soft_syndrome_batch(self) -> Optional[np.ndarray]:
+        """The last batch's (B, m) final soft syndromes, copied to the host
+        when first read."""
+        if isinstance(self._soft_out, torch.Tensor):
+            self._soft_out = _to_numpy(self._soft_out)
+        return self._soft_out

@@ -304,7 +304,8 @@ class SoftInfoBpOsdDecoder(SoftInfoBpDecoder):
         if conv.all() or self._osd_method == osd_ops.OSD_OFF:
             return bp_out
         failed = torch.from_numpy(np.flatnonzero(~conv)).to(self._device)
-        soft = torch.from_numpy(self.soft_syndrome_batch).to(self._device)
+        # harden where K7' left the soft syndromes: on the card
+        soft = torch.as_tensor(self._soft_out, device=self._device)
         hard = (soft[failed] <= 0).to(torch.uint8)
         _, osdw, _ = self._osd_decode_fn()(hard, self._llr_batch[failed])
         out = bp_out.copy()

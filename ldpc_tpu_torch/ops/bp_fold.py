@@ -240,7 +240,7 @@ def bp_soft_info_reference(
     # a pad column m for the pad check (its values are never used)
     lanes["soft"] = torch.cat([soft.to(dtype), soft.new_zeros((B, 1), dtype=dtype)], dim=1)
     lanes["synd"] = (lanes["soft"] <= 0).to(torch.int32)
-    alpha = torch.tensor(ms_scaling_factor, dtype=dtype, device=dev)
+    alpha = _alpha(MINIMUM_SUM, ms_scaling_factor, 1, dtype, dev, dynamic=False)
     cut = torch.tensor(cutoff, dtype=dtype, device=dev)
 
     def step(idx, run, ctx):
