@@ -854,6 +854,39 @@ def fold_fns(kernel):
     return getattr(bp_fold, f"{kernel}_reference"), getattr(bp_fold, f"{kernel}_cuda")
 
 
+def fold_levels(kernel, args) -> dict:
+    """The wrapper's ``levels`` keyword for a K6' call in a given order or
+    table, or a K7' call (index order), made once on the host so that timed
+    calls (a CUDA-graph capture, which cannot copy to the host) reuse it;
+    {} for serial-relative (levels built in the kernel) and K8'."""
+    tg = args[0]
+    if kernel == "bp_soft_info":
+        order = torch.arange(tg.n, dtype=torch.int32, device=args[1].device)
+    elif kernel == "bp_serial" and args[-1] != bp_fold.ORDER_RELATIVE:
+        order = args[6]
+    else:
+        return {}
+    return {"levels": bp_fold.level_schedule(tg, order)}
+
+
+def fold_profile(kernel, args, kw) -> dict:
+    """One K6'/K7' call with its per-lane counters: levels per sweep (mean
+    over sweeps, the most in one) and, for serial-relative, each phase's
+    share of the lanes' clock cycles (sort, levels pass with bucketing,
+    sweeps)."""
+    prof = torch.zeros((args[1].shape[0], 5), dtype=torch.int64, device=args[1].device)
+    res = split(getattr(bp_fold, f"{kernel}_cuda")(*args, **kw, profile=prof))[0]
+    torch.cuda.synchronize()
+    tot = prof.sum(dim=0).double()
+    out = {"levels_per_sweep_mean": float(tot[3]) / max(int(res.iterations.sum()), 1),
+           "levels_per_sweep_max": int(prof[:, 4].max())}
+    if kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE:
+        cycles = float(tot[:3].sum())
+        out |= {f"cycle_share_{k}": float(tot[i]) / cycles
+                for i, k in enumerate(("sort", "levels_pass", "sweep"))}
+    return out
+
+
 def compare_fold(kernel, config, args, states=("shared", "device")):
     """K6'-K8' (``kernel``) against the plain version on ``args``, once for
     each of ``states`` (forced; None: the footprint's choice); each launch
@@ -914,7 +947,8 @@ def time_fold(name, kernel, graph, args, **extra):
     device time (:func:`device_ms`) and eager ``call_ms`` beside the bound:
     the call's tensors moved once (inputs, graph arrays, schedule; outputs)
     over the HBM rate, or :func:`fold_ops` over this run's lane-iterations.
-    Returns the kernels line's numbers and the largest error."""
+    K6'/K7' lines add the levels per sweep (:func:`fold_profile`). Returns
+    the kernels line's numbers and the largest error."""
     plain, cuda = fold_fns(kernel)
     method = MINIMUM_SUM if kernel == "bp_soft_info" else args[3]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -924,7 +958,8 @@ def time_fold(name, kernel, graph, args, **extra):
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    ker = cuda(*args)
+    kw = fold_levels(kernel, args)
+    ker = cuda(*args, **kw)
     torch.cuda.synchronize()
     nlanes, err = hold_fold(kernel, ker, ref, method, name)
     res, soft_out = split(ker)
@@ -940,8 +975,10 @@ def time_fold(name, kernel, graph, args, **extra):
         moved += nbytes(soft_out)
     relative = kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE
     bound_ms, bound_by = bound(moved, fold_ops(kernel, graph, lane_iterations, relative))
-    ms = device_ms(lambda: cuda(*args))
-    call_ms = cuda_ms(lambda: cuda(*args), 3)
+    ms = device_ms(lambda: cuda(*args, **kw))
+    call_ms = cuda_ms(lambda: cuda(*args, **kw), 3)
+    if kernel != "bp_parallel_exact":
+        extra = fold_profile(kernel, args, kw) | extra
     max_iter = args[3] if kernel == "bp_soft_info" else args[4]
     phase(name, shape=f"B={args[1].shape[0]},max_iter={max_iter}", dtype=str(args[2].dtype)[6:],
           ms=ms, call_ms=call_ms, plain_ms=plain_ms,
@@ -1215,6 +1252,9 @@ def main() -> int:
     fold_compare("bp_serial", "toric20/serial_relative/ms0.625", tg20, syn20, llr20_64,
                  MINIMUM_SUM, MS_FACTOR, rel)
     fold_compare("bp_serial", "toric20/serial/ms_dynamic", tg20, syn20, llr20, MINIMUM_SUM, 0.0)
+    # a random order: levels several times wider than index order's, more than a chunk a step
+    fold_compare("bp_serial", "toric20/random/ms0.625", tg20, syn20[:1024].contiguous(), llr20,
+                 MINIMUM_SUM, MS_FACTOR, tab)
     tor60 = toric_code(FOLD_LARGE_DISTANCE, compute_logicals=False)
     graph60 = compile_pcm(tor60.hx)
     tg60 = graph_to_torch(graph60, dev)

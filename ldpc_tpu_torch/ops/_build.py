@@ -62,16 +62,18 @@ _SIGNATURES = {
     # (engine: 0 K6', 1 K7', 2 K8'; m, n, dc, dv, elem bytes, relative) -> 1
     # when the fold engines keep a lane's state in shared memory
     "ldpc_bp_fold_shared_state": [_I, _I, _I, _I, _I, _I, _I],
-    # (syndromes, llr0, chk_bits, var_edges, order, m, n, dc, dv, B,
-    #  max_iter, order_mode, min_sum, f64, ms_scaling, shared, msg, sched,
-    #  post, dec, conv, iters, stream)
-    "ldpc_bp_serial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _D, _I, _P, _P, _P, _P, _P, _P, _P],
-    # (soft, llr0, chk_bits, var_edges, m, n, dc, dv, B, max_iter, f64,
-    #  ms_scaling, cutoff, shared, msg, synd, post, dec, soft_out, conv,
-    #  iters, stream)
-    "ldpc_bp_soft_info": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-                          _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # (m, n) -> bytes of a lane's serial-relative arrays
+    "ldpc_bp_serial_relative_bytes": [_I, _I],
+    # (syndromes, llr0, chk_bits, var_edges, var_chks, lv_bits, lv_ptr, m, n,
+    #  dc, dv, B, max_iter, order_mode, min_sum, f64, ms_scaling, shared, msg,
+    #  rel, post, dec, conv, iters, prof, stream)
+    "ldpc_bp_serial": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # (soft, llr0, chk_bits, var_edges, var_chks, lv_bits, lv_ptr, m, n, dc,
+    #  dv, B, max_iter, f64, ms_scaling, cutoff, shared, msg, synd, post, dec,
+    #  soft_out, conv, iters, prof, stream)
+    "ldpc_bp_soft_info": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _D, _D, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
     #  min_sum, ms_scaling, shared, msg, post, dec, conv, iters, stream)
     "ldpc_bp_parallel_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -188,22 +188,33 @@ def make_serial_decoder(
     tg = graph_to_torch(graph, device)
     convert = _tensors(device, dtype)
     n = graph.n
+    on_card = device.type == "cuda"
+    fixed_levels = {}  # the kernel's levels of each fixed order, by its bytes
 
     def decode(syndromes, init_llr, schedule=None, key=None) -> BpResult:
         syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)
+        levels = None
         if random_serial_schedule:
             mode = bp_fold.ORDER_TABLE
             order = key if isinstance(key, torch.Tensor) else serial_order_table(
                 n, max_iter, key, device)
+            order = order.to(device=device, dtype=torch.int32).contiguous()
+            if on_card:
+                levels = bp_fold.level_schedule(tg, order)
         elif schedule_mode == SERIAL_RELATIVE:
             mode, order = bp_fold.ORDER_RELATIVE, None
         else:
             mode = bp_fold.ORDER_FIXED
-            order = torch.arange(n) if schedule is None else schedule
-        if order is not None:
-            order = torch.as_tensor(order, device=device).to(torch.int32).contiguous()
+            host = np.arange(n, dtype=np.int32) if schedule is None else np.asarray(
+                schedule.cpu() if isinstance(schedule, torch.Tensor) else schedule, np.int32)
+            order = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+            if on_card:
+                levels = fixed_levels.get(host.tobytes())
+                if levels is None:
+                    levels = fixed_levels[host.tobytes()] = bp_fold.level_schedule(tg, order)
         return bp_fold.bp_serial(
-            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor, order, mode
+            tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor, order, mode,
+            levels=levels,
         )
 
     return decode
@@ -231,12 +242,17 @@ def make_soft_info_decoder(
     dtype = torch_dtype(dtype)
     tg = graph_to_torch(graph, device)
     convert = _tensors(device, dtype)
+    # the kernel's levels of index order, once per decoder
+    levels = bp_fold.level_schedule(
+        tg, torch.arange(graph.n, dtype=torch.int32, device=device)
+    ) if device.type == "cuda" else None
 
     def decode(soft_syndromes, init_llr, cutoff: float, sigma: float):
         soft, init_llr = convert(soft_syndromes, dtype, init_llr)
         scale = torch.tensor(2.0 / (sigma * sigma), dtype=dtype, device=device)
         return bp_fold.bp_soft_info(
-            tg, (soft * scale).contiguous(), init_llr, max_iter, ms_scaling_factor, cutoff
+            tg, (soft * scale).contiguous(), init_llr, max_iter, ms_scaling_factor, cutoff,
+            levels=levels,
         )
 
     return decode

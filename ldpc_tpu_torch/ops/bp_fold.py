@@ -18,10 +18,17 @@ kernel on CUDA tensors and counts the launch in :data:`LAUNCHES` and, by
 where the lanes' state lived, in :data:`STATE_LAUNCHES`; the name without a
 suffix picks by the tensors' device: the CPU runs the plain version, a CUDA
 device the kernel, anything else raises.
+
+K6' and K7' sweep by levels (:func:`serial_levels`, the plain model of the
+kernels' schedule): bits that share no check commute in a serial sweep, so
+the kernels update a level's bits together and equal the sequential sweep
+bit for bit. :func:`relative_order_reference` is the plain model of
+serial-relative's sort.
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ldpc_tpu_torch.ops import _build
@@ -80,6 +87,102 @@ def _fold_bit(llr0, c2v, vmask):
         slots[k] = partials[k] + suf
         suf = torch.where(vmask[:, k], suf + c2v[:, k], suf)
     return acc, torch.stack(slots, dim=1)
+
+
+class Levels(NamedTuple):
+    """The level schedule of serial sweeps, one row per order, as a CSR:
+    level l (counted from 1) of row r is ``bits[r, ptr[r, l-1]:ptr[r, l]]``,
+    its bits in order position; ``ptr[r, l] = n`` from the row's last level
+    on. ``bits`` (R, n) and ``ptr`` (R, n + 1) int32."""
+
+    bits: torch.Tensor
+    ptr: torch.Tensor
+
+    def counts(self) -> torch.Tensor:
+        """(R,) the number of levels of each row."""
+        n = self.bits.shape[1]
+        return (self.ptr[:, :n] < n).sum(dim=1)
+
+
+def serial_levels(var_chks: np.ndarray, m: int, orders) -> tuple:
+    """Split serial sweeps into levels (plain, numpy, on the host).
+
+    ``orders``: (n,) or (R, n) permutations of the bits; ``var_chks``: (n,
+    dv) each bit's checks, pad ``m``. A position's level is 1 + the highest
+    level of an earlier bit of its order that shares a check with it
+    (``level(j) = 1 + max(last[c] for c in checks(j))``, then ``last[c] =
+    level(j)``), so no two bits of a level share a check and sweeping the
+    levels in turn, a level's bits in any order, equals the sweep in the
+    order. Returns (bits (R, n), ptr (R, n + 1)) int32 as :class:`Levels`
+    holds them."""
+    orders = np.atleast_2d(np.asarray(orders, dtype=np.int32))
+    R, n = orders.shape
+    rows = np.arange(R)[:, None]
+    last = np.zeros((R, m + 1), dtype=np.int32)  # column m: the pad check
+    level = np.zeros((R, n), dtype=np.int32)
+    for pos in range(n):
+        chks = var_chks[orders[:, pos]]
+        lv = last[rows, chks].max(axis=1) + 1 if chks.shape[1] else np.ones(R, np.int32)
+        last[rows, chks] = lv[:, None]
+        last[:, m] = 0
+        level[:, pos] = lv
+    bits = np.take_along_axis(orders, np.argsort(level, axis=1, kind="stable"), axis=1)
+    counts = np.zeros((R, n + 1), dtype=np.int32)
+    np.add.at(counts, (np.broadcast_to(rows, level.shape), level), 1)
+    return bits, np.cumsum(counts, axis=1, dtype=np.int32)
+
+
+def level_schedule(tg: TorchGraph, order: torch.Tensor) -> Levels:
+    """The :class:`Levels` of an (n,) order (one row) or an (R, n) table of
+    orders (a row each), on ``order``'s device; computed on the host from a
+    copy of ``order``."""
+    bits, ptr = serial_levels(tg.var_chks.cpu().numpy(), tg.m, order.cpu().numpy())
+    return Levels(torch.from_numpy(bits).to(order.device),
+                  torch.from_numpy(ptr).to(order.device))
+
+
+def _order_keys(post: torch.Tensor) -> torch.Tensor:
+    """Serial-relative's sort keys: -post mapped monotonically to a signed
+    int64 (+0 and -0 equal, every NaN above every number), the order
+    ``bp_fold.cu``'s unsigned keys give."""
+    neg = -post
+    if post.dtype == torch.float32:
+        i = neg.view(torch.int32).to(torch.int64)
+        top = 2**31 - 1
+    else:
+        i = neg.view(torch.int64)
+        top = 2**63 - 1
+    key = torch.where(i >= 0, i, i ^ top)
+    key = torch.where(neg == 0, torch.zeros_like(key), key)
+    return torch.where(torch.isnan(neg), torch.full_like(key, top), key)
+
+
+def relative_order_reference(post: torch.Tensor) -> torch.Tensor:
+    """The plain model of K6''s serial-relative sort: each row's (key,
+    index) pairs, padded to a power of two with keys above NaN, through the
+    kernel's bitonic network; the index breaks ties. Returns (B, n) int64,
+    which equals ``torch.argsort(-post, dim=1, stable=True)``."""
+    B, n = post.shape
+    P = 1 << max(0, (n - 1).bit_length())
+    top = torch.iinfo(torch.int64).max
+    key = torch.full((B, P), top, dtype=torch.int64, device=post.device)
+    key[:, :n] = _order_keys(post)
+    idx = torch.arange(P, device=post.device).expand(B, P).clone()
+    i = torch.arange(P // 2, device=post.device)
+    k = 2
+    while k <= P:
+        j = k // 2
+        while j:
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            hi = lo | j
+            ka, kb, ia, ib = key[:, lo], key[:, hi], idx[:, lo], idx[:, hi]
+            greater = (ka > kb) | ((ka == kb) & (ia > ib))
+            swap = greater == ((lo & k) == 0)[None, :]
+            key[:, lo], key[:, hi] = torch.where(swap, kb, ka), torch.where(swap, ka, kb)
+            idx[:, lo], idx[:, hi] = torch.where(swap, ib, ia), torch.where(swap, ia, ib)
+            j //= 2
+        k *= 2
+    return idx[:, :n]
 
 
 class _SerialGraph:
@@ -418,6 +521,30 @@ def _count(kernel, state):
     STATE_LAUNCHES[kernel][state] += 1
 
 
+def _check_levels(kernel, levels, rows_ok, n, dev):
+    """The levels' device, type, shapes and contiguity; ``rows_ok(R)``
+    says whether R rows serve the call."""
+    for name, t, width in (("levels.bits", levels.bits, n), ("levels.ptr", levels.ptr, n + 1)):
+        _require(t.device == dev, kernel, f"{name} is on {t.device}, the input on {dev}")
+        _require(t.dtype == torch.int32 and t.is_contiguous(), kernel,
+                 f"{name} must be contiguous int32")
+        _require(t.dim() == 2 and t.shape[1] == width and rows_ok(t.shape[0]), kernel,
+                 f"{name} has shape {tuple(t.shape)}")
+    _require(levels.bits.shape[0] == levels.ptr.shape[0], kernel,
+             "levels.bits and levels.ptr differ in rows")
+
+
+def _check_profile(kernel, profile, B, dev):
+    """An optional (B, 5) int64 buffer for the kernel's counters; its
+    pointer or 0."""
+    if profile is None:
+        return 0
+    _require(profile.device == dev and profile.dtype == torch.int64
+             and profile.shape == (B, 5) and profile.is_contiguous(), kernel,
+             f"profile must be a contiguous ({B}, 5) int64 tensor on {dev}")
+    return profile.data_ptr()
+
+
 def bp_serial_cuda(
     tg: TorchGraph,
     syndromes: torch.Tensor,
@@ -428,15 +555,25 @@ def bp_serial_cuda(
     order: Optional[torch.Tensor],
     order_mode: int,
     state: Optional[str] = None,
+    levels: Optional[Levels] = None,
+    profile: Optional[torch.Tensor] = None,
 ) -> BpResult:
-    """Launch K6' on CUDA tensors: one warp per lane. ``order`` as for
-    :func:`bp_serial_reference` (int32, contiguous; the random-serial table
-    is ``max_iter * n * 4`` bytes). ``state`` forces where a lane's state
-    lives (tests only); by default :func:`state_variant` chooses."""
+    """Launch K6' on CUDA tensors: one warp per lane, a level of the
+    order a step. ``order`` as for :func:`bp_serial_reference` (int32,
+    contiguous; the random-serial table is ``max_iter * n * 4`` bytes).
+    ``levels``: the order's :func:`level_schedule` (one row, or a row per
+    table row), computed here from a host copy of ``order`` when None;
+    serial-relative builds each lane's levels in the kernel. ``state``
+    forces where a lane's state lives (tests only); by default
+    :func:`state_variant` chooses. ``profile``: an optional (B, 5) int64
+    tensor that receives, per lane, the clock cycles spent sorting, in
+    the levels pass and bucketing, and sweeping, then the levels swept in
+    all and the most in one sweep."""
     kernel = "bp_serial"
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     relative = order_mode == ORDER_RELATIVE
-    arrays = [("chk_bits", tg.chk_bits), ("var_edges", tg.var_edges)]
+    arrays = [("chk_bits", tg.chk_bits), ("var_edges", tg.var_edges),
+              ("var_chks", tg.var_chks)]
     if not relative:
         arrays.append(("order", order))
     dev = _check_common(kernel, tg, syndromes, init_llr, _FLOATS, arrays)
@@ -449,24 +586,33 @@ def bp_serial_cuda(
         _require(order.dim() == 2 and order.shape[1] == n and order.shape[0] >= max_iter,
                  kernel, f"order must have shape (>= {max_iter}, {n})")
     _require(max_iter >= 0, kernel, "max_iter must be >= 0")
+    B = syndromes.shape[0]
+    prof = _check_profile(kernel, profile, B, dev)
+    if not relative:
+        levels = level_schedule(tg, order) if levels is None else levels
+        rows_ok = (lambda r: r == 1) if order_mode == ORDER_FIXED else (lambda r: r >= max_iter)
+        _check_levels(kernel, levels, rows_ok, n, dev)
     dtype = init_llr.dtype
     state = _pick_state(kernel, tg, dtype, state, relative)
-    B = syndromes.shape[0]
     device_state = state == "device"
     msg = torch.empty((B if device_state else 0, m * dc), dtype=dtype, device=dev)
-    sched = torch.empty((B if device_state and relative else 0, n), dtype=torch.int32,
-                        device=dev)
     post, dec, conv, iters = _outputs(B, n, dtype, dev)
     if B:
         lib = _build.library()
+        rel_bytes = lib.ldpc_bp_serial_relative_bytes(m, n)
+        rel = torch.empty((B if device_state and relative else 0, rel_bytes),
+                          dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_serial(
                 syndromes.data_ptr(), init_llr.data_ptr(), tg.chk_bits.data_ptr(),
-                tg.var_edges.data_ptr(), 0 if relative else order.data_ptr(),
+                tg.var_edges.data_ptr(), tg.var_chks.data_ptr(),
+                0 if relative else levels.bits.data_ptr(),
+                0 if relative else levels.ptr.data_ptr(),
                 m, n, dc, dv, B, max_iter, order_mode, int(bp_method == MINIMUM_SUM),
                 int(dtype == torch.float64), float(ms_scaling_factor), int(not device_state),
-                msg.data_ptr(), sched.data_ptr(), post.data_ptr(), dec.data_ptr(),
-                conv.data_ptr(), iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                msg.data_ptr(), rel.data_ptr(), post.data_ptr(), dec.data_ptr(),
+                conv.data_ptr(), iters.data_ptr(), prof,
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, kernel)
         _count(kernel, state)
@@ -481,18 +627,27 @@ def bp_soft_info_cuda(
     ms_scaling_factor: float,
     cutoff: float,
     state: Optional[str] = None,
+    levels: Optional[Levels] = None,
+    profile: Optional[torch.Tensor] = None,
 ):
     """Launch K7' on CUDA tensors: ``soft`` (B, m) scaled soft syndromes in
-    ``init_llr``'s dtype. Returns (BpResult, the final soft syndrome)."""
+    ``init_llr``'s dtype; the sweep takes the levels of index order
+    (``levels``, one row; computed here when None). ``profile`` as for
+    :func:`bp_serial_cuda`. Returns (BpResult, the final soft syndrome)."""
     kernel = "bp_soft_info"
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     dev = _check_common(kernel, tg, soft, init_llr, _FLOATS,
-                        [("chk_bits", tg.chk_bits), ("var_edges", tg.var_edges)])
+                        [("chk_bits", tg.chk_bits), ("var_edges", tg.var_edges),
+                         ("var_chks", tg.var_chks)])
     dtype = init_llr.dtype
     _require(soft.dtype == dtype, kernel, "soft must have init_llr's dtype")
     _require(max_iter >= 0, kernel, "max_iter must be >= 0")
-    state = _pick_state(kernel, tg, dtype, state)
     B = soft.shape[0]
+    prof = _check_profile(kernel, profile, B, dev)
+    if levels is None:
+        levels = level_schedule(tg, torch.arange(n, dtype=torch.int32, device=dev))
+    _check_levels(kernel, levels, lambda r: r == 1, n, dev)
+    state = _pick_state(kernel, tg, dtype, state)
     device_state = state == "device"
     msg = torch.empty((B if device_state else 0, m * dc), dtype=dtype, device=dev)
     synd = torch.empty((B if device_state else 0, m), dtype=torch.uint8, device=dev)
@@ -503,10 +658,11 @@ def bp_soft_info_cuda(
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_soft_info(
                 soft.data_ptr(), init_llr.data_ptr(), tg.chk_bits.data_ptr(),
-                tg.var_edges.data_ptr(), m, n, dc, dv, B, max_iter,
+                tg.var_edges.data_ptr(), tg.var_chks.data_ptr(), levels.bits.data_ptr(),
+                levels.ptr.data_ptr(), m, n, dc, dv, B, max_iter,
                 int(dtype == torch.float64), float(ms_scaling_factor), float(cutoff),
                 int(not device_state), msg.data_ptr(), synd.data_ptr(), post.data_ptr(),
-                dec.data_ptr(), soft_out.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+                dec.data_ptr(), soft_out.data_ptr(), conv.data_ptr(), iters.data_ptr(), prof,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, kernel)
@@ -561,20 +717,23 @@ def _device_kind(t: torch.Tensor, kernel: str) -> str:
 
 
 def bp_serial(tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor, order,
-              order_mode) -> BpResult:
-    """K6' on a CUDA tensor, its plain version on a CPU tensor."""
+              order_mode, levels: Optional[Levels] = None) -> BpResult:
+    """K6' on a CUDA tensor (on ``levels`` when given), its plain version on
+    a CPU tensor."""
     args = (tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor, order, order_mode)
     if _device_kind(syndromes, "bp_serial") == "cpu":
         return bp_serial_reference(*args)
-    return bp_serial_cuda(*args)
+    return bp_serial_cuda(*args, levels=levels)
 
 
-def bp_soft_info(tg, soft, init_llr, max_iter, ms_scaling_factor, cutoff):
-    """K7' on a CUDA tensor, its plain version on a CPU tensor."""
+def bp_soft_info(tg, soft, init_llr, max_iter, ms_scaling_factor, cutoff,
+                 levels: Optional[Levels] = None):
+    """K7' on a CUDA tensor (on ``levels`` when given), its plain version on
+    a CPU tensor."""
     args = (tg, soft, init_llr, max_iter, ms_scaling_factor, cutoff)
     if _device_kind(soft, "bp_soft_info") == "cpu":
         return bp_soft_info_reference(*args)
-    return bp_soft_info_cuda(*args)
+    return bp_soft_info_cuda(*args, levels=levels)
 
 
 def bp_parallel_exact(tg, syndromes, init_llr, bp_method, max_iter,

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_tpu_torch.codes import surface_code, toric_code
+from ldpc_tpu_torch.codes import bivariate_bicycle_code, surface_code, toric_code
 import ldpc_tpu_torch
 from ldpc_tpu_torch.ops import bp_cuda, bp_fold, flip, gf2, gf2_cuda
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr, serial_order_table
@@ -734,7 +734,8 @@ def test_k8_matches_plain_version(codes, name, method, alpha, state):
 
 def test_fold_engines_toric20_serial(codes):
     """Toric d=20 (n=800) in its default state: serial-relative float64
-    (shared, 23.7 KB a lane) and serial float32 in a given order."""
+    (device state: with its sort, level and bucket arrays a lane takes
+    about 40 KB) and serial float32 in a given order."""
     graph, tg, syn, _ = codes["toric20"]
     s = syn[:256].contiguous()
     order = torch.from_numpy(np.random.default_rng(2).permutation(graph.n).astype(np.int32))
@@ -764,6 +765,113 @@ def test_fold_engines_toric60_take_device_state(dev):
                                      torch.float64) == "device"
         ker, ref = _fold_call(kernel, args, None)
         _assert_fold_equal(ker, ref, MINIMUM_SUM)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+def test_k6_random_levels_wider_than_a_chunk(codes, state):
+    """A random serial table on toric d=20 (drawn with numpy): every row
+    has a level of more than 64 bits, i.e. above 128 (bit, slot) pairs, so
+    a step takes the level in several chunks of several rounds of the
+    warp; bit for bit."""
+    graph, tg, syn, llr0 = codes["toric20"]
+    rng = np.random.default_rng(20)
+    table = np.stack([rng.permutation(graph.n) for _ in range(12)]).astype(np.int32)
+    table = torch.from_numpy(table).to(syn.device)
+    levels = bp_fold.level_schedule(tg, table)
+    widths = levels.ptr[:, 1:].long() - levels.ptr[:, :-1].long()
+    assert bool((widths.max(dim=1).values * graph.dv > 128).all())
+    args = (tg, syn[:512].contiguous(), llr0, MINIMUM_SUM, 12, 0.625, table, TAB)
+    ker, ref = _fold_call("bp_serial", args, state)
+    _assert_fold_equal(ker, ref, MINIMUM_SUM)
+    again = bp_fold.bp_serial_cuda(*args, state=state, levels=levels)
+    _assert_fold_equal(again, ref, MINIMUM_SUM)
+
+
+@pytest.fixture(scope="module")
+def gross(dev):
+    """The gross [[144,12,12]] code's hx (m=72, n=144, dc=6, dv=3), 512
+    syndromes at p=0.03."""
+    code = bivariate_bicycle_code(12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)])
+    graph = compile_pcm(code.hx)
+    rng = np.random.default_rng(144)
+    errors = (rng.random((512, graph.n)) < 0.03).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    return graph, graph_to_torch(graph, dev), syn
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("mode,method,alpha,dtype", [
+    (FIX, MINIMUM_SUM, 0.625, torch.float32), (TAB, MINIMUM_SUM, 0.0, torch.float64),
+    (REL, MINIMUM_SUM, 0.625, torch.float32), (REL, PRODUCT_SUM, 1.0, torch.float64),
+])
+def test_k6_gross_code(gross, mode, method, alpha, dtype, state):
+    """Three checks a bit (dv=3): a level's pairs do not fall on whole
+    warps, and the levels pass keeps three checks a position."""
+    graph, tg, syn = gross
+    args = (tg, syn, _llr0(graph, syn.device, dtype, 0.03), method, 30, alpha,
+            _order(mode, graph.n, 30, syn.device), mode)
+    ker, ref = _fold_call("bp_serial", args, state)
+    _assert_fold_equal(ker, ref, method)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_gross_code(gross, dtype, state):
+    graph, tg, syn = gross
+    noise = np.random.default_rng(9).standard_normal(tuple(syn.shape))
+    soft = ((1 - 2 * syn.double().cpu()) + 0.3 * torch.from_numpy(noise)).to(syn.device)
+    soft = (soft.to(dtype) * torch.tensor(2 / 0.09, dtype=dtype, device=syn.device)).contiguous()
+    args = (tg, soft, _llr0(graph, syn.device, dtype, 0.03), 30, 0.625, 10.0)
+    ker, ref = _fold_call("bp_soft_info", args, state)
+    _assert_fold_equal(ker, ref, MINIMUM_SUM)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("mode", [FIX, REL])
+def test_k6_six_checks_a_bit(dev, mode, state):
+    """A random code with six checks a bit (m=48, n=96): a chunk of a level
+    is 21 bits, a thread's pairs step across bits, and serial-relative's
+    levels pass takes its path for columns above four checks."""
+    rng = np.random.default_rng(6)
+    H = np.zeros((48, 96), dtype=np.uint8)
+    for j in range(96):
+        H[rng.choice(48, 6, replace=False), j] = 1
+    graph = compile_pcm(H)
+    assert graph.dv == 6
+    errors = (rng.random((512, graph.n)) < 0.02).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    args = (graph_to_torch(graph, dev), syn, _llr0(graph, dev, torch.float32, 0.02),
+            MINIMUM_SUM, 30, 0.625, _order(mode, graph.n, 30, dev), mode)
+    ker, ref = _fold_call("bp_serial", args, state)
+    _assert_fold_equal(ker, ref, MINIMUM_SUM)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_relative_equal_and_nan_posteriors(dev, dtype, state):
+    """Serial-relative with equal and NaN posteriors in one lane: surface
+    d=5 with five columns in no check, whose channel LLRs (NaN, -NaN, +0,
+    -0 and the code's own) stay their posteriors; every lane starts on
+    equal posteriors. Held bit for bit (NaN equal to NaN) against the plain
+    version on the CPU, where torch.argsort sorts NaN last."""
+    H = surface_code(5).hx.toarray()
+    H = np.hstack([H, np.zeros((H.shape[0], 5), dtype=H.dtype)])
+    graph = compile_pcm(H)
+    rng = np.random.default_rng(5)
+    errors = (rng.random((256, graph.n)) < 0.05).astype(np.uint8)
+    syn = (errors @ graph.dense.T % 2).astype(np.uint8)
+    llr = channel_llr(np.full(graph.n, 0.05), np.float64)
+    llr[-5:] = [np.nan, -np.nan, 0.0, -0.0, llr[0]]
+    l0 = torch.from_numpy(llr).to(dtype)
+    args = (MINIMUM_SUM, 20, 0.625, None, REL)
+    ker = bp_fold.bp_serial_cuda(graph_to_torch(graph, dev), torch.from_numpy(syn).to(dev),
+                                 l0.to(dev), *args, state=state)
+    ref = bp_fold.bp_serial_reference(graph_to_torch(graph, "cpu"), torch.from_numpy(syn), l0,
+                                      *args)
+    torch.cuda.synchronize()
+    for got, want in zip(ker, ref):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
+    assert bool(ker.llr_posterior[:, -5:-3].isnan().all())
 
 
 @pytest.mark.parametrize("alpha", [0.625, 0.0])
