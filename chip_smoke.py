@@ -125,12 +125,15 @@ def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
 
 
 # The least time the card could take (NVIDIA's H100 SXM data sheet): bytes
-# over the HBM rate, operations over the float32 rate outside the tensor
-# cores counted per operation (67 TFLOP/s counts an FMA as two). The kernels
-# here do float32, integer and compare operations, all counted at that
-# rate, so the operation time is a floor too.
+# over the HBM rate, operations over the rate of their type outside the
+# tensor cores counted per operation. float32: 67 TFLOP/s counts an FMA as
+# two, so 33.5e12 operations/s; the float32 kernels' integer and compare
+# operations are counted at that rate too, so the time is a floor. float64
+# (K8', and every call timed in float64): 34 TFLOP/s, so 17e12 operations/s,
+# its compares and integer operations counted at it.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 33.5e12
+F64_OPS_PER_S = 17e12
 
 
 def nbytes(*tensors) -> int:
@@ -138,10 +141,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: float, ops: float):
-    """``(bound_ms, bound_by)``: the larger of the two floors, and which."""
+def bound(bytes_moved: float, ops: float, ops_per_s: float = OPS_PER_S):
+    """``(bound_ms, bound_by)``: the larger of the two floors, and which;
+    operations at ``ops_per_s`` (:data:`OPS_PER_S` float32,
+    :data:`F64_OPS_PER_S` float64)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -869,15 +874,23 @@ def fold_levels(kernel, args) -> dict:
     return {"levels": bp_fold.level_schedule(tg, order)}
 
 
+EXACT_PHASES = ("prologue", "check", "bit", "syndrome", "epilogue")
+
+
 def fold_profile(kernel, args, kw) -> dict:
-    """One K6'/K7' call with its per-lane counters: levels per sweep (mean
-    over sweeps, the most in one) and, for serial-relative, each phase's
-    share of the lanes' clock cycles (sort, levels pass with bucketing,
-    sweeps)."""
+    """One K6'-K8' call with its per-lane counters. K6'/K7': levels per
+    sweep (mean over sweeps, the most in one) and, for serial-relative,
+    each phase's share of the lanes' clock cycles (sort, levels pass with
+    bucketing, sweeps). K8': each phase's share of the lanes' cycles
+    (:data:`EXACT_PHASES`) and the mean cycles of a lane-iteration."""
     prof = torch.zeros((args[1].shape[0], 5), dtype=torch.int64, device=args[1].device)
     res = split(getattr(bp_fold, f"{kernel}_cuda")(*args, **kw, profile=prof))[0]
     torch.cuda.synchronize()
     tot = prof.sum(dim=0).double()
+    if kernel == "bp_parallel_exact":
+        cycles = float(tot.sum())
+        return {f"cycle_share_{k}": float(tot[i]) / cycles for i, k in enumerate(EXACT_PHASES)} | {
+            "cycles_per_lane_iteration": cycles / max(int(res.iterations.sum()), 1)}
     out = {"levels_per_sweep_mean": float(tot[3]) / max(int(res.iterations.sum()), 1),
            "levels_per_sweep_max": int(prof[:, 4].max())}
     if kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE:
@@ -946,9 +959,12 @@ def time_fold(name, kernel, graph, args, **extra):
     time from CUDA events), the kernel held against it, then the kernel's
     device time (:func:`device_ms`) and eager ``call_ms`` beside the bound:
     the call's tensors moved once (inputs, graph arrays, schedule; outputs)
-    over the HBM rate, or :func:`fold_ops` over this run's lane-iterations.
-    K6'/K7' lines add the levels per sweep (:func:`fold_profile`). Returns
-    the kernels line's numbers and the largest error."""
+    over the HBM rate, or :func:`fold_ops` over this run's lane-iterations
+    at the rate of the call's type (``ops_rate``: float64 at
+    :data:`F64_OPS_PER_S`). Each line adds the lanes' counters
+    (:func:`fold_profile`); K8''s adds its lanes a block, the lanes
+    resident on an SM and a lane's shared bytes. Returns the kernels
+    line's numbers and the largest error."""
     plain, cuda = fold_fns(kernel)
     method = MINIMUM_SUM if kernel == "bp_soft_info" else args[3]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -974,15 +990,23 @@ def time_fold(name, kernel, graph, args, **extra):
     if soft_out is not None:
         moved += nbytes(soft_out)
     relative = kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE
-    bound_ms, bound_by = bound(moved, fold_ops(kernel, graph, lane_iterations, relative))
+    f64 = args[2].dtype == torch.float64
+    rate = F64_OPS_PER_S if f64 else OPS_PER_S
+    bound_ms, bound_by = bound(moved, fold_ops(kernel, graph, lane_iterations, relative), rate)
     ms = device_ms(lambda: cuda(*args, **kw))
     call_ms = cuda_ms(lambda: cuda(*args, **kw), 3)
-    if kernel != "bp_parallel_exact":
-        extra = fold_profile(kernel, args, kw) | extra
+    extra = fold_profile(kernel, args, kw) | extra
+    if kernel == "bp_parallel_exact":
+        state = bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, torch.float64)
+        extra = {"lanes_per_block": bp_fold.exact_lanes_per_block(),
+                 "resident_lanes_per_sm": bp_fold.exact_resident_lanes(tg, args[3], state),
+                 "lane_bytes": _build.library().ldpc_bp_exact_lane_bytes(tg.m, tg.n, tg.dc)} | extra
     max_iter = args[3] if kernel == "bp_soft_info" else args[4]
     phase(name, shape=f"B={args[1].shape[0]},max_iter={max_iter}", dtype=str(args[2].dtype)[6:],
           ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+          bound_ms=bound_ms, bound_by=bound_by,
+          ops_rate=f"{'float64' if f64 else 'float32'}:{rate}",
+          share_of_bound=bound_ms / ms,
           lane_iterations=lane_iterations, differing_lanes=nlanes, max_abs_err=err,
           state=bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, args[2].dtype, relative),
           **extra)
@@ -1408,7 +1432,7 @@ def main() -> int:
         | {"launches_serial_relative": path["osd0_serial_relative"]["bp_serial"]},
         entry("bp_soft_info", "bp_fold.cu", "ldpc_tpu/ops/bp.py:349", path["soft_osd0"],
               fold_err["bp_soft_info"], fold_numbers["bp_soft_info"], fold_states("bp_soft_info")),
-        entry("bp_parallel_exact", "bp_fold.cu", "ldpc_tpu/ops/bp.py:251", path["osd0_f64"],
+        entry("bp_parallel_exact", "bp_exact.cu", "ldpc_tpu/ops/bp.py:251", path["osd0_f64"],
               fold_err["bp_parallel_exact"], fold_numbers["bp_parallel_exact"],
               fold_states("bp_parallel_exact")),
     ]}), flush=True)

@@ -1,8 +1,10 @@
-// K6', K7', K8': the fold-exact BP engines for Hopper (sm_90a), on one template.
+// K6', K7': the serial fold-exact BP engines for Hopper (sm_90a), on one
+// template. K8', the parallel fold-exact engine, has a kernel of its own in
+// csrc/bp_exact.cu.
 //
-// None of the three replaces a Pallas kernel: each is an XLA loop of the JAX
-// package, written here by hand because in PyTorch its sequential steps would
-// be thousands of launches a call (n bits x iterations x some 30 ops).
+// Neither replaces a Pallas kernel: each is an XLA loop of the JAX package,
+// written here by hand because in PyTorch its sequential steps would be
+// thousands of launches a call (n bits x iterations x some 30 ops).
 //   K6' (kSerial) replaces ldpc_tpu/ops/bp.py:496 make_serial_decoder: a
 //       fori_loop over the n bits inside a while_loop over iterations,
 //       vmapped over the batch. Bits update one at a time in a schedule:
@@ -15,8 +17,6 @@
 //       2/sigma^2), whose virtual-update rules shrink or flip a check's soft
 //       and hard syndrome during the sweep; the final soft syndrome is an
 //       output.
-//   K8' (kExact) replaces ldpc_tpu/ops/bp.py:251 _make_parallel_decoder_
-//       exact: parallel BP that stores bit-to-check messages, float64.
 // Each computes what its plain PyTorch version in ldpc_tpu_torch/ops/bp_fold.py
 // computes, the reference's steps:
 //   - a bit's posterior is the channel LLR plus its c2v messages in slot order
@@ -26,11 +26,10 @@
 //   - min-sum: the minimum |message| of a check's other slots, absent ones
 //     counting 1e30, signed by the parity of the others' signs (v <= 0 counts
 //     negative) and the syndrome, scaled by alpha (fixed, or 1 - 2^-it when
-//     the factor is 0; K7' always fixed); K8' takes the exclusive minimum with
-//     the first-occurrence argmin as K1' does;
-//   - product-sum: the product of tanh(v/2) over the other slots in row order
-//     (K8': exclusive prefix and suffix products), clipped to +-(1 - 1e-7) in
-//     float32 only, then log((1+p)/(1-p)) signed by the syndrome bit;
+//     the factor is 0; K7' always fixed);
+//   - product-sum: the product of tanh(v/2) over the other slots in row order,
+//     clipped to +-(1 - 1e-7) in float32 only, then log((1+p)/(1-p)) signed
+//     by the syndrome bit;
 //   - a lane converges when the parity of its hard decisions equals its
 //     (K7': current) syndrome, tested after each iteration, and stops there.
 // Every sum and product is taken by one thread in that order and the build
@@ -82,8 +81,7 @@
 //     lane leaves at once and its block's shared memory and registers come
 //     free for the next lane, so the long sweeps of the lanes BP fails do not
 //     hold finished lanes' slots (it beat 2 and 4 lanes a block on the H100;
-//     see PERF.md). In K8' threads stride over checks, then over bits, as in
-//     K1'.
+//     see PERF.md).
 //   - A lane's state (messages m*dc, posteriors n, decisions n, syndrome m;
 //     K7' its soft syndrome m; serial-relative its sort, level and bucket
 //     arrays) lives in shared memory while it fits kLaneBudget, otherwise in
@@ -106,6 +104,7 @@ constexpr size_t kLaneBudget = 24 * 1024;
 // whole bits (a bit of more slots takes a step alone)
 constexpr int kChunkPairs = 128;
 
+// engine numbers of ldpc_bp_fold_shared_state (2: K8', csrc/bp_exact.cu)
 enum Engine { kSerial = 0, kSoftInfo = 1, kExact = 2 };
 enum OrderMode { kOrderFixed = 0, kOrderTable = 1, kOrderRelative = 2 };
 
@@ -183,7 +182,7 @@ __host__ __device__ inline RelLayout relative_layout(int m, int n) {
 
 // Byte offsets of a lane's pieces in shared memory, each 16-aligned: its whole
 // state in the shared variant; in the device variant only the c2v chunk of
-// the level in hand (K6', K7'), the rest lives in device memory.
+// the level in hand, the rest lives in device memory.
 struct Layout {
   size_t msg, post, hard, synd, soft, rel, c2v, total;
 };
@@ -210,23 +209,20 @@ __host__ __device__ inline Layout lane_layout(int engine, int m, int n, int dc, 
       off += relative_layout(m, n).total;
     }
   }
-  if (engine != kExact) {
-    L.c2v = off;
-    off += align16((size_t)chunk_pairs(dv) * elem);
-  }
+  L.c2v = off;
+  off += align16((size_t)chunk_pairs(dv) * elem);
   L.total = off;
   return L;
 }
 
 template <typename T>
 struct FoldArgs {
-  const uint8_t* synd;     // (B, m) 0/1 syndromes (K6', K8')
+  const uint8_t* synd;     // (B, m) 0/1 syndromes (K6')
   const T* soft_in;        // (B, m) scaled soft syndromes (K7')
   const T* llr0;           // (n,) channel LLRs
-  // K6'/K7': chk_bits (m, dc) check-major, var_edges (n, dv) ids c*dc+slot
-  // and var_chks (n, dv); K8': chk_bits (dc, m) slot-major and var_edges
-  // (dv, n) ids slot*m+c. pad: chk_bits n, var_edges m*dc, var_chks m; a
-  // row's and a column's slots are filled first, pads last
+  // chk_bits (m, dc) check-major, var_edges (n, dv) ids c*dc+slot and
+  // var_chks (n, dv). pad: chk_bits n, var_edges m*dc, var_chks m; a row's
+  // and a column's slots are filled first, pads last
   const int* chk_bits;
   const int* var_edges;
   const int* var_chks;
@@ -548,106 +544,7 @@ __device__ __forceinline__ void relative_levels(const FoldArgs<T>& a, int t, con
   if (cycles) cycles[1] += clock64() - t0;
 }
 
-// One iteration of K8': check update in place over the messages, then each
-// bit's posterior and its new bit-to-check messages, in place again.
-template <typename T, bool kMinSum, int CAP>
-__device__ __forceinline__ void exact_iteration(const FoldArgs<T>& a, int t, T alpha, T* msg,
-                                                T* post, uint8_t* hard, const uint8_t* syn) {
-  const int m = a.m, n = a.n, dc = a.dc, dv = a.dv, E = m * dc;
-  for (int i = t; i < m; i += 32) {
-    const int s = syn[i];
-    if constexpr (kMinSum) {
-      // one pass in slot order: the first-occurrence argmin and min1, and
-      // min2 = min(1e30, the other slots), absent slots counting 1e30
-      T min1 = big<T>(), min2 = big<T>();
-      int amin = 0;
-      int negs = 0;
-      for (int k = 0; k < dc; ++k) {
-        T mag = big<T>();
-        if (__ldg(a.chk_bits + k * m + i) < n) {
-          const T v = msg[k * m + i];
-          mag = abs_(v);
-          negs += v <= T(0);
-        }
-        if (k == 0) {
-          min1 = mag;
-        } else if (mag < min1) {
-          min2 = min1 < min2 ? min1 : min2;
-          min1 = mag;
-          amin = k;
-        } else if (mag < min2) {
-          min2 = mag;
-        }
-      }
-      for (int k = 0; k < dc; ++k) {
-        if (__ldg(a.chk_bits + k * m + i) >= n) continue;
-        const T v = msg[k * m + i];
-        const T r = alpha * (k == amin ? min2 : min1);
-        msg[k * m + i] = ((s + negs + (v <= T(0))) & 1) ? -r : r;
-      }
-    } else {
-      T th[CAP];
-      unsigned on = 0;
-#pragma unroll
-      for (int k = 0; k < CAP; ++k) {
-        th[k] = T(1);
-        if (k < dc && __ldg(a.chk_bits + k * m + i) < n) {
-          th[k] = tanh_(msg[k * m + i] * T(0.5));
-          on |= 1u << k;
-        }
-      }
-      T pre[CAP], suf[CAP];
-      T acc = T(1);
-#pragma unroll
-      for (int k = 0; k < CAP; ++k) {
-        pre[k] = acc;
-        if (k < dc) acc = acc * th[k];
-      }
-      acc = T(1);
-#pragma unroll
-      for (int k = CAP - 1; k >= 0; --k) {
-        suf[k] = acc;
-        if (k < dc) acc = acc * th[k];
-      }
-#pragma unroll
-      for (int k = 0; k < CAP; ++k) {
-        if ((on >> k) & 1u) {
-          const T p = clip_(pre[k] * suf[k]);
-          const T mag = log_((T(1) + p) / (T(1) - p));
-          msg[k * m + i] = s ? -mag : mag;
-        }
-      }
-    }
-  }
-  __syncwarp();
-  for (int j = t; j < n; j += 32) {
-    const T l0 = __ldg(a.llr0 + j);
-    T l = l0;
-    int deg = 0;
-    for (int k = 0; k < dv; ++k) {
-      const int e = __ldg(a.var_edges + k * n + j);
-      if (e >= E) break;
-      l = l + msg[e];
-      ++deg;
-    }
-    post[j] = l;
-    hard[j] = l <= T(0);
-    // the bit's messages from the last slot down: slot k's partial folds the
-    // slots before k, which are still c2v values when it is written
-    T suf = T(0);
-    for (int k = deg - 1; k >= 0; --k) {
-      const int e = __ldg(a.var_edges + k * n + j);
-      const T c = msg[e];
-      T part = l0;
-      for (int q = 0; q < k; ++q) part = part + msg[__ldg(a.var_edges + q * n + j)];
-      msg[e] = part + suf;
-      suf = suf + c;
-    }
-  }
-  __syncwarp();
-}
-
-template <typename T, int kEngine, bool kMinSum, bool kShared, int CAP>
+template <typename T, int kEngine, bool kMinSum, bool kShared>
 __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x;  // a block is one warp, one lane
@@ -678,7 +575,7 @@ __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
     msg = a.msg + (size_t)b * E;
     post = a.post + (size_t)b * n;
     hard = a.dec + (size_t)b * n;
-    // K6' and K8' only read the syndrome: the input serves
+    // K6' only reads the syndrome: the input serves
     syn = kEngine == kSoftInfo ? a.synd_work + (size_t)b * m
                                : const_cast<uint8_t*>(a.synd + (size_t)b * m);
     if (kEngine == kSoftInfo) soft = a.soft_out + (size_t)b * m;
@@ -692,12 +589,12 @@ __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
       syn[i] = s <= T(0);
     }
   }
-  // bit-to-check messages start at the channel LLR of the edge's bit; K6'
-  // and K7''s pad slots hold 1e30, which min-sum can read as a message
-  // (no smaller magnitude, not negative)
+  // bit-to-check messages start at the channel LLR of the edge's bit; pad
+  // slots hold 1e30, which min-sum can read as a message (no smaller
+  // magnitude, not negative)
   for (int e = t; e < E; e += 32) {
     const int j = __ldg(a.chk_bits + e);
-    msg[e] = j < n ? __ldg(a.llr0 + j) : (kEngine == kExact ? T(0) : big<T>());
+    msg[e] = j < n ? __ldg(a.llr0 + j) : big<T>();
   }
   for (int j = t; j < n; j += 32) {
     post[j] = __ldg(a.llr0 + j);
@@ -716,9 +613,7 @@ __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
     const T alpha = (kMinSum && kEngine != kSoftInfo && a.ms_scaling == T(0))
                         ? dynamic_alpha(T(0), it)
                         : a.ms_scaling;
-    if constexpr (kEngine == kExact) {
-      exact_iteration<T, kMinSum, CAP>(a, t, alpha, msg, post, hard, syn);
-    } else {
+    {
       const int* bits;
       const int* ptr;
       if (relative) {
@@ -748,8 +643,7 @@ __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
     for (int i = t; i < m && ok; i += 32) {
       int par = syn[i];
       for (int k = 0; k < dc; ++k) {
-        const int j = kEngine == kExact ? __ldg(a.chk_bits + k * m + i)
-                                        : __ldg(a.chk_bits + (size_t)i * dc + k);
+        const int j = __ldg(a.chk_bits + (size_t)i * dc + k);
         if (j < n) par ^= hard[j];
       }
       ok = par == 0;
@@ -784,9 +678,9 @@ __global__ void __launch_bounds__(32) fold_kernel(const FoldArgs<T> a) {
   }
 }
 
-template <typename T, int kEngine, bool kMinSum, bool kShared, int CAP>
+template <typename T, int kEngine, bool kMinSum, bool kShared>
 int launch(const FoldArgs<T>& a, cudaStream_t stream) {
-  auto kernel = fold_kernel<T, kEngine, kMinSum, kShared, CAP>;
+  auto kernel = fold_kernel<T, kEngine, kMinSum, kShared>;
   const bool relative = kEngine == kSerial && a.order_mode == kOrderRelative;
   const size_t smem =
       lane_layout(kEngine, a.m, a.n, a.dc, a.dv, sizeof(T), relative, kShared).total;
@@ -802,10 +696,10 @@ int launch(const FoldArgs<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kEngine, bool kMinSum, int CAP = 1>
+template <typename T, int kEngine, bool kMinSum>
 int launch_state(const FoldArgs<T>& a, int shared, cudaStream_t st) {
-  return shared ? launch<T, kEngine, kMinSum, true, CAP>(a, st)
-                : launch<T, kEngine, kMinSum, false, CAP>(a, st);
+  return shared ? launch<T, kEngine, kMinSum, true>(a, st)
+                : launch<T, kEngine, kMinSum, false>(a, st);
 }
 
 template <typename T>
@@ -852,20 +746,19 @@ int serial_dispatch(const FoldArgs<T>& a, int min_sum, int shared, cudaStream_t 
                  : launch_state<T, kSerial, false>(a, shared, st);
 }
 
-template <int CAP>
-int exact_product_sum(const FoldArgs<double>& a, int shared, cudaStream_t st) {
-  return launch_state<double, kExact, false, CAP>(a, shared, st);
-}
-
 }  // namespace
 
 extern "C" {
 
+int ldpc_bp_exact_shared_state(int m, int n, int dc);  // csrc/bp_exact.cu
+
 // 1 when a lane of engine (0 K6', 1 K7', 2 K8') on an (m, n, dc, dv) code in
-// elements of elem bytes fits kLaneBudget, so the shared-memory variant is
-// the default; 0 for the device-memory variant.
+// elements of elem bytes fits its kernel's per-lane budget, so the
+// shared-memory variant is the default; 0 for the device-memory variant.
+// K8' (float64 only) answers from its own layout.
 int ldpc_bp_fold_shared_state(int engine, int m, int n, int dc, int dv, int elem,
                               int relative) {
+  if (engine == kExact) return ldpc_bp_exact_shared_state(m, n, dc);
   return lane_layout(engine, m, n, dc, dv, elem, relative != 0, true).total <= kLaneBudget;
 }
 
@@ -924,26 +817,6 @@ int ldpc_bp_soft_info(const void* soft_in, const void* llr0, const void* chk_bit
                        m, n, dc, dv, B, max_iter, kOrderFixed, ms_scaling, cutoff, msg, nullptr,
                        synd, post, dec, soft_out, conv, iters, prof),
       shared, st);
-}
-
-// K8' (float64). chk_bits_t (dc, m) and var_edges_t (dv, n) are the slot-major
-// views K1' takes. The caller checks dc <= 32 (product-sum keeps a row in
-// registers). The device variant reads msg (B, m*dc).
-int ldpc_bp_parallel_exact(const void* synd, const void* llr0, const void* chk_bits_t,
-                           const void* var_edges_t, int m, int n, int dc, int dv, int B,
-                           int max_iter, int min_sum, double ms_scaling, int shared, void* msg,
-                           void* post, void* dec, void* conv, void* iters, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  const FoldArgs<double> a =
-      make_args<double>(synd, nullptr, llr0, chk_bits_t, var_edges_t, nullptr, nullptr,
-                        nullptr, m, n, dc, dv, B, max_iter, kOrderFixed, ms_scaling, 0.0, msg,
-                        nullptr, nullptr, post, dec, nullptr, conv, iters, nullptr);
-  if (min_sum) return launch_state<double, kExact, true>(a, shared, st);
-  if (dc <= 4) return exact_product_sum<4>(a, shared, st);
-  if (dc <= 8) return exact_product_sum<8>(a, shared, st);
-  if (dc <= 16) return exact_product_sum<16>(a, shared, st);
-  if (dc <= 32) return exact_product_sum<32>(a, shared, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Kernels K6', K7' and K8': the fold-exact BP engines (``csrc/bp_fold.cu``).
+"""Kernels K6', K7' and K8': the fold-exact BP engines (``csrc/bp_fold.cu``;
+K8' ``csrc/bp_exact.cu``).
 
 Counterparts of three XLA loops of ``ldpc_tpu/ops/bp.py`` (none is a Pallas
 kernel):
@@ -24,6 +25,17 @@ kernels' schedule): bits that share no check commute in a serial sweep, so
 the kernels update a level's bits together and equal the sequential sweep
 bit for bit. :func:`relative_order_reference` is the plain model of
 serial-relative's sort.
+
+K8' is bound on the card by the instructions a lane-iteration issues, not
+by its lanes' residency (measured: PERF.md), so its kernel spends
+registers and shared memory on fewer instructions: one warp a lane,
+several lanes a block, each warp claiming its next lane when one is done;
+the block's copy of the graph's indices in shared memory; a lane's
+messages and decision bytes in shared memory, its posteriors and
+decisions straight to the outputs; iteration 1 reads the channel LLRs in
+place of initial messages; the syndrome test rides on the next check
+pass; a check's row and a bit's column are read once an iteration into
+registers (see the source's notes).
 """
 
 from typing import NamedTuple, Optional
@@ -476,9 +488,11 @@ def state_variant(kernel: str, m: int, n: int, dc: int, dv: int, dtype,
                   relative: bool = False) -> str:
     """Where ``kernel`` ("bp_serial", "bp_soft_info" or
     "bp_parallel_exact") keeps a lane's state by default: ``"shared"``
-    memory while it fits the per-lane budget of ``csrc/bp_fold.cu``, else a
-    lane-major scratch in ``"device"`` memory (same template, still one warp
-    per lane). Builds the kernels' library."""
+    memory while it fits the per-lane budget of its kernel
+    (``csrc/bp_fold.cu``; K8' ``csrc/bp_exact.cu``, whose lane is its
+    messages and its decisions as bits), else a lane-major scratch in
+    ``"device"`` memory (same kernel, still one warp per lane). Builds the
+    kernels' library."""
     elem = torch.empty((), dtype=dtype).element_size()
     fits = _build.library().ldpc_bp_fold_shared_state(
         _ENGINE[kernel], m, n, dc, dv, elem, int(relative))
@@ -670,6 +684,26 @@ def bp_soft_info_cuda(
     return BpResult(decoding=dec, llr_posterior=post, converged=conv, iterations=iters), soft_out
 
 
+def exact_lanes_per_block(most: bool = False) -> int:
+    """K8''s lanes (warps) a block: by default, or at most. Builds the
+    kernels' library."""
+    return _build.library().ldpc_bp_exact_lanes(int(most))
+
+
+def exact_resident_lanes(tg: TorchGraph, bp_method: int, state: str = "shared",
+                         lanes: Optional[int] = None) -> int:
+    """K8' lanes resident on one SM of the current card for ``tg``: the
+    occupancy its registers and shared memory allow at ``lanes`` a block
+    (default :func:`exact_lanes_per_block`). Builds the library."""
+    lib = _build.library()
+    lanes = exact_lanes_per_block() if lanes is None else lanes
+    got = lib.ldpc_bp_exact_resident_lanes(tg.m, tg.n, tg.dc, tg.dv,
+                                           int(bp_method == MINIMUM_SUM),
+                                           int(state == "shared"), lanes)
+    _require(got >= 0, "bp_parallel_exact", f"no occupancy for {lanes} lanes a block in {state}")
+    return got
+
+
 def bp_parallel_exact_cuda(
     tg: TorchGraph,
     syndromes: torch.Tensor,
@@ -678,9 +712,17 @@ def bp_parallel_exact_cuda(
     max_iter: int,
     ms_scaling_factor: float,
     state: Optional[str] = None,
+    lanes: Optional[int] = None,
+    profile: Optional[torch.Tensor] = None,
 ) -> BpResult:
-    """Launch K8' on CUDA tensors (float64): one warp per lane, on K1''s
-    slot-major graph views."""
+    """Launch K8' on CUDA tensors (float64): one warp per lane, ``lanes``
+    lanes a block (1 to :func:`exact_lanes_per_block` ``(most=True)``;
+    default :func:`exact_lanes_per_block`), each warp claiming lanes until
+    the batch is done, on K1''s slot-major graph views. ``state`` forces
+    where a lane's messages live and ``lanes`` the lanes a block (tests and
+    measurement only). ``profile``: an optional (B,
+    5) int64 tensor that receives, per lane, the clock cycles of its
+    prologue, check passes, bit passes, syndrome tests and epilogue."""
     kernel = "bp_parallel_exact"
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     dev = _check_common(kernel, tg, syndromes, init_llr, (torch.float64,),
@@ -691,18 +733,23 @@ def bp_parallel_exact_cuda(
     _require(max_iter >= 0, kernel, "max_iter must be >= 0")
     state = _pick_state(kernel, tg, torch.float64, state)
     B = syndromes.shape[0]
+    prof = _check_profile(kernel, profile, B, dev)
     device_state = state == "device"
     msg = torch.empty((B if device_state else 0, m * dc), dtype=torch.float64, device=dev)
     post, dec, conv, iters = _outputs(B, n, torch.float64, dev)
     if B:
         lib = _build.library()
+        lanes = lib.ldpc_bp_exact_lanes(0) if lanes is None else lanes
+        _require(1 <= lanes <= lib.ldpc_bp_exact_lanes(1), kernel,
+                 f"lanes must be 1 to {lib.ldpc_bp_exact_lanes(1)}, not {lanes}")
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' claim counter
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_parallel_exact(
                 syndromes.data_ptr(), init_llr.data_ptr(), tg.chk_bits_t.data_ptr(),
                 tg.var_edges_t.data_ptr(), m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), float(ms_scaling_factor), int(not device_state),
-                msg.data_ptr(), post.data_ptr(), dec.data_ptr(), conv.data_ptr(),
-                iters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                lanes, msg.data_ptr(), post.data_ptr(), dec.data_ptr(), conv.data_ptr(),
+                iters.data_ptr(), nxt.data_ptr(), prof, torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, kernel)
         _count(kernel, state)

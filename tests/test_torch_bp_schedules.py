@@ -41,7 +41,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from ldpc_tpu.codes import hamming_code, rep_code, ring_code, surface_code
+from ldpc_tpu.codes import (
+    bivariate_bicycle_code, hamming_code, rep_code, ring_code, surface_code)
 from ldpc_tpu.ops import bp as jbp
 from ldpc_tpu.ops.pcm import compile_pcm
 from ldpc_tpu_torch.ops import bp as tbp
@@ -58,6 +59,11 @@ CODES = {
     "hamming3": (lambda: hamming_code(3), 0.1, 64),
     "rep7": (lambda: rep_code(7), 0.1, 48),
     "ring8": (lambda: ring_code(8), 0.1, 64),
+    # the gross [[144,12,12]] code's hx (three checks a bit) and the d=13
+    # main path's code, where the card tests hold K8' to this plain version
+    "gross": (lambda: bivariate_bicycle_code(12, 6, [(3, 0), (0, 1), (0, 2)],
+                                             [(0, 3), (1, 0), (2, 0)]).hx, 0.03, 24),
+    "surface13": (lambda: surface_code(13).hx, 0.01, 24),
 }
 MODES = {"serial": (jbp.SERIAL, False), "relative": (jbp.SERIAL_RELATIVE, False),
          "random": (jbp.SERIAL, True)}
@@ -269,12 +275,17 @@ def test_soft_info_engine_without_rules_is_serial_min_sum(workloads):
 
 
 @pytest.mark.parametrize("method", ["ms0.625", "ms0.0", "ps"])
-@pytest.mark.parametrize("name", ["surface3", "surface5", "hamming3", "ring8"])
+@pytest.mark.parametrize("name", ["surface3", "surface5", "hamming3", "ring8", "gross",
+                                  "surface13"])
 def test_exact_engine_matches_jax(workloads, name, method):
     """K8's plain version against ``_make_parallel_decoder_exact``: min-sum
     bit for bit (the parallel fold leaves XLA nothing to contract);
     product-sum decisions, flags and iterations exact, posteriors within
-    1e-9 (the tanh/log ulp)."""
+    1e-9 (the tanh/log ulp). On the gross code and surface d=13 that ulp
+    grows about tenfold an iteration on a lane that never converges (3e-15
+    after one iteration of the gross code, 1e-10 after five, order 1 by 20),
+    so there the posteriors are held within 1e-9 on the lanes that
+    converge."""
     graph, syn, llr = workloads[name]
     bp_method, alpha = METHODS[method]
     rj = jbp.make_parallel_decoder(graph, bp_method, MAX_ITER, alpha, dtype=jnp.float64)(
@@ -287,6 +298,10 @@ def test_exact_engine_matches_jax(workloads, name, method):
         np.testing.assert_array_equal(rt[i], rj[i])
     if bp_method == jbp.MINIMUM_SUM:
         np.testing.assert_array_equal(rt[1], rj[1])
+    elif name in ("gross", "surface13"):
+        conv = rj[2].astype(bool)
+        assert conv.sum() >= len(conv) // 2
+        np.testing.assert_allclose(rt[1][conv], rj[1][conv], rtol=1e-9, atol=1e-9)
     else:
         np.testing.assert_allclose(rt[1], rj[1], rtol=1e-9, atol=1e-9)
 

@@ -874,6 +874,121 @@ def test_k6_relative_equal_and_nan_posteriors(dev, dtype, state):
     assert bool(ker.llr_posterior[:, -5:-3].isnan().all())
 
 
+def _random_code(m, n, weights, seed):
+    """An (m, n) code whose row i has ``weights[i]`` ones at random."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), dtype=np.uint8)
+    for i, w in enumerate(weights):
+        H[i, rng.choice(n, w, replace=False)] = 1
+    return compile_pcm(H)
+
+
+def _k8_call(graph, dev, syn, method, alpha, state, p, lanes=None, max_iter=30):
+    args = (graph_to_torch(graph, dev), syn, _llr0(graph, dev, torch.float64, p), method, max_iter,
+            alpha)
+    before = bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state]
+    ker = bp_fold.bp_parallel_exact_cuda(*args, state=state, lanes=lanes)
+    torch.cuda.synchronize()
+    assert bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state] == before + 1
+    return ker, bp_fold.bp_parallel_exact_reference(*args)
+
+
+def _syndromes(graph, dev, lanes, p, seed):
+    rng = np.random.default_rng(seed)
+    errors = (rng.random((lanes, graph.n)) < p).astype(np.uint8)
+    return torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("method,alpha", [(MINIMUM_SUM, 0.625), (PRODUCT_SUM, 1.0)])
+def test_k8_gross_code(gross, method, alpha, state):
+    """K8' on three checks a bit (dv=3, rows of 6): a bit's three c2v
+    values in registers, rows in the 8-slot instance."""
+    graph, _, syn = gross
+    ker, ref = _k8_call(graph, syn.device, syn, method, alpha, state, 0.03)
+    _assert_fold_equal(ker, ref, method)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("method,alpha", [(MINIMUM_SUM, 0.625), (PRODUCT_SUM, 1.0)])
+def test_k8_six_checks_a_bit(dev, method, alpha, state):
+    """K8' on the random code of six checks a bit (m=48, n=96) of
+    test_k6_six_checks_a_bit: columns wider than the register path take
+    the loop that folds from the messages in place; rows of up to 20
+    slots take the 32-slot instance."""
+    rng = np.random.default_rng(6)
+    H = np.zeros((48, 96), dtype=np.uint8)
+    for j in range(96):
+        H[rng.choice(48, 6, replace=False), j] = 1
+    graph = compile_pcm(H)
+    assert graph.dv == 6
+    syn = _syndromes(graph, dev, 512, 0.02, 6)
+    ker, ref = _k8_call(graph, dev, syn, method, alpha, state, 0.02)
+    _assert_fold_equal(ker, ref, method)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("dc,method,alpha", [
+    (4, PRODUCT_SUM, 1.0), (5, PRODUCT_SUM, 1.0), (12, PRODUCT_SUM, 1.0), (32, PRODUCT_SUM, 1.0),
+    (5, MINIMUM_SUM, 0.625), (12, MINIMUM_SUM, 0.0), (32, MINIMUM_SUM, 0.625),
+    (40, MINIMUM_SUM, 0.625),
+])
+def test_k8_wide_rows(dev, dc, method, alpha, state):
+    """Rows of up to ``dc`` slots (the widest exactly dc, the others from
+    dc/2 up, some bits in no check): each product-sum instance (4, 8, 16
+    and 32 slots) and the min-sum register path, and a min-sum row above
+    32 slots, which takes the loop that reads a row twice."""
+    m, n = 12, 96
+    weights = [dc] + list(np.random.default_rng(dc).integers(max(2, dc // 2), dc + 1, m - 1))
+    graph = _random_code(m, n, weights, dc)
+    assert graph.dc == dc
+    syn = _syndromes(graph, dev, 512, 0.02, dc)
+    ker, ref = _k8_call(graph, dev, syn, method, alpha, state, 0.02)
+    _assert_fold_equal(ker, ref, method)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("lanes", range(1, 9))
+def test_k8_lanes_per_block_tails(codes, lanes, state):
+    """Every lane count a block takes (1 to 8), on batches of 1, 2, 3 and 5
+    lanes and of lanes*k + 1 (a part-filled last block; k large enough that
+    each warp claims several lanes): a lane that converges in iteration 1
+    (a zero syndrome), one that never does (an odd-weight toric syndrome)
+    and the rest at their own iterations, in one block. The profile
+    receives each lane's cycles: every lane spends some in its prologue,
+    check passes and bit passes, and only the lane that runs to max_iter
+    in a syndrome test of its own (the others' ride on their check
+    passes)."""
+    graph, tg, syn, _ = codes["toric20"]
+    dev = syn.device
+    assert bp_fold.exact_lanes_per_block(most=True) == 8
+    base = syn[:lanes * 2000 + 1].clone()
+    base[0] = 0
+    odd = np.random.default_rng(3).integers(0, 2, graph.m).astype(np.uint8)
+    odd[0] ^= 1 - odd.sum() % 2
+    base[1] = torch.from_numpy(odd)
+    for B in (1, 2, 3, 5, lanes * 2000 + 1):
+        s = base[:B].contiguous()
+        ker, ref = _k8_call(graph, dev, s, MINIMUM_SUM, 0.625, state, P, lanes=lanes)
+        _assert_fold_equal(ker, ref, MINIMUM_SUM)
+        assert bool(ker.converged[0]) and int(ker.iterations[0]) == 1
+        if B > 1:
+            assert not bool(ker.converged[1]) and int(ker.iterations[1]) == 30
+        if B > 2:
+            assert len(set(ker.iterations.tolist())) >= (2 if B < 5 else 3)
+    l0 = _llr0(graph, dev, torch.float64)
+    prof = torch.zeros((5, 5), dtype=torch.int64, device=dev)
+    res = bp_fold.bp_parallel_exact_cuda(tg, base[:5].contiguous(), l0, MINIMUM_SUM, 30, 0.625,
+                                         state=state, lanes=lanes, profile=prof)
+    torch.cuda.synchronize()
+    assert bool((prof[:, :3] > 0).all()) and bool((prof >= 0).all())
+    assert int(res.iterations[1]) == 30 and int(prof[1, 3]) > 0
+    assert bool((prof[res.converged, 3] == 0).all())
+    with pytest.raises(ValueError, match="lanes must be 1 to"):
+        bp_fold.bp_parallel_exact_cuda(tg, base[:5].contiguous(), l0, MINIMUM_SUM, 30, 0.625,
+                                       lanes=bp_fold.exact_lanes_per_block(most=True) + 1)
+
+
 @pytest.mark.parametrize("alpha", [0.625, 0.0])
 def test_k1_fixed_alpha_matches_plain_version(codes, alpha):
     """Single-scan: K1' with its dynamic factor off, both states."""

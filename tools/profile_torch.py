@@ -37,7 +37,8 @@ import chip_smoke  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("bp_warp_kernel", "gf2_warp_osd0_kernel", "gf2_warp_export_kernel",
-               "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel", "fold_kernel")
+               "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel", "fold_kernel",
+               "exact_kernel")
 
 
 def busy_us(intervals):
