@@ -130,10 +130,14 @@ def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
 # two, so 33.5e12 operations/s; the float32 kernels' integer and compare
 # operations are counted at that rate too, so the time is a floor. float64
 # (K8', and every call timed in float64): 34 TFLOP/s, so 17e12 operations/s,
-# its compares and integer operations counted at it.
+# its float64 adds, products and compares counted at it; its integer and
+# bit operations at INT_OPS_PER_S on their own pipe (NVIDIA's H100
+# architecture whitepaper: an SM has 64 INT32 units beside its 128 FP32
+# units, so half the float32 rate), the larger of the two times counted.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 33.5e12
 F64_OPS_PER_S = 17e12
+INT_OPS_PER_S = OPS_PER_S / 2
 
 
 def nbytes(*tensors) -> int:
@@ -144,7 +148,7 @@ def nbytes(*tensors) -> int:
 def bound(bytes_moved: float, ops: float, ops_per_s: float = OPS_PER_S):
     """``(bound_ms, bound_by)``: the larger of the two floors, and which;
     operations at ``ops_per_s`` (:data:`OPS_PER_S` float32,
-    :data:`F64_OPS_PER_S` float64)."""
+    :data:`F64_OPS_PER_S` float64, :data:`INT_OPS_PER_S` integer)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -937,21 +941,32 @@ def fold_ops(kernel, graph, lane_iterations: int, relative: bool = False) -> flo
     decision; per edge the syndrome test. K7' adds 8 per edge for the
     virtual-update rules; serial-relative adds n*ceil(log2 n) compares for
     the ranking, what a comparison sort needs (K6''s counting rank does
-    n*n: that is the kernel's choice, not the function's work). K8': K1''s
-    count (:func:`k1_ops`) plus the reverse pass, about d*(d+1)/2 adds a
-    bit."""
+    n*n: that is the kernel's choice, not the function's work). K8' has its
+    own count (:func:`exact_ops`)."""
     rows = graph.chk_mask.sum(axis=1).astype(np.int64)
     cols = graph.var_mask.sum(axis=1).astype(np.int64)
-    if kernel == "bp_parallel_exact":
-        per = 9 * graph.nnz + graph.n + int((cols * (cols + 1) // 2).sum())
-    else:
-        per = (3 * int((rows * (rows - 1)).sum()) + 2 * graph.nnz
-               + int((cols * cols).sum()) + int((cols + 1).sum()) + graph.nnz)
-        if kernel == "bp_soft_info":
-            per += 8 * graph.nnz
-        if relative:
-            per += graph.n * math.ceil(math.log2(graph.n))
+    per = (3 * int((rows * (rows - 1)).sum()) + 2 * graph.nnz
+           + int((cols * cols).sum()) + int((cols + 1).sum()) + graph.nnz)
+    if kernel == "bp_soft_info":
+        per += 8 * graph.nnz
+    if relative:
+        per += graph.n * math.ceil(math.log2(graph.n))
     return float(lane_iterations) * per
+
+
+def exact_ops(graph, lane_iterations: int):
+    """K8''s min-sum operations over ``lane_iterations`` as ``(float64,
+    integer)``, each counted once. float64, per edge: the min1 and min2
+    compares and the sign test (v <= 0); per row: alpha times min1 and
+    min2; per bit of degree d: the posterior's d adds, d adds of partial
+    plus suffix and d - 1 suffix adds, and the decision compare. Integer
+    and bit operations, per edge: |v| and the output's sign (the top bit
+    cleared or flipped), the sign parity, and the syndrome test's parity.
+    The bit-to-check messages are stored, so nothing is subtracted."""
+    cols = graph.var_mask.sum(axis=1).astype(np.int64)
+    f64 = 3 * graph.nnz + 2 * graph.m + int((3 * cols - 1).clip(min=0).sum()) + graph.n
+    ints = 4 * graph.nnz
+    return float(lane_iterations) * f64, float(lane_iterations) * ints
 
 
 def time_fold(name, kernel, graph, args, **extra):
@@ -959,9 +974,11 @@ def time_fold(name, kernel, graph, args, **extra):
     time from CUDA events), the kernel held against it, then the kernel's
     device time (:func:`device_ms`) and eager ``call_ms`` beside the bound:
     the call's tensors moved once (inputs, graph arrays, schedule; outputs)
-    over the HBM rate, or :func:`fold_ops` over this run's lane-iterations
-    at the rate of the call's type (``ops_rate``: float64 at
-    :data:`F64_OPS_PER_S`). Each line adds the lanes' counters
+    over the HBM rate, or the operations over their rate (``ops_rate``):
+    :func:`fold_ops` over this run's lane-iterations at the float32 rate,
+    or for K8' :func:`exact_ops`' float64 operations at
+    :data:`F64_OPS_PER_S` or its integer operations at
+    :data:`INT_OPS_PER_S`, whichever takes longer. Each line adds the lanes' counters
     (:func:`fold_profile`); K8''s adds its lanes a block, the lanes
     resident on an SM and a lane's shared bytes. Returns the kernels
     line's numbers and the largest error."""
@@ -990,22 +1007,28 @@ def time_fold(name, kernel, graph, args, **extra):
     if soft_out is not None:
         moved += nbytes(soft_out)
     relative = kernel == "bp_serial" and args[-1] == bp_fold.ORDER_RELATIVE
-    f64 = args[2].dtype == torch.float64
-    rate = F64_OPS_PER_S if f64 else OPS_PER_S
-    bound_ms, bound_by = bound(moved, fold_ops(kernel, graph, lane_iterations, relative), rate)
+    if kernel == "bp_parallel_exact":
+        assert method == MINIMUM_SUM, "exact_ops counts min-sum"
+        f64, ints = exact_ops(graph, lane_iterations)
+        ops, rate, rate_name = max((f64, F64_OPS_PER_S, "float64"), (ints, INT_OPS_PER_S, "int32"),
+                                   key=lambda x: x[0] / x[1])
+    else:
+        assert args[2].dtype == torch.float32, "fold_ops counts at the float32 rate"
+        ops = fold_ops(kernel, graph, lane_iterations, relative)
+        rate, rate_name = OPS_PER_S, "float32"
+    bound_ms, bound_by = bound(moved, ops, rate)
     ms = device_ms(lambda: cuda(*args, **kw))
     call_ms = cuda_ms(lambda: cuda(*args, **kw), 3)
     extra = fold_profile(kernel, args, kw) | extra
     if kernel == "bp_parallel_exact":
         state = bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, torch.float64)
-        extra = {"lanes_per_block": bp_fold.exact_lanes_per_block(),
-                 "resident_lanes_per_sm": bp_fold.exact_resident_lanes(tg, args[3], state),
+        extra = {"resident_lanes_per_sm": bp_fold.exact_resident_lanes(tg, args[3], state),
                  "lane_bytes": _build.library().ldpc_bp_exact_lane_bytes(tg.m, tg.n, tg.dc)} | extra
     max_iter = args[3] if kernel == "bp_soft_info" else args[4]
     phase(name, shape=f"B={args[1].shape[0]},max_iter={max_iter}", dtype=str(args[2].dtype)[6:],
           ms=ms, call_ms=call_ms, plain_ms=plain_ms,
           bound_ms=bound_ms, bound_by=bound_by,
-          ops_rate=f"{'float64' if f64 else 'float32'}:{rate}",
+          ops_rate=f"{rate_name}:{rate}",
           share_of_bound=bound_ms / ms,
           lane_iterations=lane_iterations, differing_lanes=nlanes, max_abs_err=err,
           state=bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, args[2].dtype, relative),

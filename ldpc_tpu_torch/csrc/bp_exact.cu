@@ -31,8 +31,8 @@
 // to 40 bought 3%, while each cut of the instructions a lane-iteration
 // issues bought 5-26%. So the design spends registers and shared memory on
 // fewer instructions, not on more resident lanes:
-//   - One warp per lane, up to kMaxLanes lanes a block (the wrapper's
-//     ``lanes``; kDefaultLanes by default). Warps are persistent: each
+//   - One warp per lane, kLanes lanes a block (1, 2, 4 and 8 timed within
+//     3% of each other; PERF.md). Warps are persistent: each
 //     claims its next lane from a counter (atomicAdd) when its lane is
 //     done, so a block's slots never wait for a slow lane of the block and
 //     the grid is only as large as the card holds at once.
@@ -73,8 +73,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr double kBig = 1e30;  // absent slots' magnitude
-constexpr int kMaxLanes = 8;   // lanes (warps) a block at most
-constexpr int kDefaultLanes = 8;
+constexpr int kLanes = 8;      // lanes (warps) a block
 // A lane's state lives in shared memory up to this many bytes (K1''s budget)
 constexpr size_t kLaneBudget = 24 * 1024;
 // columns of up to this many slots keep their c2v values in registers
@@ -107,9 +106,8 @@ __host__ __device__ inline size_t graph_bytes(int m, int n, int dc, int dv, bool
   return shared ? align16((size_t)dc * m * 2) + align16((size_t)dv * n * 2) : 0;
 }
 
-__host__ __device__ inline size_t block_bytes(int m, int n, int dc, int dv, bool shared,
-                                              int lanes) {
-  return graph_bytes(m, n, dc, dv, shared) + (size_t)lanes * lane_layout(m, n, dc, shared).total;
+__host__ __device__ inline size_t block_bytes(int m, int n, int dc, int dv, bool shared) {
+  return graph_bytes(m, n, dc, dv, shared) + (size_t)kLanes * lane_layout(m, n, dc, shared).total;
 }
 
 struct Args {
@@ -391,7 +389,7 @@ __host__ __device__ constexpr int min_blocks(bool min_sum, int cap) {
 }
 
 template <bool kMinSum, int CAP, bool kShared>
-__global__ void __launch_bounds__(32 * kMaxLanes, min_blocks(kMinSum, CAP))
+__global__ void __launch_bounds__(32 * kLanes, min_blocks(kMinSum, CAP))
     exact_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x & 31;
@@ -487,11 +485,11 @@ __global__ void __launch_bounds__(32 * kMaxLanes, min_blocks(kMinSum, CAP))
 // found once per shape, with the attributes the launch needs set then.
 struct Grid {
   size_t smem = ~(size_t)0;
-  int lanes = 0, device = -1, blocks = 0;
+  int device = -1, blocks = 0;
 };
 
 template <typename K>
-cudaError_t set_up(K kernel, int lanes, size_t smem, int* per_sm) {
+cudaError_t set_up(K kernel, size_t smem, int* per_sm) {
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -501,7 +499,7 @@ cudaError_t set_up(K kernel, int lanes, size_t smem, int* per_sm) {
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * lanes, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * kLanes, smem);
   }
   if (err == cudaSuccess && *per_sm == 0) err = cudaErrorLaunchOutOfResources;
   if (err != cudaSuccess) cudaGetLastError();  // cleared: not the next launch's error
@@ -509,24 +507,24 @@ cudaError_t set_up(K kernel, int lanes, size_t smem, int* per_sm) {
 }
 
 template <bool kMinSum, int CAP, bool kShared>
-int launch(const Args& a, int lanes, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   static Grid grid;  // one per instantiation
   auto kernel = exact_kernel<kMinSum, CAP, kShared>;
-  const size_t smem = block_bytes(a.m, a.n, a.dc, a.dv, kShared, lanes);
+  const size_t smem = block_bytes(a.m, a.n, a.dc, a.dv, kShared);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  if (grid.smem != smem || grid.lanes != lanes || grid.device != device) {
+  if (grid.smem != smem || grid.device != device) {
     int per_sm = 0, sms = 0;
-    err = set_up(kernel, lanes, smem, &per_sm);
+    err = set_up(kernel, smem, &per_sm);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     }
     if (err != cudaSuccess) return (int)err;
-    grid = Grid{smem, lanes, device, per_sm * sms};
+    grid = Grid{smem, device, per_sm * sms};
   }
-  const int needed = (a.B + lanes - 1) / lanes;
-  kernel<<<needed < grid.blocks ? needed : grid.blocks, 32 * lanes, smem, stream>>>(a);
+  const int needed = (a.B + kLanes - 1) / kLanes;
+  kernel<<<needed < grid.blocks ? needed : grid.blocks, 32 * kLanes, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -543,24 +541,23 @@ int by_width(int dc, int min_sum, const F& f) {
 
 struct LaunchOp {
   const Args& a;
-  int shared, lanes;
+  int shared;
   cudaStream_t st;
   template <bool kMinSum, int CAP>
   int run() const {
-    return shared ? launch<kMinSum, CAP, true>(a, lanes, st)
-                  : launch<kMinSum, CAP, false>(a, lanes, st);
+    return shared ? launch<kMinSum, CAP, true>(a, st) : launch<kMinSum, CAP, false>(a, st);
   }
 };
 
-// Blocks of ``lanes`` lanes resident on an SM (into *per_sm).
+// Blocks resident on an SM (into *per_sm).
 struct OccupancyOp {
-  int shared, lanes;
+  int shared;
   size_t smem;
   int* per_sm;
   template <bool kMinSum, int CAP>
   int run() const {
-    return shared ? (int)set_up(exact_kernel<kMinSum, CAP, true>, lanes, smem, per_sm)
-                  : (int)set_up(exact_kernel<kMinSum, CAP, false>, lanes, smem, per_sm);
+    return shared ? (int)set_up(exact_kernel<kMinSum, CAP, true>, smem, per_sm)
+                  : (int)set_up(exact_kernel<kMinSum, CAP, false>, smem, per_sm);
   }
 };
 
@@ -582,33 +579,25 @@ int ldpc_bp_exact_lane_bytes(int m, int n, int dc) {
   return (int)lane_layout(m, n, dc, true).total;
 }
 
-// The lanes a block takes by default, and at most.
-int ldpc_bp_exact_lanes(int most) { return most ? kMaxLanes : kDefaultLanes; }
-
-// K8' lanes resident on one SM for a code and launch shape (the occupancy
-// its registers and shared memory allow), or -1 on an error.
-int ldpc_bp_exact_resident_lanes(int m, int n, int dc, int dv, int min_sum, int shared,
-                                 int lanes) {
-  if (lanes < 1 || lanes > kMaxLanes) return -1;
+// K8' lanes resident on one SM for a code (the occupancy its registers and
+// shared memory allow), or -1 on an error.
+int ldpc_bp_exact_resident_lanes(int m, int n, int dc, int dv, int min_sum, int shared) {
   int per_sm = 0;
-  const size_t smem = block_bytes(m, n, dc, dv, shared != 0, lanes);
-  if (by_width(dc, min_sum, OccupancyOp{shared, lanes, smem, &per_sm}) != 0) return -1;
-  return per_sm * lanes;
+  const size_t smem = block_bytes(m, n, dc, dv, shared != 0);
+  if (by_width(dc, min_sum, OccupancyOp{shared, smem, &per_sm}) != 0) return -1;
+  return per_sm * kLanes;
 }
 
 // K8'. chk_bits_t (dc, m) and var_edges_t (dv, n) are the slot-major views
 // K1' takes; product-sum needs dc <= 32 (the caller checks), the shared
-// variant n and m*dc <= 65535. lanes: lanes a block, 1..kMaxLanes. The
-// device variant (shared == 0) reads msg (B, m*dc). next: one int32, 0 at
+// variant n and m*dc <= 65535. The device variant (shared == 0) reads msg (B, m*dc). next: one int32, 0 at
 // launch (the lanes' claim counter). prof: null, or (B, 5) int64. Returns
 // cudaGetLastError() after the launch (0 on success) or the error of
 // setting the kernel up. Nothing synchronises.
 int ldpc_bp_parallel_exact(const void* synd, const void* llr0, const void* chk_bits_t,
                            const void* var_edges_t, int m, int n, int dc, int dv, int B,
-                           int max_iter, int min_sum, double ms_scaling, int shared, int lanes,
-                           void* msg, void* post, void* dec, void* conv, void* iters, void* next,
+                           int max_iter, int min_sum, double ms_scaling, int shared, void* msg, void* post, void* dec, void* conv, void* iters, void* next,
                            void* prof, void* stream) {
-  if (lanes < 1 || lanes > kMaxLanes) return (int)cudaErrorInvalidValue;
   if (shared && (n > kMaxIndex || (long long)m * dc > kMaxIndex)) return (int)cudaErrorInvalidValue;
   Args a;
   a.synd = static_cast<const uint8_t*>(synd);
@@ -630,7 +619,7 @@ int ldpc_bp_parallel_exact(const void* synd, const void* llr0, const void* chk_b
   a.next = static_cast<int*>(next);
   a.prof = static_cast<long long*>(prof);
   auto st = static_cast<cudaStream_t>(stream);
-  const int rc = by_width(dc, min_sum, LaunchOp{a, shared, lanes, st});
+  const int rc = by_width(dc, min_sum, LaunchOp{a, shared, st});
   return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 

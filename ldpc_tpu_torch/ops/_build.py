@@ -75,16 +75,14 @@ _SIGNATURES = {
     "ldpc_bp_soft_info": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _D, _D, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-    #  min_sum, ms_scaling, shared, lanes, msg, post, dec, conv, iters, next,
-    #  prof, stream)
+    #  min_sum, ms_scaling, shared, msg, post, dec, conv, iters, next, prof,
+    #  stream)
     "ldpc_bp_parallel_exact": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _D, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+                               _D, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # (m, n, dc) -> bytes of shared memory a K8' lane takes
     "ldpc_bp_exact_lane_bytes": [_I, _I, _I],
-    # (most) -> K8''s lanes a block by default (0) or at most (1)
-    "ldpc_bp_exact_lanes": [_I],
-    # (m, n, dc, dv, min_sum, shared, lanes) -> K8' lanes resident on an SM
-    "ldpc_bp_exact_resident_lanes": [_I, _I, _I, _I, _I, _I, _I],
+    # (m, n, dc, dv, min_sum, shared) -> K8' lanes resident on an SM
+    "ldpc_bp_exact_resident_lanes": [_I, _I, _I, _I, _I, _I],
     # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
     "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,

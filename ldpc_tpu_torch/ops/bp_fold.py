@@ -29,7 +29,7 @@ serial-relative's sort.
 K8' is bound on the card by the instructions a lane-iteration issues, not
 by its lanes' residency (measured: PERF.md), so its kernel spends
 registers and shared memory on fewer instructions: one warp a lane,
-several lanes a block, each warp claiming its next lane when one is done;
+eight lanes a block, each warp claiming its next lane when one is done;
 the block's copy of the graph's indices in shared memory; a lane's
 messages and decision bytes in shared memory, its posteriors and
 decisions straight to the outputs; iteration 1 reads the channel LLRs in
@@ -684,23 +684,13 @@ def bp_soft_info_cuda(
     return BpResult(decoding=dec, llr_posterior=post, converged=conv, iterations=iters), soft_out
 
 
-def exact_lanes_per_block(most: bool = False) -> int:
-    """K8''s lanes (warps) a block: by default, or at most. Builds the
-    kernels' library."""
-    return _build.library().ldpc_bp_exact_lanes(int(most))
-
-
-def exact_resident_lanes(tg: TorchGraph, bp_method: int, state: str = "shared",
-                         lanes: Optional[int] = None) -> int:
+def exact_resident_lanes(tg: TorchGraph, bp_method: int, state: str = "shared") -> int:
     """K8' lanes resident on one SM of the current card for ``tg``: the
-    occupancy its registers and shared memory allow at ``lanes`` a block
-    (default :func:`exact_lanes_per_block`). Builds the library."""
-    lib = _build.library()
-    lanes = exact_lanes_per_block() if lanes is None else lanes
-    got = lib.ldpc_bp_exact_resident_lanes(tg.m, tg.n, tg.dc, tg.dv,
-                                           int(bp_method == MINIMUM_SUM),
-                                           int(state == "shared"), lanes)
-    _require(got >= 0, "bp_parallel_exact", f"no occupancy for {lanes} lanes a block in {state}")
+    occupancy its registers and shared memory allow. Builds the library."""
+    got = _build.library().ldpc_bp_exact_resident_lanes(tg.m, tg.n, tg.dc, tg.dv,
+                                                        int(bp_method == MINIMUM_SUM),
+                                                        int(state == "shared"))
+    _require(got >= 0, "bp_parallel_exact", f"no occupancy in the {state} state")
     return got
 
 
@@ -712,17 +702,14 @@ def bp_parallel_exact_cuda(
     max_iter: int,
     ms_scaling_factor: float,
     state: Optional[str] = None,
-    lanes: Optional[int] = None,
     profile: Optional[torch.Tensor] = None,
 ) -> BpResult:
-    """Launch K8' on CUDA tensors (float64): one warp per lane, ``lanes``
-    lanes a block (1 to :func:`exact_lanes_per_block` ``(most=True)``;
-    default :func:`exact_lanes_per_block`), each warp claiming lanes until
-    the batch is done, on K1''s slot-major graph views. ``state`` forces
-    where a lane's messages live and ``lanes`` the lanes a block (tests and
-    measurement only). ``profile``: an optional (B,
-    5) int64 tensor that receives, per lane, the clock cycles of its
-    prologue, check passes, bit passes, syndrome tests and epilogue."""
+    """Launch K8' on CUDA tensors (float64): one warp per lane, eight lanes
+    a block, each warp claiming lanes until the batch is done, on K1''s
+    slot-major graph views. ``state`` forces where a lane's messages live
+    (tests). ``profile``: an optional (B, 5) int64 tensor that receives,
+    per lane, the clock cycles of its prologue, check passes, bit passes,
+    syndrome tests and epilogue."""
     kernel = "bp_parallel_exact"
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     dev = _check_common(kernel, tg, syndromes, init_llr, (torch.float64,),
@@ -739,16 +726,13 @@ def bp_parallel_exact_cuda(
     post, dec, conv, iters = _outputs(B, n, torch.float64, dev)
     if B:
         lib = _build.library()
-        lanes = lib.ldpc_bp_exact_lanes(0) if lanes is None else lanes
-        _require(1 <= lanes <= lib.ldpc_bp_exact_lanes(1), kernel,
-                 f"lanes must be 1 to {lib.ldpc_bp_exact_lanes(1)}, not {lanes}")
         nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' claim counter
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_parallel_exact(
                 syndromes.data_ptr(), init_llr.data_ptr(), tg.chk_bits_t.data_ptr(),
                 tg.var_edges_t.data_ptr(), m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), float(ms_scaling_factor), int(not device_state),
-                lanes, msg.data_ptr(), post.data_ptr(), dec.data_ptr(), conv.data_ptr(),
+                msg.data_ptr(), post.data_ptr(), dec.data_ptr(), conv.data_ptr(),
                 iters.data_ptr(), nxt.data_ptr(), prof, torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, kernel)

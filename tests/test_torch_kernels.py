@@ -883,11 +883,11 @@ def _random_code(m, n, weights, seed):
     return compile_pcm(H)
 
 
-def _k8_call(graph, dev, syn, method, alpha, state, p, lanes=None, max_iter=30):
+def _k8_call(graph, dev, syn, method, alpha, state, p, max_iter=30):
     args = (graph_to_torch(graph, dev), syn, _llr0(graph, dev, torch.float64, p), method, max_iter,
             alpha)
     before = bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state]
-    ker = bp_fold.bp_parallel_exact_cuda(*args, state=state, lanes=lanes)
+    ker = bp_fold.bp_parallel_exact_cuda(*args, state=state)
     torch.cuda.synchronize()
     assert bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state] == before + 1
     return ker, bp_fold.bp_parallel_exact_reference(*args)
@@ -948,28 +948,28 @@ def test_k8_wide_rows(dev, dc, method, alpha, state):
 
 
 @pytest.mark.parametrize("state", ["shared", "device"])
-@pytest.mark.parametrize("lanes", range(1, 9))
-def test_k8_lanes_per_block_tails(codes, lanes, state):
-    """Every lane count a block takes (1 to 8), on batches of 1, 2, 3 and 5
-    lanes and of lanes*k + 1 (a part-filled last block; k large enough that
-    each warp claims several lanes): a lane that converges in iteration 1
-    (a zero syndrome), one that never does (an odd-weight toric syndrome)
-    and the rest at their own iterations, in one block. The profile
-    receives each lane's cycles: every lane spends some in its prologue,
-    check passes and bit passes, and only the lane that runs to max_iter
-    in a syndrome test of its own (the others' ride on their check
-    passes)."""
+def test_k8_lanes_per_block_tails(codes, state):
+    """Batches of 1, 2, 3 and 5 lanes and of 8*1000 + 1 (the kernel's
+    eight lanes a block, a part-filled last block; enough lanes that each
+    warp claims several): a lane that converges in iteration 1 (a zero
+    syndrome), one that never does (an odd-weight toric syndrome) and the
+    rest at their own iterations, in one block. The profile receives each
+    lane's cycles: every lane spends some in its prologue, check passes and
+    bit passes, and only the lane that runs to max_iter in a syndrome test
+    of its own (the others' ride on their check passes)."""
     graph, tg, syn, _ = codes["toric20"]
     dev = syn.device
-    assert bp_fold.exact_lanes_per_block(most=True) == 8
-    base = syn[:lanes * 2000 + 1].clone()
+    sizes = (1, 2, 3, 5, 8 * 1000 + 1)
+    base = syn[:max(sizes)].clone()
+    assert base.shape[0] == max(sizes)
     base[0] = 0
     odd = np.random.default_rng(3).integers(0, 2, graph.m).astype(np.uint8)
     odd[0] ^= 1 - odd.sum() % 2
     base[1] = torch.from_numpy(odd)
-    for B in (1, 2, 3, 5, lanes * 2000 + 1):
+    for B in sizes:
         s = base[:B].contiguous()
-        ker, ref = _k8_call(graph, dev, s, MINIMUM_SUM, 0.625, state, P, lanes=lanes)
+        assert s.shape[0] == B
+        ker, ref = _k8_call(graph, dev, s, MINIMUM_SUM, 0.625, state, P)
         _assert_fold_equal(ker, ref, MINIMUM_SUM)
         assert bool(ker.converged[0]) and int(ker.iterations[0]) == 1
         if B > 1:
@@ -979,14 +979,11 @@ def test_k8_lanes_per_block_tails(codes, lanes, state):
     l0 = _llr0(graph, dev, torch.float64)
     prof = torch.zeros((5, 5), dtype=torch.int64, device=dev)
     res = bp_fold.bp_parallel_exact_cuda(tg, base[:5].contiguous(), l0, MINIMUM_SUM, 30, 0.625,
-                                         state=state, lanes=lanes, profile=prof)
+                                         state=state, profile=prof)
     torch.cuda.synchronize()
     assert bool((prof[:, :3] > 0).all()) and bool((prof >= 0).all())
     assert int(res.iterations[1]) == 30 and int(prof[1, 3]) > 0
     assert bool((prof[res.converged, 3] == 0).all())
-    with pytest.raises(ValueError, match="lanes must be 1 to"):
-        bp_fold.bp_parallel_exact_cuda(tg, base[:5].contiguous(), l0, MINIMUM_SUM, 30, 0.625,
-                                       lanes=bp_fold.exact_lanes_per_block(most=True) + 1)
 
 
 @pytest.mark.parametrize("alpha", [0.625, 0.0])
