@@ -21,7 +21,14 @@ the standalone UnionFind path (65,536 lanes), K3'-K5' on surface d=17 and
 toric d=20 too. The ``large_code`` phase takes toric d=31, whose lane does
 not fit a block's shared memory: K2'-K5' by default (the device variant)
 against their plain versions, then ``decode_batch`` of BP+OSD-0,
-BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. Every
+BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. K9'
+(MBP over GF(4)) is held against its plain version in both state variants
+and timed on the MBP workload (Hgf4 = [3 hz; hx] of the d=13 surface code,
+16,384 depolarizing syndromes), K1''s float64 instance (single-scan) the
+same way; then ``MbpDecoder.decode_batch`` on that workload,
+``uf_decode`` on CSS syndromes, single-scan in float64, and the float64
+decoders (BP+LSD-0, BP+LSD-CS-5, BeliefFind, BP+flip) run their main
+paths, each against the CPU path. Every
 ``*_time`` phase prints
 the kernel's device time (``device_ms``), its plain version's and its
 bound (see ``bound``). Every phase prints
@@ -44,8 +51,10 @@ import torch
 
 import ldpc_tpu_torch
 from ldpc_tpu_torch.codes import surface_code, toric_code
+from ldpc_tpu_torch.decoders import mbp_decoder as mbp_decoder_mod
 from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step
-from ldpc_tpu_torch.ops import _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, osd, uf
+from ldpc_tpu_torch.ops import (
+    _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, mbp, mbp_cuda, osd, uf)
 from ldpc_tpu_torch.ops.bp import (
     MINIMUM_SUM, PRODUCT_SUM, BpResult, channel_llr, serial_order_table)
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
@@ -78,6 +87,14 @@ FOLD_LARGE_DISTANCE = 60  # toric code of the fold engines' device-state check
 FOLD_LARGE_ROWS = 16
 FOLD_LARGE_ITERS = 3  # ... at this depth: its plain version takes n steps a sweep
 GOLDEN = "tests/fixtures/bp_golden.npz"  # the reference C++ decoder's BP decodings
+# MBP: the repo's own MBP workload (tools/decoder_bench.py): Hgf4 = [3 hz; hx]
+# of the d=13 surface code, each Pauli at MBP_ERROR_RATE, min-sum with
+# gamma = MS_FACTOR, alpha 1, beta 0, MAX_ITER iterations
+MBP_BATCH = 16384
+MBP_ERROR_RATE = 0.01
+MBP_CPU_ROWS = 1024  # rows also decoded on the CPU and compared
+UF_DECODE_ROWS = 64  # CSS syndromes of the uf_decode check
+SINGLE_SCAN_ROWS = 64  # syndromes decoded one at a time by decode_single_scan
 
 
 def phase(name: str, **fields) -> None:
@@ -271,6 +288,20 @@ def decode_paths(code) -> list:
             hx, error_rate=ERROR_RATE, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR,
             osd_method="osd_0", cutoff=SOFT_CUTOFF, sigma=SOFT_SIGMA, device=d),
           ("bp_soft_info", "osd0"), B_ROUNDS, solves="soft", inputs=soft_syndromes),
+        # float64: K8' at full depth (no cascade), then the post-processor
+        P("lsd0_f64", "lsd0[float64]", lambda d: T.BpLsdDecoder(
+            hx, lsd_method="lsd_0", dtype="float64", device=d, **bp),
+          ("bp_parallel_exact", "masked_solve"), B_ROUNDS),
+        P("lsd_cs5_f64", "lsd_cs-5[float64]", lambda d: T.BpLsdDecoder(
+            hx, lsd_method="lsd_cs", lsd_order=5, dtype="float64", device=d, **bp),
+          ("bp_parallel_exact", "masked_solve", "masked_export"), B_ROUNDS),
+        P("bf_inversion_f64", "BeliefFindDecoder[inversion,float64]",
+          lambda d: T.BeliefFindDecoder(hx, uf_method="inversion", dtype="float64", device=d,
+                                        **bp),
+          ("bp_parallel_exact", "masked_solve"), C_ROUNDS),
+        P("bp_flip_f64", "BpFlipDecoder[float64]", lambda d: T.BpFlipDecoder(
+            hx, flip_iterations=0, dtype="float64", device=d, **bp),
+          ("flip", "bp_parallel_exact"), C_ROUNDS, solves="converged"),
     ]
 
 
@@ -292,6 +323,27 @@ def large_paths(hx) -> list:
         P("uf_matrix", "large/UnionFindDecoder[matrix]", lambda d: T.UnionFindDecoder(
             hx, uf_method=True, device=d), ("masked_solve_device",), 1, solves="valid"),
     ]
+
+
+def mbp_workload(rows=MBP_BATCH, seed=7):
+    """The d=13 surface code as Hgf4 = [3 hz; hx] (312 x 313), its hx and
+    hz, and ``rows`` depolarizing syndromes: each qubit X, Y or Z with
+    probability MBP_ERROR_RATE each (numpy seed ``seed``)."""
+    code = surface_code(DISTANCE)
+    hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+    H = np.vstack([3 * hz, hx]).astype(np.uint8)
+    p = MBP_ERROR_RATE
+    rng = np.random.default_rng(seed)
+    errors = rng.choice(4, size=(rows, H.shape[1]), p=[1 - 3 * p, p, p, p]).astype(np.uint8)
+    return H, hx, hz, mbp.pauli_syndrome(H, errors).astype(np.uint8)
+
+
+def make_mbp_decoder(H, device):
+    """``MbpDecoder`` at the MBP workload's settings."""
+    return ldpc_tpu_torch.MbpDecoder(
+        Hgf4=H, error_channel=np.full((3, H.shape[1]), MBP_ERROR_RATE), max_iter=MAX_ITER,
+        alpha_parameter=1.0, beta_parameter=0.0, bp_method="min_sum",
+        gamma_parameter=MS_FACTOR, device=device)
 
 
 def mc_step(code, device):
@@ -663,6 +715,10 @@ def captured_calls(module, name, run):
 def reset_counters() -> None:
     bp_cuda.LAUNCHES = 0
     bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
+    bp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
+    mbp_cuda.LAUNCHES = 0
+    mbp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
+    mbp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
     for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
         by_variant.update(dict.fromkeys(by_variant, 0))
     flip.FLIP_LAUNCHES = 0
@@ -678,6 +734,10 @@ def read_counters() -> dict:
         "bp_parallel": bp_cuda.LAUNCHES,
         "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
         "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
+        "bp_parallel_float64": bp_cuda.DTYPE_LAUNCHES["float64"],
+        "mbp": mbp_cuda.LAUNCHES,
+        "mbp_shared_state": mbp_cuda.STATE_LAUNCHES["shared"],
+        "mbp_device_state": mbp_cuda.STATE_LAUNCHES["device"],
         **{kernel: sum(by_variant.values())
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()},
         **{f"{kernel}_{variant}": count
@@ -1036,6 +1096,63 @@ def time_fold(name, kernel, graph, args, **extra):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}, err
 
 
+def hold_mbp(ker, ref, config):
+    """K9''s outputs against its plain version's: decisions, flags and
+    iteration counts equal on every lane, posteriors within rtol 1e-9
+    (float64) or 1e-4 (float32), atol 1e-5 (both sides call CUDA's exp, log
+    and tanh). Returns (differing lanes, largest posterior error)."""
+    nlanes = int(((ker[0] != ref[0]).any(dim=1) | (ker[2] != ref[2]) | (ker[3] != ref[3])).sum())
+    err = posterior_err(ker[1], ref[1])
+    rtol = 1e-9 if ker[1].dtype == torch.float64 else 1e-4
+    close = torch.isclose(ker[1], ref[1], rtol=rtol, atol=1e-5, equal_nan=True)
+    if nlanes or not bool(close.all()):
+        raise AssertionError(f"K9' differs from its plain version: {config}")
+    return nlanes, err
+
+
+def compare_mbp(config, g, syn, chan, inv_alpha, method, states=("shared", "device")):
+    """K9' against its plain version on the same inputs, in each of
+    ``states`` (forced; None: chosen by the footprint). Returns the plain
+    result and the largest posterior error."""
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, MAX_ITER, 0.0, method, MS_FACTOR)
+    worst = 0.0
+    for state in states:
+        ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, MAX_ITER, 0.0, method, MS_FACTOR,
+                                state=state)
+        torch.cuda.synchronize()
+        nlanes, err = hold_mbp(ker, ref, config)
+        worst = max(worst, err)
+        phase("mbp_vs_plain", config=config, dtype=str(chan.dtype)[6:],
+              state=state or mbp_cuda.state_variant(g, chan.dtype), lanes=syn.shape[0],
+              differing_lanes=nlanes, max_abs_err=err, converged=int(ker[2].sum()))
+    return ref, worst
+
+
+def mbp_ops(g, lane_iterations: int, method: int) -> float:
+    """K9''s operations over ``lane_iterations`` (sweeps), each counted once
+    and each exp, log and tanh as one operation (the card computes them
+    from about twenty each, so this is a floor). Per edge of a row of
+    degree r, its message from the r - 1 other cached values: min-sum |lam|,
+    a min compare and a sign test each, then gamma times the least and the
+    sign (2); product-sum a product each, two clips, 1 + p, 1 - p, the
+    quotient, the log and the sign (6). Per qubit of degree d: 3 d products
+    by the coefficient and 3 d adds, the 3 channel adds and the decision (5
+    compares). Per edge: its new message (3 subtracts), the value (3 exp,
+    the agreeing one plus 1, the other two summed, the quotient, + 1e-12,
+    the log: 8; product-sum a product and a tanh more: 10) and the syndrome
+    test (2 compares and a parity: 3)."""
+    rows = (g.chk_bits < g.n).sum(dim=1).long().cpu()
+    cols = (g.var_chks < g.m).sum(dim=1).long().cpu()
+    edges = int(rows.sum())
+    other = int((rows * (rows - 1)).sum())
+    if method == MINIMUM_SUM:
+        per = 3 * other + 2 * edges + 8 * edges
+    else:
+        per = other + 6 * edges + 10 * edges
+    per += int((6 * cols).sum()) + 3 * g.n + 5 * g.n + 3 * edges + 3 * edges
+    return float(lane_iterations) * per
+
+
 GOLDEN_CONFIGS = [(0, 1, 1.0), (0, 0, 1.0), (0, 2, 1.0), (1, 1, 1.0), (1, 1, 0.625),
                   (1, 1, 0.0), (1, 0, 1.0), (1, 0, 0.625), (1, 2, 0.625)]
 
@@ -1365,6 +1482,117 @@ def main() -> int:
         fold_err[kernel] = max(fold_err[kernel], err)
         fold_numbers.setdefault(kernel, numbers)
 
+    # ---- 5c. K9' (MBP over GF(4)) against its plain version, and timed ---------
+    H4, hx4, hz4, mbp_syn = mbp_workload()
+    g4 = mbp.gf4_to_torch(mbp.compile_gf4(H4), dev)
+    n4 = H4.shape[1]
+    mbp_syn_d = torch.from_numpy(mbp_syn).to(dev)
+    params = {dt: mbp.mbp_params(np.full((3, n4), MBP_ERROR_RATE), np.ones((3, n4)), dt, dev)
+              for dt in (torch.float64, torch.float32)}
+    mbp_err = 0.0
+    for mname, method, dt in (("product_sum", PRODUCT_SUM, torch.float64),
+                              ("ms0.625", MINIMUM_SUM, torch.float64),
+                              ("ms0.625", MINIMUM_SUM, torch.float32)):
+        mbp_err = max(mbp_err, compare_mbp(f"surface13/{mname}", g4,
+                                           mbp_syn_d[:KERNEL_BATCH].contiguous(),
+                                           *params[dt], method)[1])
+    # toric d=20 as [3 hz; hx]: above K9''s shared budget
+    hx20g, hz20g = (np.asarray(h.todense(), np.uint8) for h in (tor.hx, tor.hz))
+    H20g = np.vstack([3 * hz20g, hx20g]).astype(np.uint8)
+    g20g = mbp.gf4_to_torch(mbp.compile_gf4(H20g), dev)
+    if mbp_cuda.state_variant(g20g, torch.float64) != "device":
+        raise AssertionError("toric d=20 should keep its K9' state in device memory")
+    rng20 = np.random.default_rng(20)
+    e20 = rng20.choice(4, size=(2048, H20g.shape[1]), p=[0.97, 0.01, 0.01, 0.01])
+    syn20g = torch.from_numpy(mbp.pauli_syndrome(H20g, e20.astype(np.uint8)).astype(np.uint8))
+    mbp_err = max(mbp_err, compare_mbp(
+        "toric20/ms0.625", g20g, syn20g.to(dev), *mbp.mbp_params(
+            np.full((3, H20g.shape[1]), MBP_ERROR_RATE), np.ones((3, H20g.shape[1])),
+            torch.float64, dev), MINIMUM_SUM, states=(None,))[1])
+
+    def mbp_timed(method):
+        """K9' at the MBP workload's call (16,384 lanes, float64): the plain
+        version once, the kernel held against it, then timed."""
+        args = (g4, mbp_syn_d, *params[torch.float64], MAX_ITER, 0.0, method, MS_FACTOR)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        ref = mbp.mbp_reference(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        before = mbp_cuda.LAUNCHES
+        ker = mbp_cuda.mbp_cuda(*args)
+        torch.cuda.synchronize()
+        launches = mbp_cuda.LAUNCHES - before
+        nlanes, err = hold_mbp(ker, ref, "mbp_time")
+        lane_iterations = int(ker[3].sum())
+        moved = nbytes(mbp_syn_d, *params[torch.float64], g4.chk_bits, g4.chk_val, g4.var_chks,
+                       g4.var_slot, g4.var_val, g4.lv_bits, g4.lv_ptr, *ker)
+        bound_ms, bound_by = bound(moved, mbp_ops(g4, lane_iterations, method), F64_OPS_PER_S)
+        ms = device_ms(lambda: mbp_cuda.mbp_cuda(*args))
+        call_ms = cuda_ms(lambda: mbp_cuda.mbp_cuda(*args), 3)
+        forced = {f"{state}_state_ms": device_ms(lambda: mbp_cuda.mbp_cuda(*args, state=state))
+                  for state in ("shared", "device")}
+        phase("mbp_time", config="min_sum" if method == MINIMUM_SUM else "product_sum",
+              shape=f"B={mbp_syn_d.shape[0]},max_iter={MAX_ITER}", dtype="float64", ms=ms,
+              call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              ops_rate=f"float64:{F64_OPS_PER_S}", share_of_bound=bound_ms / ms,
+              launches=launches, lane_iterations=lane_iterations, levels=g4.levels,
+              converged=int(ker[2].sum()),
+              differing_lanes=nlanes, max_abs_err=err, state=mbp_cuda.state_variant(g4),
+              **forced)
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}, err
+
+    mbp_numbers, err = mbp_timed(MINIMUM_SUM)
+    mbp_err = max(mbp_err, err, mbp_timed(PRODUCT_SUM)[1])
+
+    # ---- 5d. K1''s float64 instance (single-scan) against its plain version ----
+    ss_err = 0.0
+    for alpha in (MS_FACTOR, 0.0):
+        ref = bp_cuda.bp_parallel_reference(tg, syn_k, llr0_64, MINIMUM_SUM, MAX_ITER, alpha,
+                                            dynamic_alpha=False)
+        for state in ("shared", "device"):
+            ker = bp_cuda.bp_parallel_cuda(tg, syn_k, llr0_64, MINIMUM_SUM, MAX_ITER, alpha,
+                                           state=state, dynamic_alpha=False)
+            torch.cuda.synchronize()
+            nlanes, err = hold_fold("bp_parallel", ker, ref, MINIMUM_SUM,
+                                    f"single_scan_f64/{alpha}/{state}")
+            ss_err = max(ss_err, err)
+            phase("single_scan_f64_vs_plain", config=f"surface13/ms{alpha}", state=state,
+                  lanes=syn_k.shape[0], differing_lanes=nlanes, max_abs_err=err,
+                  converged=int(ker.converged.sum()))
+
+    def single_scan_64():
+        return bp_cuda.bp_parallel_cuda(tg, syn_all, llr0_64, MINIMUM_SUM, MAX_ITER, MS_FACTOR,
+                                        dynamic_alpha=False)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    ref = bp_cuda.bp_parallel_reference(tg, syn_all, llr0_64, MINIMUM_SUM, MAX_ITER, MS_FACTOR,
+                                        dynamic_alpha=False)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    before = bp_cuda.DTYPE_LAUNCHES["float64"]
+    ker = single_scan_64()
+    torch.cuda.synchronize()
+    launches = bp_cuda.DTYPE_LAUNCHES["float64"] - before
+    nlanes, err = hold_fold("bp_parallel", ker, ref, MINIMUM_SUM, "single_scan_f64_time")
+    ss_err = max(ss_err, err)
+    lane_iterations = int(ker.iterations.sum())
+    bound_ms, bound_by = bound(nbytes(syn_all, llr0_64, tg.chk_bits_t, tg.var_edges_t, *ker),
+                               k1_ops(graph, lane_iterations), F64_OPS_PER_S)
+    ms = device_ms(single_scan_64)
+    ss_numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    phase("single_scan_f64_time", shape=f"B={syn_all.shape[0]},max_iter={MAX_ITER}",
+          dtype="float64", ms=ms, call_ms=cuda_ms(single_scan_64, 3), plain_ms=plain_ms,
+          bound_ms=bound_ms, bound_by=bound_by, ops_rate=f"float64:{F64_OPS_PER_S}",
+          share_of_bound=bound_ms / ms, launches=launches, lane_iterations=lane_iterations,
+          differing_lanes=nlanes, max_abs_err=err,
+          state=bp_cuda.state_variant(tg.m, tg.n, tg.dc, torch.float64))
+
     # ---- 6. main paths: decode_batch -----------------------------------------
     paths = {p.key: p for p in decode_paths(code)}
     path = {key: drive_decoder(p, H, syn_np) for key, p in paths.items()}
@@ -1374,6 +1602,96 @@ def main() -> int:
     elim_err["masked_solve"] = max(elim_err["masked_solve"],
                                    time_k4_calls("uf_matrix", uf_calls)["max_abs_err"])
     k4_residency(graph, {"lsd0": k4_calls, "uf_matrix": uf_calls})
+
+    # ---- 6b. single-scan in float64: decode_single_scan, a syndrome a call -----
+    ss_rows = syn_np[np.flatnonzero(syn_np.any(axis=1))[:SINGLE_SCAN_ROWS]]
+    bp64 = dict(error_rate=ERROR_RATE, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR,
+                dtype="float64")
+    reset_counters()
+    d64 = ldpc_tpu_torch.BpDecoder(code.hx, device="cuda", **bp64)
+    card = [(d64.decode_single_scan(s), d64.converge, d64.iter) for s in ss_rows]
+    torch.cuda.synchronize()
+    ss_counts = read_counters()
+    if ss_counts["bp_parallel_float64"] != len(ss_rows):
+        raise AssertionError(f"single-scan float64 skipped K1''s float64 instance: {ss_counts}")
+    c64 = ldpc_tpu_torch.BpDecoder(code.hx, device="cpu", **bp64)
+    for (x, conv, it), s in zip(card, ss_rows):
+        if not ((c64.decode_single_scan(s) == x).all() and (c64.converge, c64.iter) == (conv, it)):
+            raise AssertionError("decode_single_scan in float64 differs from the CPU")
+    phase("single_scan_f64_path", rows=len(ss_rows), converged=sum(c for _, c, _ in card),
+          bp_parallel_float64=ss_counts["bp_parallel_float64"], cpu_rows_equal=len(ss_rows))
+
+    # ---- 6c. MbpDecoder: decode_batch and uf_decode ----------------------------
+    reset_counters()
+    mdec = make_mbp_decoder(H4, "cuda")
+    t0 = time.perf_counter()
+    mout = mdec.decode_batch(mbp_syn)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mbp_counts = read_counters()
+    if mbp_counts["mbp"] == 0:
+        raise AssertionError(f"MbpDecoder skipped K9': {mbp_counts}")
+    mconv, miters = mdec.converge_batch.copy(), mdec.iter_batch.copy()
+    cand = np.concatenate([mbp.pauli_syndrome(H4, mout[i:i + 1024])
+                           for i in range(0, len(mout), 1024)])
+    if not (cand[mconv] == mbp_syn[mconv]).all():
+        raise AssertionError("MbpDecoder: a converged row's Pauli syndrome differs from s")
+    mcpu = make_mbp_decoder(H4, "cpu")
+    out_cpu = mcpu.decode_batch(mbp_syn[:MBP_CPU_ROWS])
+    if not ((out_cpu == mout[:MBP_CPU_ROWS]).all()
+            and (mcpu.converge_batch == mconv[:MBP_CPU_ROWS]).all()
+            and (mcpu.iter_batch == miters[:MBP_CPU_ROWS]).all()):
+        raise AssertionError("MbpDecoder.decode_batch on the card differs from the CPU")
+    mdec.decode_batch(mbp_syn)  # settle
+    times = []
+    for _ in range(SLICE_C_ROUNDS):
+        t0 = time.perf_counter()
+        mdec.decode_batch(mbp_syn)
+        times.append(time.perf_counter() - t0)
+    phase("decode_batch", config="MbpDecoder[min_sum]", syndromes=len(mbp_syn),
+          warmup_s=round(warm_s, 3), median_s=statistics.median(times),
+          syndromes_per_s=len(mbp_syn) / statistics.median(times),
+          not_converged=int((~mconv).sum()), mean_iterations=float(miters.mean()),
+          pauli_syndrome_rows=f"converged:{int(mconv.sum())}", cpu_rows_equal=MBP_CPU_ROWS,
+          launches=json.dumps({k: v for k, v in mbp_counts.items() if v}))
+    css = {d: ldpc_tpu_torch.MbpDecoder(
+        HX_CSS=hx4, HZ_CSS=hz4, error_channel=np.full((3, n4), MBP_ERROR_RATE), max_iter=MAX_ITER,
+        bp_method="min_sum", gamma_parameter=MS_FACTOR, device=d) for d in ("cuda", "cpu")}
+    mz = hz4.shape[0]
+    reset_counters()
+    uf_out, uf_conv = [], 0
+    with np.errstate(over="ignore", divide="ignore"):
+        for s in mbp_syn[:UF_DECODE_ROWS]:
+            ox, oz = css["cuda"].uf_decode(sx=s[:mz], sz=s[mz:])
+            conv = css["cuda"].converge
+            uf_out.append((ox, oz, None if conv else css["cuda"].log_prob_ratios.copy()))
+            uf_conv += conv
+        torch.cuda.synchronize()
+        uf_counts = read_counters()
+        # the CPU path from the card's MBP posteriors: the weights are
+        # log-odds near 0 or 1 whose ulps the libraries' exp and log move,
+        # and a weight's last bits may reorder a union-find growth
+        uf_gap = 0.0
+        for (ox, oz, lp), s in zip(uf_out, mbp_syn[:UF_DECODE_ROWS]):
+            cx, cz = css["cpu"].decode(sx=s[:mz], sz=s[mz:])
+            if css["cpu"].converge != (lp is None):
+                raise AssertionError("MbpDecoder converges on the card and not on the CPU")
+            if lp is not None:
+                uf_gap = max(uf_gap, float(np.abs(css["cpu"].log_prob_ratios - lp).max()))
+                wx, wz = mbp_decoder_mod.uf_weights(lp)
+                cx = css["cpu"]._uf("x").decode(s[:mz], llrs=wx, bits_per_step=1)
+                cz = css["cpu"]._uf("z").decode(s[mz:], llrs=wz, bits_per_step=1)
+            if not ((cx == ox).all() and (cz == oz).all()):
+                raise AssertionError("MbpDecoder.uf_decode on the card differs from the CPU")
+            if not ((hz4 @ ox % 2 == s[:mz]).all() and (hx4 @ oz % 2 == s[mz:]).all()):
+                raise AssertionError("MbpDecoder.uf_decode does not solve its syndromes")
+    if uf_counts["mbp"] != UF_DECODE_ROWS or (uf_conv < UF_DECODE_ROWS
+                                              and not uf_counts["masked_solve"]):
+        raise AssertionError(f"uf_decode skipped a kernel: {uf_counts}")
+    phase("mbp_uf_decode", rows=UF_DECODE_ROWS, mbp_converged=uf_conv,
+          posterior_gap_to_cpu=uf_gap,
+          hx_eq_s_rows=UF_DECODE_ROWS, cpu_rows_equal=UF_DECODE_ROWS,
+          launches=json.dumps({k: v for k, v in uf_counts.items() if v}))
 
     # ---- 7. device Monte-Carlo -----------------------------------------------
     step, runs_per_call = mc_step(code, "cuda")
@@ -1437,6 +1755,12 @@ def main() -> int:
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               path["osd0"], k1_err, k1_numbers,
               {"shared": "bp_shared_state", "device": "bp_device_state"}),
+        # K1''s float64 instance on its path: single-scan, a syndrome a call
+        entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
+              ss_counts | {"bp_parallel": ss_counts["bp_parallel_float64"]}, ss_err, ss_numbers,
+              {"shared": "bp_shared_state", "device": "bp_device_state"})
+        | {"name": "bp_parallel[float64]", "dtype": "float64",
+           "main_path": "BpDecoder(dtype=float64).decode_single_scan"},
         entry("osd0", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
               path["osd0"], k2_err, k2_numbers, elim_variants("osd0")),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
@@ -1458,6 +1782,9 @@ def main() -> int:
         entry("bp_parallel_exact", "bp_exact.cu", "ldpc_tpu/ops/bp.py:251", path["osd0_f64"],
               fold_err["bp_parallel_exact"], fold_numbers["bp_parallel_exact"],
               fold_states("bp_parallel_exact")),
+        entry("mbp", "mbp.cu", "ldpc_tpu/ops/mbp.py:79", mbp_counts, mbp_err, mbp_numbers,
+              {"shared": "mbp_shared_state", "device": "mbp_device_state"})
+        | {"main_path": "MbpDecoder.decode_batch"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

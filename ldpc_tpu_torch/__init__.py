@@ -12,22 +12,38 @@ Every decoder and factory runs on the CUDA device unless the caller passes
 without a CUDA device the default raises (:mod:`ldpc_tpu_torch.device`).
 
 Importing the package builds nothing and initialises no CUDA context. The
-package imports nothing of ``ldpc_tpu`` and never ``jax``: the host modules
-it needs (code constructions, input validation, host GF(2) rank and kernel,
-the PCM compiler) are its own copies, in ``codes/``, ``helpers.py``,
-``mod2.py`` and ``ops/pcm.py``.
+package imports nothing of ``ldpc_tpu`` and never ``jax``: its host modules
+(code constructions, input validation, the GF(2) toolbox ``mod2``, the
+code utilities, alist files, protographs, the noise models and the PCM
+compiler) are its own copies, in ``codes/``, ``helpers.py``, ``mod2/``,
+``code_util/``, ``alist.py``, ``protograph.py``, ``noise_models/`` and
+``ops/pcm.py``; ``alist``, ``code_util``, ``noise_models`` and
+``protograph`` load on first use.
 """
 
 __version__ = "0.1.0"
 
-from ldpc_tpu_torch import codes  # noqa: F401
+from ldpc_tpu_torch import codes, helpers, mod2  # noqa: F401
 from ldpc_tpu_torch.decoders.belief_find import BeliefFindDecoder
 from ldpc_tpu_torch.decoders.bp_decoder import BpDecoder, SoftInfoBpDecoder
 from ldpc_tpu_torch.decoders.bp_flip import BpFlipDecoder, FlipDecoder
 from ldpc_tpu_torch.decoders.bplsd_decoder import BpLsdDecoder
 from ldpc_tpu_torch.decoders.bposd_decoder import BpOsdDecoder, SoftInfoBpOsdDecoder
 from ldpc_tpu_torch.decoders.lsd_decoder import LsdDecoder
+from ldpc_tpu_torch.decoders.mbp_decoder import MbpDecoder, mbp_decoder
 from ldpc_tpu_torch.decoders.union_find import UnionFindDecoder
+
+_LAZY_SUBMODULES = ("alist", "code_util", "noise_models", "protograph")
+
+
+def __getattr__(name):
+    """The host submodules, imported on first use."""
+    import importlib
+
+    if name in _LAZY_SUBMODULES:
+        return importlib.import_module(f"ldpc_tpu_torch.{name}")
+    raise AttributeError(f"module 'ldpc_tpu_torch' has no attribute '{name}'")
+
 
 __all__ = [
     "BeliefFindDecoder",
@@ -37,9 +53,14 @@ __all__ = [
     "BpOsdDecoder",
     "FlipDecoder",
     "LsdDecoder",
+    "MbpDecoder",
     "SoftInfoBpDecoder",
     "SoftInfoBpOsdDecoder",
     "UnionFindDecoder",
     "codes",
+    "helpers",
+    "mbp_decoder",
+    "mod2",
     "__version__",
+    *_LAZY_SUBMODULES,
 ]

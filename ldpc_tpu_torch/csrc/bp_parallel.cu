@@ -19,6 +19,15 @@
 // A lane stops at its first convergence, so its state when it stops is its
 // output: decision, posterior and iteration count freeze there.
 //
+// The body is a template on the scalar type of the messages. float runs
+// both methods; double runs min-sum, which is all single-scan in float64
+// needs (ldpc_tpu/ops/bp.py:135-160 runs the fast engine at the decoder's
+// dtype): the same recurrence v2c = post - c2v, every operation rounded
+// once as the plain version rounds it (__dsub_rn, __dmul_rn, __dadd_rn and
+// -fmad=false, as for float), the absent slots' magnitude 1e30 in double.
+// Its state doubles: (m*dc + n)*8 bytes of messages and posteriors, 7.5 KB
+// at d=13; above the per-lane budget the device-state variant takes it.
+//
 // What bounds it on the H100: neither bytes nor operations. A lane-iteration
 // at d=13 is about 7k scalar operations on 4 KB of state, and the state
 // never has to leave the SM; the work is a chain of dependent gathers
@@ -61,7 +70,7 @@
 
 namespace {
 
-constexpr float kBig = 1e30f;  // absent slots' magnitude (ldpc_tpu.ops.bp._BIG)
+constexpr double kBig = 1e30;  // absent slots' magnitude (ldpc_tpu.ops.bp._BIG)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLanesPerBlock = 4;  // lanes (warps) per block
 // A lane's state lives in shared memory up to this many bytes: at the
@@ -76,35 +85,53 @@ struct LaneLayout {
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-__host__ __device__ inline LaneLayout lane_layout(int m, int n, int E) {
+// elem: bytes of the scalar type (4 float, 8 double)
+__host__ __device__ inline LaneLayout lane_layout(int m, int n, int E, size_t elem) {
   LaneLayout L;
-  L.post = align16((size_t)E * sizeof(float));      // c2v at offset 0
-  L.hard = L.post + align16((size_t)n * sizeof(float));
+  L.post = align16((size_t)E * elem);  // c2v at offset 0
+  L.hard = L.post + align16((size_t)n * elem);
   L.synd = L.hard + align16((size_t)n);
   L.total = L.synd + align16((size_t)m);
   return L;
 }
 
+// every operation rounded once, in the type of its operands
+__device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
+__device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
+__device__ __forceinline__ float mul_rn(float x, float y) { return __fmul_rn(x, y); }
+__device__ __forceinline__ double mul_rn(double x, double y) { return __dmul_rn(x, y); }
+__device__ __forceinline__ float add_rn(float x, float y) { return __fadd_rn(x, y); }
+__device__ __forceinline__ double add_rn(double x, double y) { return __dadd_rn(x, y); }
+__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_of(double x) { return fabs(x); }
+
+template <typename T>
 struct Args {
   const uint8_t* synd;     // (B, m) 0/1
-  const float* llr0;       // (n,)
+  const T* llr0;           // (n,)
   const int* chk_bits_t;   // (dc, m) slot-major, pad = n
   const int* var_edges_t;  // (dv, n) slot-major edge ids slot*m + check, pad = m*dc
   int m, n, dc, dv, B, max_iter;
-  float ms_scaling;
+  double ms_scaling;       // rounded to T once
   int dynamic_alpha;       // 0: alpha stays ms_scaling even when it is 0
-  float* c2v;              // (B, m*dc) scratch of the device-memory variant
-  float* post;             // (B, n) posterior
+  T* c2v;                  // (B, m*dc) scratch of the device-memory variant
+  T* post;                 // (B, n) posterior
   uint8_t* dec;            // (B, n) hard decisions
   bool* conv;              // (B,)
   int* iters;              // (B,)
 };
 
-// Registers: at CAP <= 8 the compiler is held to 40 a thread so that 48
-// warps (12 blocks of 4 lanes) fit an SM; wider rows get more.
-template <int CAP, bool kMinSum, bool kShared>
-__global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 16 ? 6 : 1)))
-    bp_warp_kernel(const Args a) {
+// Registers: at CAP <= 8 the compiler is held to 40 a thread in float so
+// that 48 warps (12 blocks of 4 lanes) fit an SM, and to 64 in double,
+// whose messages take two registers each; wider rows get more.
+template <typename T, int CAP>
+constexpr int min_blocks() {
+  return CAP <= 8 ? (sizeof(T) == 4 ? 12 : 8) : (CAP <= 16 ? 6 : 1);
+}
+
+template <typename T, int CAP, bool kMinSum, bool kShared>
+__global__ void __launch_bounds__(32 * kLanesPerBlock, (min_blocks<T, CAP>()))
+    bp_warp_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -113,15 +140,15 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
   const int m = a.m, n = a.n, dc = a.dc, dv = a.dv;
   const int E = m * dc;
 
-  float* c2v;
-  float* post;
+  T* c2v;
+  T* post;
   uint8_t* hard;
   const uint8_t* syn;
   if (kShared) {
-    const LaneLayout L = lane_layout(m, n, E);
+    const LaneLayout L = lane_layout(m, n, E, sizeof(T));
     unsigned char* base = smem + (size_t)w * L.total;
-    c2v = reinterpret_cast<float*>(base);
-    post = reinterpret_cast<float*>(base + L.post);
+    c2v = reinterpret_cast<T*>(base);
+    post = reinterpret_cast<T*>(base + L.post);
     hard = base + L.hard;
     uint8_t* s = base + L.synd;
     const uint8_t* src = a.synd + (size_t)b * m;
@@ -143,34 +170,34 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
   int it = 0;
   while (it < a.max_iter) {
     ++it;
-    const float alpha = (kMinSum && a.dynamic_alpha && a.ms_scaling == 0.0f)
-                            ? 1.0f - ldexpf(1.0f, -it)
-                            : a.ms_scaling;
+    const T alpha = (kMinSum && a.dynamic_alpha && a.ms_scaling == 0.0)
+                        ? sub_rn(T(1), static_cast<T>(ldexp(1.0, -it)))
+                        : static_cast<T>(a.ms_scaling);
 
     // ---- check -> bit: one thread per check, slots in order -------------
     for (int i = t; i < m; i += 32) {
       const int s = syn[i];
       unsigned on = 0;  // bit k: slot k holds an edge
-      if (kMinSum) {
-        float mag[CAP];
+      if constexpr (kMinSum) {
+        T mag[CAP];
         unsigned neg = 0;
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
-          mag[k] = kBig;
+          mag[k] = T(kBig);
           if (k < dc) {
             const int j = __ldg(a.chk_bits_t + k * m + i);
             if (j < n) {
-              const float old = (it > 1) ? c2v[k * m + i] : 0.0f;
-              const float v = __fsub_rn(post[j], old);
-              mag[k] = fabsf(v);
+              const T old = (it > 1) ? c2v[k * m + i] : T(0);
+              const T v = sub_rn(post[j], old);
+              mag[k] = abs_of(v);
               on |= 1u << k;
-              if (v <= 0.0f) neg |= 1u << k;
+              if (v <= T(0)) neg |= 1u << k;
             }
           }
         }
         // first-occurrence argmin over the dc slots, then the minimum of
         // the other slots (kBig when there are none)
-        float min1 = mag[0];
+        T min1 = mag[0];
         int amin = 0;
 #pragma unroll
         for (int k = 1; k < CAP; ++k) {
@@ -179,7 +206,7 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
             amin = k;
           }
         }
-        float min2 = kBig;
+        T min2 = T(kBig);
 #pragma unroll
         for (int k = 0; k < CAP; ++k) {
           if (k < dc && k != amin && mag[k] < min2) min2 = mag[k];
@@ -189,7 +216,7 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
         for (int k = 0; k < CAP; ++k) {
           if ((on >> k) & 1u) {
             // alpha * sign * excl with sign = +-1: the product rounds once
-            const float r = __fmul_rn(alpha, (k == amin) ? min2 : min1);
+            const T r = mul_rn(alpha, (k == amin) ? min2 : min1);
             c2v[k * m + i] = ((base_par + (int)((neg >> k) & 1u)) & 1) ? -r : r;
           }
         }
@@ -236,15 +263,15 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
 
     // ---- bit update and hard decision: one thread per bit ----------------
     for (int j = t; j < n; j += 32) {
-      float acc = 0.0f;
+      T acc = T(0);
       for (int k = 0; k < dv; ++k) {
         const int e = __ldg(a.var_edges_t + k * n + j);
-        const float val = (e < E) ? c2v[e] : 0.0f;
-        acc = (k == 0) ? val : __fadd_rn(acc, val);
+        const T val = (e < E) ? c2v[e] : T(0);
+        acc = (k == 0) ? val : add_rn(acc, val);
       }
-      const float l = __fadd_rn(__ldg(a.llr0 + j), acc);
+      const T l = add_rn(__ldg(a.llr0 + j), acc);
       post[j] = l;
-      hard[j] = (l <= 0.0f) ? 1 : 0;
+      hard[j] = (l <= T(0)) ? 1 : 0;
     }
     __syncwarp();
 
@@ -263,7 +290,7 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
   }
 
   if (kShared) {
-    float* po = a.post + (size_t)b * n;
+    T* po = a.post + (size_t)b * n;
     uint8_t* de = a.dec + (size_t)b * n;
     for (int j = t; j < n; j += 32) {
       po[j] = post[j];
@@ -276,12 +303,13 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (CAP <= 8 ? 12 : (CAP <= 
   }
 }
 
-template <int CAP, bool kMinSum, bool kShared>
-int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = bp_warp_kernel<CAP, kMinSum, kShared>;
+template <typename T, int CAP, bool kMinSum, bool kShared>
+int launch(const Args<T>& a, cudaStream_t stream) {
+  auto kernel = bp_warp_kernel<T, CAP, kMinSum, kShared>;
   // a forced shared-state block above the card's opt-in limit fails here
   const size_t smem =
-      kShared ? (size_t)kLanesPerBlock * lane_layout(a.m, a.n, a.m * a.dc).total : 0;
+      kShared ? (size_t)kLanesPerBlock * lane_layout(a.m, a.n, a.m * a.dc, sizeof(T)).total
+              : 0;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -296,35 +324,40 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <int CAP>
-int launch_cap(const Args& a, int min_sum, int shared, cudaStream_t st) {
+int launch_cap(const Args<float>& a, int min_sum, int shared, cudaStream_t st) {
   if (min_sum) {
-    return shared ? launch<CAP, true, true>(a, st) : launch<CAP, true, false>(a, st);
+    return shared ? launch<float, CAP, true, true>(a, st)
+                  : launch<float, CAP, true, false>(a, st);
   }
-  return shared ? launch<CAP, false, true>(a, st) : launch<CAP, false, false>(a, st);
+  return shared ? launch<float, CAP, false, true>(a, st)
+                : launch<float, CAP, false, false>(a, st);
 }
 
-}  // namespace
-
-extern "C" {
-
-// 1 when a lane's state of an (m, n, dc) code fits kLaneBudget, so the
-// shared-memory variant is the default; 0 for the device-memory variant.
-int ldpc_bp_shared_state(int m, int n, int dc) {
-  return lane_layout(m, n, m * dc).total <= kLaneBudget ? 1 : 0;
+// double: min-sum only (the wrapper refuses product-sum in float64)
+template <int CAP>
+int launch_cap(const Args<double>& a, int min_sum, int shared, cudaStream_t st) {
+  if (!min_sum) return (int)cudaErrorInvalidValue;
+  return shared ? launch<double, CAP, true, true>(a, st)
+                : launch<double, CAP, true, false>(a, st);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success), or the error
-// of raising the block's shared-memory limit. The caller checks dc <= 32
-// and allocates every buffer; c2v is read only by the device-memory variant
-// (shared == 0). Nothing synchronises.
-int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
-                     const void* var_edges_t, int m, int n, int dc, int dv,
-                     int B, int max_iter, int min_sum, float ms_scaling,
-                     int dynamic_alpha, int shared, void* c2v, void* post, void* dec,
-                     void* conv, void* iters, void* stream) {
-  Args a;
+template <typename T>
+int launch_dc(const Args<T>& a, int min_sum, int shared, cudaStream_t st) {
+  if (a.dc <= 4) return launch_cap<4>(a, min_sum, shared, st);
+  if (a.dc <= 8) return launch_cap<8>(a, min_sum, shared, st);
+  if (a.dc <= 16) return launch_cap<16>(a, min_sum, shared, st);
+  if (a.dc <= 32) return launch_cap<32>(a, min_sum, shared, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int run(const void* synd, const void* llr0, const void* chk_bits_t,
+        const void* var_edges_t, int m, int n, int dc, int dv, int B, int max_iter,
+        int min_sum, double ms_scaling, int dynamic_alpha, int shared, void* c2v,
+        void* post, void* dec, void* conv, void* iters, cudaStream_t st) {
+  Args<T> a;
   a.synd = static_cast<const uint8_t*>(synd);
-  a.llr0 = static_cast<const float*>(llr0);
+  a.llr0 = static_cast<const T*>(llr0);
   a.chk_bits_t = static_cast<const int*>(chk_bits_t);
   a.var_edges_t = static_cast<const int*>(var_edges_t);
   a.m = m;
@@ -335,17 +368,44 @@ int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
   a.max_iter = max_iter;
   a.ms_scaling = ms_scaling;
   a.dynamic_alpha = dynamic_alpha;
-  a.c2v = static_cast<float*>(c2v);
-  a.post = static_cast<float*>(post);
+  a.c2v = static_cast<T*>(c2v);
+  a.post = static_cast<T*>(post);
   a.dec = static_cast<uint8_t*>(dec);
   a.conv = static_cast<bool*>(conv);
   a.iters = static_cast<int*>(iters);
+  return launch_dc<T>(a, min_sum, shared, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// 1 when a lane's state of an (m, n, dc) code in a scalar of elem bytes
+// fits kLaneBudget, so the shared-memory variant is the default; 0 for the
+// device-memory variant.
+int ldpc_bp_shared_state(int m, int n, int dc, int elem) {
+  return lane_layout(m, n, m * dc, (size_t)elem).total <= kLaneBudget ? 1 : 0;
+}
+
+// Returns cudaGetLastError() after the launch (0 on success), or the error
+// of raising the block's shared-memory limit. f64 selects the double
+// instance (llr0, c2v and post are then double; min-sum only). The caller
+// checks dc <= 32 and allocates every buffer; c2v is read only by the
+// device-memory variant (shared == 0). Nothing synchronises.
+int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
+                     const void* var_edges_t, int m, int n, int dc, int dv,
+                     int B, int max_iter, int min_sum, double ms_scaling,
+                     int dynamic_alpha, int shared, int f64, void* c2v, void* post,
+                     void* dec, void* conv, void* iters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dc <= 4) return launch_cap<4>(a, min_sum, shared, st);
-  if (dc <= 8) return launch_cap<8>(a, min_sum, shared, st);
-  if (dc <= 16) return launch_cap<16>(a, min_sum, shared, st);
-  if (dc <= 32) return launch_cap<32>(a, min_sum, shared, st);
-  return (int)cudaErrorInvalidValue;
+  if (f64) {
+    return run<double>(synd, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
+                       min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+                       iters, st);
+  }
+  return run<float>(synd, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
+                    min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+                    iters, st);
 }
 
 const char* ldpc_error_string(int code) {

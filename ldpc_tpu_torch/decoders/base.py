@@ -25,14 +25,6 @@ _RECEIVED_VECTOR = 1
 _AUTO = 2
 
 
-def _refuse_float64(decoder, name: str) -> None:
-    """Decoders whose post-processors are float32 only refuse float64."""
-    if decoder._dtype == torch.float64:
-        raise NotImplementedError(
-            f"{name} in float64 is not ported yet (ROADMAP queue 1 item 2b)"
-        )
-
-
 def _to_numpy(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -16,7 +16,7 @@ from typing import List, Optional, Union
 import numpy as np
 import scipy.sparse
 
-from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy, _refuse_float64
+from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
 from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.ops import uf as uf_ops
 
@@ -62,7 +62,6 @@ class BeliefFindDecoder(BpDecoderBase):
             device=device,
             **kwargs,
         )
-        _refuse_float64(self, "BeliefFindDecoder")
         self.uf_method = uf_method  # validates and checks column degrees
         self.bits_per_step = bits_per_step if bits_per_step != 0 else self.n
         self._uf_fn = None

@@ -16,7 +16,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy, _refuse_float64
+from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.helpers import convert_to_binary_sparse
 from ldpc_tpu_torch.ops import flip as flip_ops
@@ -141,7 +141,6 @@ class BpFlipDecoder(BpDecoderBase):
             device=device,
             **kwargs,
         )
-        _refuse_float64(self, "BpFlipDecoder")
         self.flip_iterations = flip_iterations
         self._flip = FlipDecoder(
             self._pcm,

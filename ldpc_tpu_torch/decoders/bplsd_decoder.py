@@ -21,7 +21,7 @@ import numpy as np
 import scipy.sparse
 import torch
 
-from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy, _refuse_float64
+from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
 from ldpc_tpu_torch.decoders.lsd_common import (
     METHOD_NAMES,
     Statistics,
@@ -87,7 +87,6 @@ class BpLsdDecoder(BpDecoderBase):
             device=device,
             **kwargs,
         )
-        _refuse_float64(self, "BpLsdDecoder")
         self._lsd_method = 0
         self._lsd_order = 0
         self.lsd_method = lsd_method
@@ -250,6 +249,7 @@ class BpLsdDecoder(BpDecoderBase):
                 llr_r,
                 self.bits_per_step,
                 _to_numpy(out[r]),
+                dtype=self._dtype,
                 stats=self._statistics,
             )
         self._statistics.elapsed_time = (time.perf_counter() - t0) * 1e6

@@ -36,12 +36,12 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-    #  min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+    #  min_sum, ms_scaling, dynamic_alpha, shared, f64, c2v, post, dec, conv,
     #  iters, stream)
     "ldpc_bp_parallel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _I, _P, _P, _P, _P, _P, _P],
-    # (m, n, dc) -> 1 when K1 keeps a lane's state in shared memory
-    "ldpc_bp_shared_state": [_I, _I, _I],
+                         _D, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (m, n, dc, elem bytes) -> 1 when K1 keeps a lane's state in shared memory
+    "ldpc_bp_shared_state": [_I, _I, _I, _I],
     # (kernel: 0 K3', 1 K4', 2 K5', 3 K2'; m, n) -> the variant it takes by
     # default: 0 warp, 1 block, 2 device
     "ldpc_elim_variant": [_I, _I, _I],
@@ -83,6 +83,15 @@ _SIGNATURES = {
     "ldpc_bp_exact_lane_bytes": [_I, _I, _I],
     # (m, n, dc, dv, min_sum, shared) -> K8' lanes resident on an SM
     "ldpc_bp_exact_resident_lanes": [_I, _I, _I, _I, _I, _I],
+    # (m, n, dc, pairs, elem bytes) -> 1 when K9' keeps a lane's state in
+    # shared memory
+    "ldpc_mbp_shared_state": [_I, _I, _I, _I, _I],
+    # (syndromes, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot,
+    #  var_val, lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter,
+    #  min_sum, f64, beta, gamma, shared, cache, msg, llr, dec, conv, iters,
+    #  stream)
+    "ldpc_mbp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _I, _I, _D, _D, _I, _P, _P, _P, _P, _P, _P, _P],
     # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
     "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,

@@ -6,7 +6,7 @@ the kernels' modules, each kernel on a CUDA device and its plain PyTorch
 version on the CPU:
 
 - :mod:`ldpc_tpu_torch.ops.bp_cuda`: K1', float32 parallel BP, and with a
-  fixed factor the single-scan engine;
+  fixed factor the single-scan engine (float32 or float64);
 - :mod:`ldpc_tpu_torch.ops.bp_fold`: K6' serial and serial-relative BP, K7'
   soft-information BP and K8' fold-exact float64 parallel BP.
 """
@@ -109,20 +109,16 @@ def make_single_scan_decoder(
     """Min-sum "single-scan" BP: the parallel schedule's recurrence (the
     JAX package shares its engine, ``ldpc_tpu/ops/bp.py:135``), min-sum
     only, with the fixed ``ms_scaling_factor`` even at 0. Runs K1' with its
-    dynamic factor off; float32 only (ROADMAP queue 1 item 2b).
+    dynamic factor off, in float32 or float64 (K1's float64 instance).
 
     Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,)) -> BpResult``.
     """
     from ldpc_tpu_torch.ops import bp_cuda
     from ldpc_tpu_torch.ops.pcm import graph_to_torch
 
-    if torch_dtype(dtype) != torch.float32:
-        raise NotImplementedError(
-            "single-scan BP in float64 is not ported yet (ROADMAP queue 1 item 2b)"
-        )
     device = resolve_device(device)
     tg = graph_to_torch(graph, device)
-    convert = _tensors(device, torch.float32)
+    convert = _tensors(device, torch_dtype(dtype))
 
     def decode(syndromes: torch.Tensor, init_llr: torch.Tensor) -> BpResult:
         syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)

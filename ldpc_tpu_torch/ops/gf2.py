@@ -12,6 +12,15 @@ import torch
 from ldpc_tpu_torch import mod2
 
 
+def column_order(keys: torch.Tensor) -> torch.Tensor:
+    """Each row's stable ascending argsort of ``keys`` (int64), every NaN
+    last, as the JAX package's sort and torch's CPU sort place them: torch's
+    CUDA sort (a radix sort on the bit pattern) puts a NaN whose sign bit is
+    set before -inf, so every NaN is made the positive quiet NaN first."""
+    keys = torch.where(torch.isnan(keys), torch.full_like(keys, float("nan")), keys)
+    return torch.argsort(keys, dim=-1, stable=True)
+
+
 def pack_u32(bits: torch.Tensor) -> torch.Tensor:
     """Pack a (..., n) 0/1 tensor into (..., ceil(n/32)) int32 words."""
     n = bits.shape[-1]

@@ -47,11 +47,15 @@ def make_lsd_decoder(
     lsd_order: int = 0,
     bits_per_step: int = 1,
     device="cuda",
+    dtype=torch.float32,
 ):
     """Build a batched LSD decoder on ``device``.
 
-    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n) float32) ->
-    (decoding: (B, n) uint8, valid: (B,) bool)``.
+    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) -> (decoding:
+    (B, n) uint8, valid: (B,) bool)``. The LLRs are cast to ``dtype``, in
+    which the growth and column orders sort them (stable: equal keys in
+    column order), as the JAX package's ``make_lsd_decoder(..., dtype)``
+    does; its decoders leave the default, float32.
     """
     m, n = graph.m, graph.n
     if bits_per_step >= n:
@@ -85,7 +89,7 @@ def make_lsd_decoder(
         none)``."""
         B = collab.shape[0]
         lab = torch.where(nonpiv_in, collab, uf.INF)
-        by_llr = torch.argsort(llrs, dim=1, stable=True)
+        by_llr = gf2.column_order(llrs)
         perm = by_llr.gather(1, torch.argsort(lab.gather(1, by_llr), dim=1, stable=True))
         lab_sorted = lab.gather(1, perm)
         pos = torch.arange(n, device=device).expand(B, n)
@@ -161,7 +165,7 @@ def make_lsd_decoder(
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device).contiguous()
-        llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
+        llrs = torch.as_tensor(llrs, device=device).to(dtype)
         in_bit, x0, valid = uf.grow_until_valid(tg, syndromes, llrs, bits_per_step)
         if order0:
             return x0, valid

@@ -192,7 +192,7 @@ def make_osd_decoder(
         llrs = torch.as_tensor(llrs, device=device).to(dtype)
         # least-reliable-first; stable, as the reference's qsort is on
         # distinct keys
-        order = torch.argsort(llrs, dim=1, stable=True).to(torch.int32)
+        order = gf2.column_order(llrs).to(torch.int32)
         if order0:
             x0, valid = gf2_cuda.osd0(
                 tg, syndromes.contiguous(), order.contiguous(), rank

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from ldpc_tpu_torch.device import resolve_device
-from ldpc_tpu_torch.ops import gf2_cuda
+from ldpc_tpu_torch.ops import gf2, gf2_cuda
 from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
 
 INF = 2**30  # no label / no key: above every check index and LLR rank
@@ -122,8 +122,9 @@ def invalid_checks_from_bad(
 
 
 def llr_rank(llrs: torch.Tensor) -> torch.Tensor:
-    """Each bit's position in its lane's stable ascending LLR order (int64)."""
-    sub = torch.argsort(llrs, dim=1, stable=True)
+    """Each bit's position in its lane's stable ascending LLR order (int64,
+    NaN last: :func:`ldpc_tpu_torch.ops.gf2.column_order`)."""
+    sub = gf2.column_order(llrs)
     rank = torch.empty_like(sub)
     iota = torch.arange(llrs.shape[1], device=llrs.device).expand_as(sub)
     return rank.scatter_(1, sub, iota)
@@ -136,7 +137,7 @@ def cluster_columns(
     ``key`` (stable), and their count: ``(order (B, n) int32, count (B,)
     int32)``."""
     masked = torch.where(in_bit, key, torch.inf)
-    order = torch.argsort(masked, dim=1, stable=True).to(torch.int32).contiguous()
+    order = gf2.column_order(masked).to(torch.int32).contiguous()
     return order, in_bit.sum(dim=1).to(torch.int32)
 
 
@@ -216,13 +217,15 @@ def grow_until_valid(
     return in_bit, x0, ~bad.any(dim=1)
 
 
-def _decoder_inputs(syndromes, llrs, device):
+def _decoder_inputs(syndromes, llrs, device, dtype):
     syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device).contiguous()
-    llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
+    llrs = torch.as_tensor(llrs, device=device).to(dtype)
     return syndromes, llrs
 
 
-def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
+def make_uf_decoder(
+    graph: PcmGraph, bits_per_step: int = 0, device="cuda", dtype=torch.float32
+):
     """Batched union-find decoder, inversion mode (``make_uf_decoder``;
     reference union_find.hpp:485-532): grow until valid, K4' once per
     round; the last round's solve is the decoding.
@@ -232,8 +235,10 @@ def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     lowest-LLR boundary bits per round (BeliefFind). ``bits_per_step >= n``
     admits every boundary bit, the same as 0.
 
-    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n) float32) ->
-    (decoding: (B, n) uint8, valid: (B,) bool)``.
+    Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) -> (decoding:
+    (B, n) uint8, valid: (B,) bool)``; the LLRs are cast to ``dtype``, the
+    keys the growth sorts (float32 by default, as in the JAX package, so a
+    float64 BP posterior is rounded to float32 keys).
     """
     if bits_per_step >= graph.n:
         bits_per_step = 0
@@ -241,14 +246,16 @@ def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     tg = graph_to_torch(graph, device)
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
-        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device, dtype)
         _, x0, valid = grow_until_valid(tg, syndromes, llrs, bits_per_step)
         return x0, valid
 
     return decode
 
 
-def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
+def make_peel_decoder(
+    graph: PcmGraph, bits_per_step: int = 0, device="cuda", dtype=torch.float32
+):
     """Batched union-find decoder, peeling mode (``make_peel_decoder``;
     reference union_find.hpp:428-480), for column degree <= 2.
 
@@ -263,7 +270,7 @@ def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     row still holds a syndrome 1.
 
     Returns ``decode(syndromes, llrs) -> (decoding (B, n) uint8, valid (B,)
-    bool)``.
+    bool)``; the LLRs are cast to ``dtype`` as in :func:`make_uf_decoder`.
     """
     if graph.dv > 2:
         raise ValueError("peeling requires column degree <= 2")
@@ -280,7 +287,7 @@ def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     col_key = (torch.arange(n, device=device) + torch.where(interior, 0, n)).float()
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
-        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device, dtype)
         in_bit, _, _ = grow_until_valid(tg, syndromes, llrs, bits_per_step)
         order, count = cluster_columns(in_bit, col_key.expand_as(llrs))
         x0, bad_row = gf2_cuda.masked_solve(tg, syndromes, order, count)

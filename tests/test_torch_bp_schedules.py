@@ -363,7 +363,8 @@ def test_exact_product_sum_gap_is_tanh_log(workloads, monkeypatch, name, max_ite
 @pytest.mark.parametrize("name", ["surface5", "hamming3"])
 def test_single_scan_engine_matches_jax(workloads, name, alpha):
     """K1's plain version with its dynamic factor off against
-    ``make_single_scan_decoder``; at factor 0 every message is 0."""
+    ``make_single_scan_decoder``, in float32 and float64; at factor 0 every
+    message is 0."""
     graph, syn, llr = workloads[name]
     llr32 = llr.astype(np.float32)
     rj = jbp.make_single_scan_decoder(graph, MAX_ITER, alpha)(jnp.asarray(syn),
@@ -377,8 +378,14 @@ def test_single_scan_engine_matches_jax(workloads, name, alpha):
     if alpha == 0.0:
         np.testing.assert_array_equal(rt.llr_posterior.numpy(),
                                       np.broadcast_to(llr32, rt.llr_posterior.shape))
-    with pytest.raises(NotImplementedError, match="float64"):
-        tbp.make_single_scan_decoder(graph, MAX_ITER, alpha, "cpu", dtype=torch.float64)
+    # float64: K1''s float64 instance's plain version, bit for bit
+    rj64 = jbp.make_single_scan_decoder(graph, MAX_ITER, alpha, dtype=jnp.float64)(
+        jnp.asarray(syn), jnp.asarray(llr))
+    rt64 = tbp.make_single_scan_decoder(graph, MAX_ITER, alpha, "cpu", dtype=torch.float64)(
+        syn, llr)
+    assert rt64.llr_posterior.dtype == torch.float64
+    for a, b in zip(rj64, rt64):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
 def test_relative_order_is_a_stable_descending_rank():

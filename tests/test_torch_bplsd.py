@@ -194,7 +194,10 @@ def test_bplsd_imports_no_jax():
     BpOsdDecoder, UnionFindDecoder in both modes, BeliefFindDecoder,
     LsdDecoder, FlipDecoder, BpFlipDecoder, BpDecoder with every schedule,
     float64, single-scan, SoftInfoBpDecoder, SoftInfoBpOsdDecoder, one
-    device Monte-Carlo step), and never
+    device Monte-Carlo step, MbpDecoder in both input forms with its
+    union-find fallback, float64 BpLsdDecoder, BeliefFindDecoder,
+    BpFlipDecoder and single-scan), imports the host modules ``mod2``,
+    ``code_util``, ``alist``, ``protograph`` and ``noise_models``, and never
     imports jax or any module of the JAX package ``ldpc_tpu``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
@@ -249,6 +252,34 @@ def test_bplsd_imports_no_jax():
         "step, runs = make_mc_decoder_step(code.hx, 0.05, batch_size=512, max_iter=5,\n"
         "                                  device='cpu')\n"
         "assert int(step(torch.Generator())[0]) == runs\n"
+        "for kw in ({'lsd_method': 'lsd_cs', 'lsd_order': 3}, {}):\n"
+        "    d = ldpc_tpu_torch.BpLsdDecoder(code.hx, error_rate=0.1, max_iter=1,\n"
+        "                                    always_run_lsd=True, dtype='float64',\n"
+        "                                    device='cpu', **kw)\n"
+        "    d.set_do_stats(True)\n"
+        "    assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "for cls in (ldpc_tpu_torch.BeliefFindDecoder, ldpc_tpu_torch.BpFlipDecoder):\n"
+        "    d = cls(code.hx, error_rate=0.1, max_iter=5, dtype='float64', device='cpu')\n"
+        "    assert ((H @ d.decode(s)) % 2 == s).all()\n"
+        "d = ldpc_tpu_torch.BpDecoder(code.hx, error_rate=0.1, max_iter=5, dtype='float64',\n"
+        "                             device='cpu')\n"
+        "d.decode_single_scan(s)\n"
+        "hz = np.asarray(code.hz.todense(), np.uint8)\n"
+        "d = ldpc_tpu_torch.MbpDecoder(HX_CSS=H, HZ_CSS=hz, error_rate=0.05, max_iter=10,\n"
+        "                              device='cpu')\n"
+        "sx = hz @ np.eye(1, H.shape[1], 4, dtype=np.uint8)[0] % 2\n"
+        "outx, outz = d.uf_decode(sx=sx, sz=np.zeros(H.shape[0], np.uint8))\n"
+        "assert ((hz @ outx) % 2 == sx).all()\n"
+        "g = np.vstack([H, 3 * hz]).astype(np.uint8)\n"
+        "d = ldpc_tpu_torch.MbpDecoder(Hgf4=g, error_rate=0.05, max_iter=10, bp_method='ms',\n"
+        "                              device='cpu')\n"
+        "d.decode_batch(np.zeros((2, g.shape[0]), np.uint8))\n"
+        "from ldpc_tpu_torch import alist, code_util, mod2, noise_models, protograph\n"
+        "assert code_util.compute_exact_code_distance(H) >= 1 and mod2.rank(H) > 0\n"
+        "e = noise_models.generate_depolarizing_error_batch(torch.Generator(), 4, 9, 0.1,\n"
+        "                                                   device='cpu')\n"
+        "assert e.shape == (4, 9) and protograph.permutation_matrix(3, 1).shape == (3, 3)\n"
+        "assert callable(alist.save_alist)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m == 'ldpc_tpu' or m.startswith('ldpc_tpu.'))\n"
         "assert not ref, ref\n"

@@ -195,17 +195,25 @@ def test_constructor_defaults_and_validation():
 
 
 def test_unported_options_raise_not_implemented():
-    """What is still refused: float64 in the decoders whose post-processors
-    are float32 only, and single-scan in float64 (ROADMAP queue 1). The
-    serial schedules and float64 BP+OSD are ported."""
+    """Nothing of these options is refused any more: float64 BP+LSD,
+    BeliefFind and BP+flip, and single-scan in float64, decode as the JAX
+    decoders at ``jnp.float64`` do (every syndrome of the rep code); the
+    serial schedules and float64 BP+OSD are ported too."""
+    import jax.numpy as jnp
+
     H = rep_code(3)
-    for cls in (ldpc_tpu_torch.BpLsdDecoder, ldpc_tpu_torch.BeliefFindDecoder,
-                ldpc_tpu_torch.BpFlipDecoder):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            cls(H, error_rate=0.1, dtype=torch.float64, device="cpu")
+    syn = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], np.uint8)
+    for name in ("BpLsdDecoder", "BeliefFindDecoder", "BpFlipDecoder"):
+        jd = getattr(ldpc_tpu, name)(H, error_rate=0.1, dtype=jnp.float64)
+        td = getattr(ldpc_tpu_torch, name)(H, error_rate=0.1, dtype=torch.float64, device="cpu")
+        assert (td.decode_batch(syn) == jd.decode_batch(syn)).all()
+        assert (td.converge_batch == jd.converge_batch).all()
     d64 = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, dtype=np.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        d64.decode_single_scan(np.array([1, 0], np.uint8))
+    j64 = ldpc_tpu.BpDecoder(H, error_rate=0.1, dtype=jnp.float64)
+    for s in syn[1:]:
+        assert (d64.decode_single_scan(s) == j64.decode_single_scan(s)).all()
+        assert (d64.converge, d64.iter) == (j64.converge, j64.iter)
+        assert d64.log_prob_ratios.dtype == np.float64
     for schedule in ("serial", "serial_relative"):
         d = ldpc_tpu_torch.BpDecoder(H, error_rate=0.1, schedule=schedule, device="cpu")
         assert d.schedule == schedule

@@ -1,6 +1,6 @@
 """The port's own host modules against the JAX package's: the PCM compiler
 (``ops/pcm.py``), the code constructions (``codes/``), input validation
-(``helpers.py``) and the host GF(2) rank and kernel (``mod2.py``); and the
+(``helpers.py``) and the host GF(2) rank and kernel (``mod2``); and the
 port's device rule: every public entry point runs on the CUDA device unless
 the caller passes ``device="cpu"``, and without a card the default raises."""
 
@@ -16,11 +16,13 @@ from ldpc_tpu.helpers import convert_to_binary_sparse as j_convert
 from ldpc_tpu.ops.pcm import compile_pcm as j_compile_pcm
 from ldpc_tpu_torch import codes as tcodes
 from ldpc_tpu_torch import mod2 as tmod2
+from ldpc_tpu_torch import noise_models as tnoise
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.helpers import convert_to_binary_sparse as t_convert
 from ldpc_tpu_torch.monte_carlo_simulation import DeviceMonteCarlo, make_mc_decoder_step
 from ldpc_tpu_torch.ops import flip as tflip
 from ldpc_tpu_torch.ops import lsd as tlsd
+from ldpc_tpu_torch.ops import mbp as tmbp
 from ldpc_tpu_torch.ops import uf as tuf
 from ldpc_tpu_torch.ops.pcm import compile_pcm as t_compile_pcm
 
@@ -165,7 +167,21 @@ ENTRY_POINTS = {
     "make_flip_decoder": lambda d: tflip.make_flip_decoder(_graph(), 4, 0, **d),
     "make_mc_decoder_step": lambda d: make_mc_decoder_step(_hx(), 0.05, batch_size=512, **d),
     "DeviceMonteCarlo": lambda d: DeviceMonteCarlo(_hx(), 0.05, batch_size=512, **d),
+    "MbpDecoder": lambda d: ldpc_tpu_torch.MbpDecoder(
+        HX_CSS=_hx(), HZ_CSS=tcodes.surface_code(3, compute_logicals=False).hz,
+        error_rate=0.1, **d),
+    "make_mbp_decoder": lambda d: _make_mbp(d),
+    "generate_bsc_error_batch": lambda d: tnoise.generate_bsc_error_batch(
+        torch.Generator(), 4, 5, 0.1, **d),
+    "generate_depolarizing_error_batch": lambda d: tnoise.generate_depolarizing_error_batch(
+        torch.Generator(), 4, 5, 0.1, **d),
 }
+
+
+def _make_mbp(d):
+    h = _hx().toarray().astype(np.uint8)
+    return tmbp.make_mbp_decoder(tmbp.compile_gf4(h), np.full((3, h.shape[1]), 0.03), 5,
+                                 np.ones((3, h.shape[1])), 0.0, tmbp.PRODUCT_SUM, 1.0, **d)
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))

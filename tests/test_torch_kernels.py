@@ -1,9 +1,10 @@
-"""The CUDA kernels K1' (csrc/bp_parallel.cu), K2'-K5' (csrc/gf2_elim.cu,
-each in its warp, block and device variants, forced by the wrappers'
-``variant`` keyword), the flip sweep (csrc/flip.cu) and the fold engines
-K6'-K8' (csrc/bp_fold.cu, each with its lane state in shared or device
-memory, forced by ``state``) held against their plain PyTorch versions on
-the card.
+"""The CUDA kernels K1' (csrc/bp_parallel.cu, float32 and its float64
+single-scan instance), K2'-K5' (csrc/gf2_elim.cu, each in its warp, block
+and device variants, forced by the wrappers' ``variant`` keyword), the
+flip sweep (csrc/flip.cu), the fold engines K6'-K8' (csrc/bp_fold.cu,
+csrc/bp_exact.cu, each with its lane state in shared or device memory,
+forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu, both states),
+held against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -18,7 +19,7 @@ import torch
 
 from ldpc_tpu_torch.codes import bivariate_bicycle_code, surface_code, toric_code
 import ldpc_tpu_torch
-from ldpc_tpu_torch.ops import bp_cuda, bp_fold, flip, gf2, gf2_cuda
+from ldpc_tpu_torch.ops import bp_cuda, bp_fold, flip, gf2, gf2_cuda, mbp, mbp_cuda
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr, serial_order_table
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
@@ -423,8 +424,10 @@ def test_wrappers_validate_inputs(codes):
     graph, tg, syn, llr0 = codes["surface13"]
     with pytest.raises(ValueError, match="uint8"):
         bp_cuda.bp_parallel_cuda(tg, syn.int(), llr0, MINIMUM_SUM, 5, 0.625)
-    with pytest.raises(ValueError, match="float32"):
-        bp_cuda.bp_parallel_cuda(tg, syn, llr0.double(), MINIMUM_SUM, 5, 0.625)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bp_cuda.bp_parallel_cuda(tg, syn, llr0.half(), MINIMUM_SUM, 5, 0.625)
+    with pytest.raises(ValueError, match="min-sum"):  # float64 is single-scan's instance
+        bp_cuda.bp_parallel_cuda(tg, syn, llr0.double(), PRODUCT_SUM, 5, 0.625)
     order = torch.zeros((syn.shape[0], graph.n), dtype=torch.int64, device=syn.device)
     with pytest.raises(ValueError, match="int32"):
         gf2_cuda.osd0_cuda(tg, syn, order, 1)
@@ -1052,3 +1055,188 @@ def test_fold_launch_counters_move_on_each_path(codes, cls, kw, kernel):
         assert ((out.astype(np.int64) @ graph.dense.T % 2) == syn_np).all()
     if not kw.get("random_serial_schedule"):
         assert (make("cpu").decode_batch(syn_np[:32]) == out[:32]).all()
+
+
+# ---- K1' in float64: the single-scan instance --------------------------------------
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("alpha", [0.625, 0.0])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k1_float64_matches_plain_version(codes, name, alpha, state):
+    """K1''s float64 min-sum with its factor fixed (single-scan) against the
+    plain version: bit-exact, posteriors in float64."""
+    graph, tg, syn, _ = codes[name]
+    llr64 = torch.from_numpy(channel_llr(np.full(graph.n, P), np.float64)).to(syn.device)
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr64, MINIMUM_SUM, 30, alpha,
+                                        dynamic_alpha=False)
+    before = dict(bp_cuda.DTYPE_LAUNCHES)
+    ker = bp_cuda.bp_parallel_cuda(tg, syn, llr64, MINIMUM_SUM, 30, alpha, state=state,
+                                   dynamic_alpha=False)
+    torch.cuda.synchronize()
+    assert bp_cuda.DTYPE_LAUNCHES["float64"] == before["float64"] + 1
+    assert ker.llr_posterior.dtype == torch.float64
+    _assert_k1_equal(ker, ref, MINIMUM_SUM)
+
+
+def test_k1_float64_refuses_product_sum(codes):
+    graph, tg, syn, _ = codes["surface13"]
+    llr64 = torch.zeros(graph.n, dtype=torch.float64, device=syn.device)
+    with pytest.raises(ValueError, match="min-sum"):
+        bp_cuda.bp_parallel_cuda(tg, syn, llr64, PRODUCT_SUM, 5, 1.0)
+
+
+def test_single_scan_float64_path_launches_k1(codes):
+    """``BpDecoder(dtype=float64).decode_single_scan`` on the card runs K1''s
+    float64 instance once a syndrome and equals the CPU path."""
+    graph, _, syn, _ = codes["surface13"]
+    rows = syn[:64].cpu().numpy()
+    rows = rows[rows.any(axis=1)]
+
+    def make(device):
+        return ldpc_tpu_torch.BpDecoder(graph.dense, error_rate=P, max_iter=30,
+                                        ms_scaling_factor=0.625, dtype="float64", device=device)
+
+    card, cpu = make("cuda"), make("cpu")
+    before = bp_cuda.DTYPE_LAUNCHES["float64"]
+    for s in rows:
+        x = card.decode_single_scan(s)
+        assert (x == cpu.decode_single_scan(s)).all()
+        assert (card.converge, card.iter) == (cpu.converge, cpu.iter)
+    assert bp_cuda.DTYPE_LAUNCHES["float64"] == before + len(rows)
+
+
+# ---- K9': MBP over GF(4) ---------------------------------------------------------------
+
+
+def _gf4_workload(code, lanes, seed, dev, p=0.01):
+    hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+    H = np.vstack([3 * hz, hx]).astype(np.uint8)
+    rng = np.random.default_rng(seed)
+    e = rng.choice(4, size=(lanes, H.shape[1]), p=[1 - 3 * p, p, p, p]).astype(np.uint8)
+    syn = torch.from_numpy(mbp.pauli_syndrome(H, e).astype(np.uint8)).to(dev)
+    return mbp.gf4_to_torch(mbp.compile_gf4(H), dev), syn
+
+
+@pytest.fixture(scope="module")
+def gf4_codes(dev):
+    gross = bivariate_bicycle_code(12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)])
+    return {
+        "surface13": _gf4_workload(surface_code(13), 4096, 7, dev),
+        "toric20": _gf4_workload(toric_code(20), 1024, 20, dev),
+        "gross": _gf4_workload(gross, 512, 144, dev, p=0.02),
+    }
+
+
+def _assert_mbp_equal(ker, ref):
+    """Decisions, flags and iteration counts equal; posteriors within rtol
+    1e-9 (float64) or 1e-4 (float32), atol 1e-5: both sides call CUDA's exp,
+    log and tanh and round every sum in the same order."""
+    for k in (0, 2, 3):
+        assert torch.equal(ker[k], ref[k])
+    rtol = 1e-9 if ker[1].dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(ker[1], ref[1], rtol=rtol, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("method,alpha,beta", [(mbp.PRODUCT_SUM, 1.0, 0.0),
+                                               (mbp.MINIMUM_SUM, 1.0, 0.0),
+                                               (mbp.PRODUCT_SUM, 0.65, 0.5),
+                                               (mbp.MINIMUM_SUM, 0.65, 0.5)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["surface13", "toric20", "gross"])
+def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta, state):
+    g, syn = gf4_codes[name]
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.full((3, g.n), alpha), dtype,
+                                     syn.device)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
+    before = dict(mbp_cuda.STATE_LAUNCHES)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, beta, method, 0.625, state=state)
+    torch.cuda.synchronize()
+    assert mbp_cuda.STATE_LAUNCHES[state] == before[state] + 1
+    _assert_mbp_equal(ker, ref)
+    assert ker[2].any() and ker[1].dtype == dtype
+
+
+def test_k9_default_states(gf4_codes):
+    """A lane above 7 KB keeps its state in device memory: surface d=13
+    (11 KB in float64), the gross code and toric d=20 in float64; surface
+    d=13 in float32 (6 KB) and the gross code in float32 in shared memory."""
+    for name in ("surface13", "gross", "toric20"):
+        assert mbp_cuda.state_variant(gf4_codes[name][0], torch.float64) == "device"
+    for name in ("surface13", "gross"):
+        assert mbp_cuda.state_variant(gf4_codes[name][0], torch.float32) == "shared"
+    assert mbp_cuda.state_variant(gf4_codes["toric20"][0], torch.float32) == "device"
+
+
+@pytest.mark.parametrize("max_iter", [0, 1, 5])
+@pytest.mark.parametrize("lanes", [1, 7, 9, 1001])
+def test_k9_short_runs_and_odd_batches(gf4_codes, lanes, max_iter):
+    """Part-filled blocks of eight lanes, zero syndromes among them, depth 0
+    (zero posteriors) and short runs."""
+    g, syn = gf4_codes["surface13"]
+    syn = syn[:lanes].clone()
+    syn[0] = 0
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), torch.float64,
+                                     syn.device)
+    for state in ("shared", "device"):
+        ref = mbp.mbp_reference(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625)
+        ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625,
+                                state=state)
+        torch.cuda.synchronize()
+        _assert_mbp_equal(ker, ref)
+    if max_iter == 0:
+        assert not ker[1].any() and not ker[2].any()
+    else:
+        assert ker[2][0] and ker[3][0] == 1
+
+
+def test_k9_wrapper_validates_inputs(gf4_codes):
+    g, syn = gf4_codes["surface13"]
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), torch.float64,
+                                     syn.device)
+    with pytest.raises(ValueError, match="CUDA"):
+        mbp_cuda.mbp_cuda(g, syn.cpu(), chan, inv_alpha, 5, 0.0, 1, 0.625)
+    with pytest.raises(ValueError, match="shape"):
+        mbp_cuda.mbp_cuda(g, syn[:, :-1].contiguous(), chan, inv_alpha, 5, 0.0, 1, 0.625)
+    with pytest.raises(ValueError, match="dtype"):
+        mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha.float(), 5, 0.0, 1, 0.625)
+    with pytest.raises(ValueError, match="state"):
+        mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 5, 0.0, 1, 0.625, state="warp")
+
+
+def test_mbp_decoder_on_the_card_matches_cpu(gf4_codes):
+    """``MbpDecoder.decode_batch`` on the card launches K9' once and equals
+    the CPU path on 256 rows; converged rows reproduce their syndrome."""
+    code = surface_code(13)
+    hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+    H = np.vstack([3 * hz, hx]).astype(np.uint8)
+    _, syn = gf4_codes["surface13"]
+    syn_np = syn[:256].cpu().numpy()
+
+    def make(device):
+        return ldpc_tpu_torch.MbpDecoder(Hgf4=H, error_rate=0.03, max_iter=30,
+                                         bp_method="min_sum", gamma_parameter=0.625,
+                                         device=device)
+
+    card, cpu = make("cuda"), make("cpu")
+    before = mbp_cuda.LAUNCHES
+    out = card.decode_batch(syn_np)
+    assert mbp_cuda.LAUNCHES == before + 1
+    assert (out == cpu.decode_batch(syn_np)).all()
+    assert (card.converge_batch == cpu.converge_batch).all()
+    assert (card.iter_batch == cpu.iter_batch).all()
+    conv = card.converge_batch
+    assert (mbp.pauli_syndrome(H, out[conv]) == syn_np[conv]).all()
+
+
+def test_column_order_puts_every_nan_last_on_the_card(dev):
+    """torch's CUDA sort puts a NaN whose sign bit is set before -inf;
+    ``gf2.column_order`` makes every NaN sort last there too, as on the
+    CPU."""
+    keys = torch.tensor([[2.0, -float("nan"), -float("inf"), float("nan"), 1.0,
+                          float("inf"), -float("nan"), 1.0]] * 3)
+    for dt in (torch.float32, torch.float64):
+        want = gf2.column_order(keys.to(dt))
+        assert torch.equal(gf2.column_order(keys.to(dt).to(dev)).cpu(), want)
+        assert want[0].tolist() == [2, 4, 7, 0, 5, 1, 3, 6]

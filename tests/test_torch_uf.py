@@ -307,3 +307,21 @@ def test_belief_find_zero_syndrome():
     dec = ldpc_tpu_torch.BeliefFindDecoder(rep_code(5), error_rate=0.1, uf_method="peeling", device="cpu")
     x = dec.decode(np.zeros(4, np.uint8))
     assert not x.any() and dec.converge
+
+
+def test_column_order_puts_every_nan_last():
+    """The growth and column orders sort every NaN after +inf, whatever its
+    sign bit (a NaN from ``log`` of a negative number has it set), as the
+    JAX package's argsort and numpy's do; equal keys keep column order."""
+    from ldpc_tpu_torch.ops import gf2
+
+    neg_nan = -np.float64(np.nan)
+    assert np.signbit(neg_nan)
+    keys = np.array([[2.0, neg_nan, -np.inf, np.nan, 1.0, np.inf, neg_nan, 1.0]])
+    want = np.asarray(jnp.argsort(jnp.asarray(keys), axis=1, stable=True))
+    np.testing.assert_array_equal(want, np.argsort(keys, axis=1, kind="stable"))
+    for dt in (torch.float32, torch.float64):
+        got = gf2.column_order(torch.from_numpy(keys).to(dt))
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tuf.llr_rank(torch.from_numpy(keys)).numpy()[0], np.argsort(want[0]))

@@ -20,6 +20,13 @@ gross code and surface d=13 after 1, 2, 3, 5, 10 and 20 iterations: the
 lanes that have not converged, the largest posterior gap among them and
 on every lane (inf entries equal on both sides count 0), and the posterior
 entries that differ when the plain version takes JAX's tanh and log.
+
+Last, MBP over GF(4): the port's plain version against JAX's
+``make_mbp_decoder`` on the inputs of ``tests/test_torch_mbp.py`` (its five
+codes and eight settings, 200 syndromes, 12 iterations), in float64 and in
+float32: the lanes whose decisions, flags or iteration counts differ (the
+first of them side by side), and the largest posterior gap on the lanes
+both converge.
 """
 
 import sys
@@ -35,9 +42,12 @@ sys.path.insert(0, str(ROOT / "tests"))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import test_torch_bp_schedules as t  # noqa: E402
+import test_torch_mbp as tm  # noqa: E402
 
 from ldpc_tpu.ops import bp as jbp  # noqa: E402
+from ldpc_tpu.ops import mbp as jmbp  # noqa: E402
 from ldpc_tpu_torch.ops import bp as tbp  # noqa: E402
+from ldpc_tpu_torch.ops import mbp as tmbp  # noqa: E402
 
 
 def differ(rt, rj) -> str:
@@ -91,6 +101,31 @@ def main() -> int:
                   f"converged, gap there {float(gap[open_].max()) if open_.any() else 0.0!r}, "
                   f"every lane {float(gap.max())!r}; with JAX's tanh/log "
                   f"{int((rw[1] != rj[1]).sum())} posteriors differ", flush=True)
+    for name in tm.CODES:
+        H, syn = tm.workload(name)
+        n = H.shape[1]
+        for method, alpha, beta in tm.SETTINGS:
+            line = []
+            for jdt, tdt in ((jnp.float64, "float64"), (jnp.float32, "float32")):
+                args = (np.full((3, n), 0.08 / 3), tm.MAX_ITER, np.full((3, n), alpha), beta,
+                        method, 0.625)
+                rj = [np.asarray(x) for x in jmbp.make_mbp_decoder(
+                    jmbp.compile_gf4(H), *args, dtype=jdt)(jnp.asarray(syn))]
+                rt = [x.numpy() for x in tmbp.make_mbp_decoder(
+                    tmbp.compile_gf4(H), *args, device="cpu", dtype=tdt)(syn)]
+                lanes = (rt[0] != rj[0]).any(axis=1) | (rt[2] != rj[2]) | (rt[3] != rj[3])
+                both = rt[2] & rj[2] & ~lanes
+                gap = np.where(rt[1] == rj[1], 0.0, np.abs(rt[1].astype(np.float64) - rj[1]))
+                line.append(f"{tdt} {int(lanes.sum())} lanes differ, posterior gap "
+                            f"{float(gap[both].max()) if both.any() else 0.0!r}")
+                if lanes.any():  # the first such lane, JAX's and the port's side by side
+                    b = int(np.flatnonzero(lanes)[0])
+                    line[-1] += (f" (lane {b}: converged/iterations/decision weight JAX "
+                                 f"{bool(rj[2][b])}/{int(rj[3][b])}/{int((rj[0][b] != 0).sum())},"
+                                 f" port {bool(rt[2][b])}/{int(rt[3][b])}/"
+                                 f"{int((rt[0][b] != 0).sum())})")
+            print(f"mbp {name} {'ps' if method == tmbp.PRODUCT_SUM else 'ms'} alpha={alpha} "
+                  f"beta={beta}: " + "; ".join(line), flush=True)
     return 0
 
 

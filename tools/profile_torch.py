@@ -6,7 +6,8 @@ from the repository root, on a machine with a CUDA device and ``nvcc``.
 The workload and the configurations are ``chip_smoke.py``'s, imported
 from it (``main_workload``, ``decode_paths``, ``mc_step``): every
 ``decode_batch`` configuration decodes the same 65,536 d=13 surface-code
-syndromes (soft-information BP their soft versions), and the device
+syndromes (soft-information BP their soft versions), ``MbpDecoder`` the
+16,384 depolarizing syndromes of ``mbp_workload``, and the device
 Monte-Carlo step runs 16,384 x 8 rounds. For
 each: two warm-up calls, the median of three unprofiled calls,
 then one call under ``torch.profiler`` (CPU and CUDA activities). From the
@@ -38,7 +39,7 @@ import chip_smoke  # noqa: E402
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("bp_warp_kernel", "gf2_warp_osd0_kernel", "gf2_warp_export_kernel",
                "gf2_warp_solve_kernel", "gf2_block_kernel", "flip_kernel", "fold_kernel",
-               "exact_kernel")
+               "exact_kernel", "mbp_kernel")
 
 
 def busy_us(intervals):
@@ -133,6 +134,11 @@ def main() -> int:
         out = profile_call(lambda: dec.decode_batch(x, *p.args))
         out["syndromes_per_s"] = len(syn) / (out["unprofiled_ms"] / 1e3)
         report(record, p.label, out)
+    H4, _, _, mbp_syn = chip_smoke.mbp_workload()
+    mdec = chip_smoke.make_mbp_decoder(H4, "cuda")
+    out = profile_call(lambda: mdec.decode_batch(mbp_syn))
+    out["syndromes_per_s"] = len(mbp_syn) / (out["unprofiled_ms"] / 1e3)
+    report(record, "MbpDecoder[min_sum]", out)
     step, runs = chip_smoke.mc_step(code, "cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
