@@ -1128,6 +1128,36 @@ def compare_mbp(config, g, syn, chan, inv_alpha, method, states=("shared", "devi
     return ref, worst
 
 
+def mbp_state_times(dev, distances=(5, 9, DISTANCE)) -> None:
+    """K9' in each state variant, forced, at MBP_BATCH depolarizing
+    syndromes of the surface code at each of ``distances`` as [3 hz; hx]
+    (the d=13 one is the MBP workload), min-sum, float32 and float64: one
+    ``mbp_state`` line each with both device times and the default the
+    footprint rule picks. The two states' outputs must be equal."""
+    for d in distances:
+        code = surface_code(d)
+        hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+        H = np.vstack([3 * hz, hx]).astype(np.uint8)
+        p = MBP_ERROR_RATE
+        errors = np.random.default_rng(7).choice(4, size=(MBP_BATCH, H.shape[1]),
+                                                 p=[1 - 3 * p, p, p, p]).astype(np.uint8)
+        syn = torch.from_numpy(mbp.pauli_syndrome(H, errors).astype(np.uint8)).to(dev)
+        g = mbp.gf4_to_torch(mbp.compile_gf4(H), dev)
+        for dt in (torch.float32, torch.float64):
+            args = (g, syn, *mbp.mbp_params(np.full((3, H.shape[1]), p), np.ones((3, H.shape[1])),
+                                            dt, dev), MAX_ITER, 0.0, MINIMUM_SUM, MS_FACTOR)
+            outs = {s: mbp_cuda.mbp_cuda(*args, state=s) for s in ("shared", "device")}
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs["shared"][:1] + outs["shared"][2:],
+                                                        outs["device"][:1] + outs["device"][2:])):
+                raise AssertionError(f"K9''s two states differ: d={d} {dt}")
+            times = {f"{s}_ms": device_ms(lambda: mbp_cuda.mbp_cuda(*args, state=s))
+                     for s in ("shared", "device")}
+            phase("mbp_state", code=f"surface{d}", m=g.m, n=g.n, dtype=str(dt)[6:],
+                  lanes=MBP_BATCH, lane_sweeps=int(outs["device"][3].sum()),
+                  default=mbp_cuda.state_variant(g, dt), **times)
+
+
 def mbp_ops(g, lane_iterations: int, method: int) -> float:
     """K9''s operations over ``lane_iterations`` (sweeps), each counted once
     and each exp, log and tanh as one operation (the card computes them
