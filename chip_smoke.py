@@ -22,7 +22,7 @@ toric d=20 too. The ``large_code`` phase takes toric d=31, whose lane does
 not fit a block's shared memory: K2'-K5' by default (the device variant)
 against their plain versions, then ``decode_batch`` of BP+OSD-0,
 BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. K9'
-(MBP over GF(4)) is held against its plain version in both state variants
+(MBP over GF(4)) is held against its plain version in float64 and float32
 and timed on the MBP workload (Hgf4 = [3 hz; hx] of the d=13 surface code,
 16,384 depolarizing syndromes), K1''s float64 instance (single-scan) the
 same way; then ``MbpDecoder.decode_batch`` on that workload,
@@ -717,7 +717,6 @@ def reset_counters() -> None:
     bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
     bp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
     mbp_cuda.LAUNCHES = 0
-    mbp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
     mbp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
     for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
         by_variant.update(dict.fromkeys(by_variant, 0))
@@ -736,8 +735,8 @@ def read_counters() -> dict:
         "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
         "bp_parallel_float64": bp_cuda.DTYPE_LAUNCHES["float64"],
         "mbp": mbp_cuda.LAUNCHES,
-        "mbp_shared_state": mbp_cuda.STATE_LAUNCHES["shared"],
-        "mbp_device_state": mbp_cuda.STATE_LAUNCHES["device"],
+        "mbp_float32": mbp_cuda.DTYPE_LAUNCHES["float32"],
+        "mbp_float64": mbp_cuda.DTYPE_LAUNCHES["float64"],
         **{kernel: sum(by_variant.values())
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()},
         **{f"{kernel}_{variant}": count
@@ -1110,52 +1109,16 @@ def hold_mbp(ker, ref, config):
     return nlanes, err
 
 
-def compare_mbp(config, g, syn, chan, inv_alpha, method, states=("shared", "device")):
-    """K9' against its plain version on the same inputs, in each of
-    ``states`` (forced; None: chosen by the footprint). Returns the plain
-    result and the largest posterior error."""
+def compare_mbp(config, g, syn, chan, inv_alpha, method):
+    """K9' against its plain version on the same inputs. Returns the
+    largest posterior error."""
     ref = mbp.mbp_reference(g, syn, chan, inv_alpha, MAX_ITER, 0.0, method, MS_FACTOR)
-    worst = 0.0
-    for state in states:
-        ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, MAX_ITER, 0.0, method, MS_FACTOR,
-                                state=state)
-        torch.cuda.synchronize()
-        nlanes, err = hold_mbp(ker, ref, config)
-        worst = max(worst, err)
-        phase("mbp_vs_plain", config=config, dtype=str(chan.dtype)[6:],
-              state=state or mbp_cuda.state_variant(g, chan.dtype), lanes=syn.shape[0],
-              differing_lanes=nlanes, max_abs_err=err, converged=int(ker[2].sum()))
-    return ref, worst
-
-
-def mbp_state_times(dev, distances=(5, 9, DISTANCE)) -> None:
-    """K9' in each state variant, forced, at MBP_BATCH depolarizing
-    syndromes of the surface code at each of ``distances`` as [3 hz; hx]
-    (the d=13 one is the MBP workload), min-sum, float32 and float64: one
-    ``mbp_state`` line each with both device times and the default the
-    footprint rule picks. The two states' outputs must be equal."""
-    for d in distances:
-        code = surface_code(d)
-        hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
-        H = np.vstack([3 * hz, hx]).astype(np.uint8)
-        p = MBP_ERROR_RATE
-        errors = np.random.default_rng(7).choice(4, size=(MBP_BATCH, H.shape[1]),
-                                                 p=[1 - 3 * p, p, p, p]).astype(np.uint8)
-        syn = torch.from_numpy(mbp.pauli_syndrome(H, errors).astype(np.uint8)).to(dev)
-        g = mbp.gf4_to_torch(mbp.compile_gf4(H), dev)
-        for dt in (torch.float32, torch.float64):
-            args = (g, syn, *mbp.mbp_params(np.full((3, H.shape[1]), p), np.ones((3, H.shape[1])),
-                                            dt, dev), MAX_ITER, 0.0, MINIMUM_SUM, MS_FACTOR)
-            outs = {s: mbp_cuda.mbp_cuda(*args, state=s) for s in ("shared", "device")}
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(outs["shared"][:1] + outs["shared"][2:],
-                                                        outs["device"][:1] + outs["device"][2:])):
-                raise AssertionError(f"K9''s two states differ: d={d} {dt}")
-            times = {f"{s}_ms": device_ms(lambda: mbp_cuda.mbp_cuda(*args, state=s))
-                     for s in ("shared", "device")}
-            phase("mbp_state", code=f"surface{d}", m=g.m, n=g.n, dtype=str(dt)[6:],
-                  lanes=MBP_BATCH, lane_sweeps=int(outs["device"][3].sum()),
-                  default=mbp_cuda.state_variant(g, dt), **times)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, MAX_ITER, 0.0, method, MS_FACTOR)
+    torch.cuda.synchronize()
+    nlanes, err = hold_mbp(ker, ref, config)
+    phase("mbp_vs_plain", config=config, dtype=str(chan.dtype)[6:], lanes=syn.shape[0],
+          differing_lanes=nlanes, max_abs_err=err, converged=int(ker[2].sum()))
+    return err
 
 
 def mbp_ops(g, lane_iterations: int, method: int) -> float:
@@ -1520,29 +1483,27 @@ def main() -> int:
     params = {dt: mbp.mbp_params(np.full((3, n4), MBP_ERROR_RATE), np.ones((3, n4)), dt, dev)
               for dt in (torch.float64, torch.float32)}
     mbp_err = 0.0
-    for mname, method, dt in (("product_sum", PRODUCT_SUM, torch.float64),
-                              ("ms0.625", MINIMUM_SUM, torch.float64),
-                              ("ms0.625", MINIMUM_SUM, torch.float32)):
-        mbp_err = max(mbp_err, compare_mbp(f"surface13/{mname}", g4,
-                                           mbp_syn_d[:KERNEL_BATCH].contiguous(),
-                                           *params[dt], method)[1])
-    # toric d=20 as [3 hz; hx]: above K9''s shared budget
+    for mname, method in (("product_sum", PRODUCT_SUM), ("ms0.625", MINIMUM_SUM)):
+        for dt in (torch.float64, torch.float32):
+            mbp_err = max(mbp_err, compare_mbp(f"surface13/{mname}", g4,
+                                               mbp_syn_d[:KERNEL_BATCH].contiguous(),
+                                               *params[dt], method))
+    # toric d=20 as [3 hz; hx]: a larger lane state
     hx20g, hz20g = (np.asarray(h.todense(), np.uint8) for h in (tor.hx, tor.hz))
     H20g = np.vstack([3 * hz20g, hx20g]).astype(np.uint8)
     g20g = mbp.gf4_to_torch(mbp.compile_gf4(H20g), dev)
-    if mbp_cuda.state_variant(g20g, torch.float64) != "device":
-        raise AssertionError("toric d=20 should keep its K9' state in device memory")
     rng20 = np.random.default_rng(20)
     e20 = rng20.choice(4, size=(2048, H20g.shape[1]), p=[0.97, 0.01, 0.01, 0.01])
     syn20g = torch.from_numpy(mbp.pauli_syndrome(H20g, e20.astype(np.uint8)).astype(np.uint8))
     mbp_err = max(mbp_err, compare_mbp(
         "toric20/ms0.625", g20g, syn20g.to(dev), *mbp.mbp_params(
             np.full((3, H20g.shape[1]), MBP_ERROR_RATE), np.ones((3, H20g.shape[1])),
-            torch.float64, dev), MINIMUM_SUM, states=(None,))[1])
+            torch.float64, dev), MINIMUM_SUM))
 
     def mbp_timed(method):
         """K9' at the MBP workload's call (16,384 lanes, float64): the plain
-        version once, the kernel held against it, then timed."""
+        version once, the kernel held against it, then timed; its float32
+        instance timed beside it."""
         args = (g4, mbp_syn_d, *params[torch.float64], MAX_ITER, 0.0, method, MS_FACTOR)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1562,16 +1523,15 @@ def main() -> int:
         bound_ms, bound_by = bound(moved, mbp_ops(g4, lane_iterations, method), F64_OPS_PER_S)
         ms = device_ms(lambda: mbp_cuda.mbp_cuda(*args))
         call_ms = cuda_ms(lambda: mbp_cuda.mbp_cuda(*args), 3)
-        forced = {f"{state}_state_ms": device_ms(lambda: mbp_cuda.mbp_cuda(*args, state=state))
-                  for state in ("shared", "device")}
+        args32 = (g4, mbp_syn_d, *params[torch.float32]) + args[4:]
+        float32_ms = device_ms(lambda: mbp_cuda.mbp_cuda(*args32))
         phase("mbp_time", config="min_sum" if method == MINIMUM_SUM else "product_sum",
               shape=f"B={mbp_syn_d.shape[0]},max_iter={MAX_ITER}", dtype="float64", ms=ms,
               call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
               ops_rate=f"float64:{F64_OPS_PER_S}", share_of_bound=bound_ms / ms,
               launches=launches, lane_iterations=lane_iterations, levels=g4.levels,
               converged=int(ker[2].sum()),
-              differing_lanes=nlanes, max_abs_err=err, state=mbp_cuda.state_variant(g4),
-              **forced)
+              differing_lanes=nlanes, max_abs_err=err, float32_ms=float32_ms)
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}, err
 
     mbp_numbers, err = mbp_timed(MINIMUM_SUM)
@@ -1813,7 +1773,7 @@ def main() -> int:
               fold_err["bp_parallel_exact"], fold_numbers["bp_parallel_exact"],
               fold_states("bp_parallel_exact")),
         entry("mbp", "mbp.cu", "ldpc_tpu/ops/mbp.py:79", mbp_counts, mbp_err, mbp_numbers,
-              {"shared": "mbp_shared_state", "device": "mbp_device_state"})
+              {"float32": "mbp_float32", "float64": "mbp_float64"})
         | {"main_path": "MbpDecoder.decode_batch"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

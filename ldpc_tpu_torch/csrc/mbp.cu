@@ -24,9 +24,8 @@
 //     qubit writes that edge: the kernel keeps lam (min-sum) or tanh(lam/2)
 //     (product-sum) an edge and never stores the messages, which nothing
 //     reads again. The XLA loop recomputes dv*dc lams a qubit; this kernel
-//     computes dv. A lane's state is the cache (m*dc values), the level's
-//     messages, the decisions and the syndrome: 11 KB at d=13 in float64,
-//     6 KB in float32.
+//     computes dv. A lane's state is the cache (m*dc values, 9,984 bytes
+//     at d=13 in float64) and the widest level's messages.
 //   - One warp a lane, a (qubit, slot) pair a thread in each of two passes
 //     of a level: pass A forms each pair's stabilizer->qubit message from
 //     its row's cached values (slot order, the own slot excluded) into the
@@ -41,16 +40,16 @@
 //     exp, log and tanh are CUDA's, the ones torch's CUDA kernels call, so
 //     on the card the plain version and the kernel agree bit for bit
 //     where their libraries agree; the comparison states its tolerance.
-//   - Shared and device state. A lane's state lives in shared memory up to
-//     kLaneBudget (eight lanes a block), else in a lane-major device
-//     scratch (same template); ldpc_mbp_shared_state tells the wrapper.
-//     The budget keeps the shared variant at 32 resident lanes an SM, what
-//     the registers allow either variant: measured on the H100 at d=13 in
-//     float64 (11 KB a lane, two blocks of eight lanes an SM in shared
-//     memory), the device variant took 15.4 ms where the shared one took
-//     34.5, so a lane above the budget goes to device memory, whose
-//     accesses stay in L1/L2. Posteriors go straight to the output each
-//     time a qubit updates.
+//   - Lane state in device memory. A lane's cache and messages live in a
+//     lane-major device scratch, the decisions in the output, and its
+//     accesses stay in L1/L2; posteriors go straight to the output each
+//     time a qubit updates. A shared-memory variant measured beside it on
+//     the H100 (16,384 surface-code lanes, min-sum; PERF.md) was slower at
+//     d=9 float64 and d=13 in both types (34.2 against 15.4 ms at d=13
+//     float64, the MBP workload), even at d=5 float64 and d=9 float32, and
+//     ahead only at d=5 float32 (0.97 against 1.04 ms): shared memory
+//     bounds the resident lanes by the state a block holds, device memory
+//     does not.
 //   - Templated on float64, the decoder's default, and float32.
 
 #include <cuda_runtime.h>
@@ -60,24 +59,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kLanes = 8;  // lanes (warps) a block
-// a lane's state in shared memory up to this many bytes: four blocks of 8
-// lanes (56 KB each) then fit an SM's 227 KB, 32 lanes
-constexpr size_t kLaneBudget = 7 * 1024;
-
-struct Layout {
-  size_t msg, dec, synd, total;  // byte offsets; the cache at 0
-};
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
-__host__ __device__ inline Layout lane_layout(int m, int n, int E, int pairs, size_t elem) {
-  Layout L;
-  L.msg = align16((size_t)E * elem);
-  L.dec = L.msg + align16((size_t)pairs * elem);
-  L.synd = L.dec + align16((size_t)n);
-  L.total = L.synd + align16((size_t)m);
-  return L;
-}
 
 __device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
 __device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
@@ -111,8 +92,8 @@ struct Args {
   int levels, pairs;        // pairs: the widest level's qubits times dv
   int m, n, dc, dv, B, max_iter;
   T beta, gamma;
-  T* cache;                 // (B, m*dc) device-state scratch
-  T* msg;                   // (B, pairs) device-state scratch
+  T* cache;                 // (B, m*dc) scratch
+  T* msg;                   // (B, pairs) scratch
   T* llr;                   // (B, 3, n) posteriors
   uint8_t* dec;             // (B, n) GF(4) decisions
   bool* conv;               // (B,)
@@ -135,9 +116,8 @@ __device__ __forceinline__ T edge_value(T q0, T q1, T q2, int val) {
   }
 }
 
-template <typename T, bool kMinSum, bool kShared>
+template <typename T, bool kMinSum>
 __global__ void __launch_bounds__(32 * kLanes) mbp_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * kLanes + w;
@@ -145,26 +125,10 @@ __global__ void __launch_bounds__(32 * kLanes) mbp_kernel(const Args<T> a) {
   const int m = a.m, n = a.n, dc = a.dc, dv = a.dv;
   const int E = m * dc;
 
-  T* cache;
-  T* msg;
-  uint8_t* dec;
-  const uint8_t* syn;
-  if (kShared) {
-    const Layout L = lane_layout(m, n, E, a.pairs, sizeof(T));
-    unsigned char* base = smem + (size_t)w * L.total;
-    cache = reinterpret_cast<T*>(base);
-    msg = reinterpret_cast<T*>(base + L.msg);
-    dec = base + L.dec;
-    uint8_t* s = base + L.synd;
-    const uint8_t* src = a.synd + (size_t)b * m;
-    for (int i = t; i < m; i += 32) s[i] = src[i];
-    syn = s;
-  } else {
-    cache = a.cache + (size_t)b * E;
-    msg = a.msg + (size_t)b * a.pairs;
-    dec = a.dec + (size_t)b * n;
-    syn = a.synd + (size_t)b * m;
-  }
+  T* cache = a.cache + (size_t)b * E;
+  T* msg = a.msg + (size_t)b * a.pairs;
+  uint8_t* dec = a.dec + (size_t)b * n;
+  const uint8_t* syn = a.synd + (size_t)b * m;
   T* llr = a.llr + (size_t)b * 3 * n;
 
   // each real edge's initial message: its qubit's channel LLR, 0 on the
@@ -292,31 +256,16 @@ __global__ void __launch_bounds__(32 * kLanes) mbp_kernel(const Args<T> a) {
     if (converged) break;
   }
 
-  if (kShared) {
-    uint8_t* de = a.dec + (size_t)b * n;
-    for (int j = t; j < n; j += 32) de[j] = dec[j];
-  }
   if (t == 0) {
     a.conv[b] = converged;
     a.iters[b] = it;
   }
 }
 
-template <typename T, bool kMinSum, bool kShared>
+template <typename T, bool kMinSum>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  auto kernel = mbp_kernel<T, kMinSum, kShared>;
-  const size_t smem =
-      kShared ? (size_t)kLanes * lane_layout(a.m, a.n, a.m * a.dc, a.pairs, sizeof(T)).total : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // cleared: not the next launch's error
-      return (int)err;
-    }
-  }
   const int blocks = (a.B + kLanes - 1) / kLanes;
-  kernel<<<blocks, 32 * kLanes, smem, stream>>>(a);
+  mbp_kernel<T, kMinSum><<<blocks, 32 * kLanes, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -324,7 +273,7 @@ template <typename T>
 int run(const void* synd, const void* chan, const void* inv_alpha, const void* chk_bits,
         const void* chk_val, const void* var_chks, const void* var_slot, const void* var_val,
         const void* lv_bits, const void* lv_ptr, int levels, int pairs, int m, int n, int dc,
-        int dv, int B, int max_iter, int min_sum, double beta, double gamma, int shared,
+        int dv, int B, int max_iter, int min_sum, double beta, double gamma,
         void* cache, void* msg, void* llr, void* dec, void* conv, void* iters,
         cudaStream_t st) {
   Args<T> a;
@@ -354,43 +303,32 @@ int run(const void* synd, const void* chan, const void* inv_alpha, const void* c
   a.dec = static_cast<uint8_t*>(dec);
   a.conv = static_cast<bool*>(conv);
   a.iters = static_cast<int*>(iters);
-  if (min_sum) {
-    return shared ? launch<T, true, true>(a, st) : launch<T, true, false>(a, st);
-  }
-  return shared ? launch<T, false, true>(a, st) : launch<T, false, false>(a, st);
+  return min_sum ? launch<T, true>(a, st) : launch<T, false>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when a lane's state (the cache of m*dc values, the widest level's
-// pairs of messages, the decisions and the syndrome) in a scalar of elem
-// bytes fits kLaneBudget, so the shared-memory variant is the default.
-int ldpc_mbp_shared_state(int m, int n, int dc, int pairs, int elem) {
-  return lane_layout(m, n, m * dc, pairs, (size_t)elem).total <= kLaneBudget ? 1 : 0;
-}
-
-// Returns cudaGetLastError() after the launch (0 on success), or the error
-// of raising the block's shared-memory limit. f64 selects the double
-// instance (chan, inv_alpha, cache, msg and llr are then double). beta and
-// gamma are rounded to the scalar type once. cache and msg are read only
-// by the device-state variant (shared == 0). Nothing synchronises.
+// Returns cudaGetLastError() after the launch (0 on success). f64 selects
+// the double instance (chan, inv_alpha, cache, msg and llr are then
+// double). beta and gamma are rounded to the scalar type once. cache (B,
+// m*dc) and msg (B, pairs) are the lanes' scratch. Nothing synchronises.
 int ldpc_mbp(const void* synd, const void* chan, const void* inv_alpha, const void* chk_bits,
              const void* chk_val, const void* var_chks, const void* var_slot,
              const void* var_val, const void* lv_bits, const void* lv_ptr, int levels,
              int pairs, int m, int n, int dc, int dv, int B, int max_iter, int min_sum,
-             int f64, double beta, double gamma, int shared, void* cache, void* msg,
+             int f64, double beta, double gamma, void* cache, void* msg,
              void* llr, void* dec, void* conv, void* iters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (f64) {
     return run<double>(synd, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot, var_val,
                        lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter, min_sum,
-                       beta, gamma, shared, cache, msg, llr, dec, conv, iters, st);
+                       beta, gamma, cache, msg, llr, dec, conv, iters, st);
   }
   return run<float>(synd, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot, var_val,
                     lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter, min_sum, beta,
-                    gamma, shared, cache, msg, llr, dec, conv, iters, st);
+                    gamma, cache, msg, llr, dec, conv, iters, st);
 }
 
 }  // extern "C"

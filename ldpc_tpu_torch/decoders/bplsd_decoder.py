@@ -249,7 +249,6 @@ class BpLsdDecoder(BpDecoderBase):
                 llr_r,
                 self.bits_per_step,
                 _to_numpy(out[r]),
-                dtype=self._dtype,
                 stats=self._statistics,
             )
         self._statistics.elapsed_time = (time.perf_counter() - t0) * 1e6

@@ -55,7 +55,6 @@ def compute_lsd_statistics(
     llrs: np.ndarray,
     bits_per_step: int,
     decoding: np.ndarray,
-    dtype=torch.float32,
     stats: Optional[Statistics] = None,
 ) -> Statistics:
     """Replay the grow-until-valid loop for one syndrome on ``tg``'s device
@@ -64,8 +63,8 @@ def compute_lsd_statistics(
 
     ``dense`` is the (m, n) PCM; ``llrs`` the row's (n,) guiding LLRs;
     ``decoding`` the row's decoding, whose restriction to each final cluster
-    is that cluster's solution. As in the JAX package, the LLRs are
-    rounded to float32 and then held in ``dtype``.
+    is that cluster's solution. The LLRs are rounded to float32, the keys
+    the decoders' growth sorts.
     """
     stats = stats if stats is not None else Statistics()
     m, n = tg.m, tg.n
@@ -77,7 +76,7 @@ def compute_lsd_statistics(
         bits_per_step = 0  # every boundary bit joins: the same rule
     dev = tg.chk_bits.device
     syn = torch.as_tensor(syndrome[None, :], device=dev).contiguous()
-    llr = torch.as_tensor(np.asarray(llrs, np.float32)[None, :], device=dev).to(dtype)
+    llr = torch.as_tensor(np.asarray(llrs, np.float32)[None, :], device=dev)
     rank = uf.llr_rank(llr)
     seed = syn == 1
     INF = uf.INF

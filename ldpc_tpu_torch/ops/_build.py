@@ -83,15 +83,11 @@ _SIGNATURES = {
     "ldpc_bp_exact_lane_bytes": [_I, _I, _I],
     # (m, n, dc, dv, min_sum, shared) -> K8' lanes resident on an SM
     "ldpc_bp_exact_resident_lanes": [_I, _I, _I, _I, _I, _I],
-    # (m, n, dc, pairs, elem bytes) -> 1 when K9' keeps a lane's state in
-    # shared memory
-    "ldpc_mbp_shared_state": [_I, _I, _I, _I, _I],
     # (syndromes, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot,
     #  var_val, lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter,
-    #  min_sum, f64, beta, gamma, shared, cache, msg, llr, dec, conv, iters,
-    #  stream)
+    #  min_sum, f64, beta, gamma, cache, msg, llr, dec, conv, iters, stream)
     "ldpc_mbp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _I, _I, _I, _D, _D, _I, _P, _P, _P, _P, _P, _P, _P],
+                 _I, _I, _I, _I, _I, _D, _D, _P, _P, _P, _P, _P, _P, _P],
     # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
     "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,

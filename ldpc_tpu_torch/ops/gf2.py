@@ -13,8 +13,8 @@ from ldpc_tpu_torch import mod2
 
 
 def column_order(keys: torch.Tensor) -> torch.Tensor:
-    """Each row's stable ascending argsort of ``keys`` (int64), every NaN
-    last, as the JAX package's sort and torch's CPU sort place them: torch's
+    """Each row's stable ascending argsort of the float ``keys`` (int64
+    indices), every NaN last, as the JAX package's sort and torch's CPU sort place them: torch's
     CUDA sort (a radix sort on the bit pattern) puts a NaN whose sign bit is
     set before -inf, so every NaN is made the positive quiet NaN first."""
     keys = torch.where(torch.isnan(keys), torch.full_like(keys, float("nan")), keys)

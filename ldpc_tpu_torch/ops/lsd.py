@@ -47,15 +47,14 @@ def make_lsd_decoder(
     lsd_order: int = 0,
     bits_per_step: int = 1,
     device="cuda",
-    dtype=torch.float32,
 ):
     """Build a batched LSD decoder on ``device``.
 
     Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) -> (decoding:
-    (B, n) uint8, valid: (B,) bool)``. The LLRs are cast to ``dtype``, in
-    which the growth and column orders sort them (stable: equal keys in
-    column order), as the JAX package's ``make_lsd_decoder(..., dtype)``
-    does; its decoders leave the default, float32.
+    (B, n) uint8, valid: (B,) bool)``. The LLRs are cast to float32, the
+    keys the growth and column orders sort (stable: equal keys in column
+    order), as the JAX package's decoders call its ``make_lsd_decoder``, so
+    a float64 BP posterior is rounded to float32 keys.
     """
     m, n = graph.m, graph.n
     if bits_per_step >= n:
@@ -165,7 +164,7 @@ def make_lsd_decoder(
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device).contiguous()
-        llrs = torch.as_tensor(llrs, device=device).to(dtype)
+        llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
         in_bit, x0, valid = uf.grow_until_valid(tg, syndromes, llrs, bits_per_step)
         if order0:
             return x0, valid

@@ -4,13 +4,10 @@
 - :func:`ldpc_tpu_torch.ops.mbp.mbp_reference` is the plain PyTorch
   version.
 - :func:`mbp_cuda` launches ``csrc/mbp.cu`` on CUDA tensors and counts the
-  launch in :data:`LAUNCHES`, by where the lanes' state lived in
-  :data:`STATE_LAUNCHES` and by dtype in :data:`DTYPE_LAUNCHES`.
+  launch in :data:`LAUNCHES`, and by dtype in :data:`DTYPE_LAUNCHES`.
 - :func:`mbp` picks by the tensors' device: the CPU runs the plain
   version, a CUDA device runs the kernel, anything else raises.
 """
-
-from typing import Optional
 
 import torch
 
@@ -18,8 +15,6 @@ from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.mbp import MINIMUM_SUM, PRODUCT_SUM, Gf4Torch, mbp_reference
 
 LAUNCHES = 0  # kernel launches made by mbp_cuda
-# ... of them by where the lanes' state lived (see state_variant)
-STATE_LAUNCHES = {"shared": 0, "device": 0}
 # ... of them by the scalar type
 DTYPE_LAUNCHES = {"float32": 0, "float64": 0}
 
@@ -34,16 +29,6 @@ def _pairs(g: Gf4Torch) -> int:
     return max(1, g.max_level * g.dv)
 
 
-def state_variant(g: Gf4Torch, dtype=torch.float64) -> str:
-    """Where K9' keeps a lane's state by default: ``"shared"`` memory while
-    it fits the kernel's per-lane budget, else a lane-major scratch in
-    ``"device"`` memory. The layout and the budget live in ``csrc/mbp.cu``,
-    so this builds the kernels' library."""
-    elem = torch.empty((), dtype=dtype).element_size()
-    fits = _build.library().ldpc_mbp_shared_state(g.m, g.n, g.dc, _pairs(g), elem)
-    return "shared" if fits else "device"
-
-
 def mbp_cuda(
     g: Gf4Torch,
     syndromes: torch.Tensor,
@@ -53,13 +38,11 @@ def mbp_cuda(
     beta: float,
     bp_method: int,
     gamma: float,
-    state: Optional[str] = None,
 ):
     """Launch K9' (``csrc/mbp.cu``) on CUDA tensors: one warp a lane, the
-    sweep a level of qubits a step. ``chan`` and ``inv_alpha`` are (3, n) in
-    float32 or float64, the kernel's scalar type. ``state`` forces where a
-    lane's state lives (``"shared"`` or ``"device"``; tests only); by
-    default :func:`state_variant` chooses by footprint. Returns
+    sweep a level of qubits a step, each lane's cache and messages in a
+    device scratch. ``chan`` and ``inv_alpha`` are (3, n) in float32 or
+    float64, the kernel's scalar type. Returns
     ``(decoding (B, n) uint8, llrs (B, 3, n), converged (B,) bool,
     iterations (B,) int32)``."""
     global LAUNCHES
@@ -90,14 +73,10 @@ def mbp_cuda(
         _require(t.dtype == want, f"{name} must be {want}")
     _require(bp_method in (PRODUCT_SUM, MINIMUM_SUM), f"bp_method must be 0 or 1, not {bp_method}")
     _require(max_iter >= 0, "max_iter must be >= 0")
-    state = state_variant(g, dt) if state is None else state
-    _require(state in STATE_LAUNCHES, f"state must be one of {tuple(STATE_LAUNCHES)}")
-    shared = state == "shared"
     B = syndromes.shape[0]
     P = _pairs(g)
-    rows = 0 if shared else B
-    cache = torch.empty((rows, m * dc), dtype=dt, device=dev)
-    msg = torch.empty((rows, P), dtype=dt, device=dev)
+    cache = torch.empty((B, m * dc), dtype=dt, device=dev)
+    msg = torch.empty((B, P), dtype=dt, device=dev)
     # every qubit's posterior is written in the first sweep; none at depth 0
     llr = (torch.empty if max_iter else torch.zeros)((B, 3, n), dtype=dt, device=dev)
     dec = torch.empty((B, n), dtype=torch.uint8, device=dev)
@@ -112,14 +91,12 @@ def mbp_cuda(
                 g.var_slot.data_ptr(), g.var_val.data_ptr(), g.lv_bits.data_ptr(),
                 g.lv_ptr.data_ptr(), g.levels, P, m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), int(dt == torch.float64),
-                float(beta), float(gamma), int(shared),
-                cache.data_ptr(), msg.data_ptr(), llr.data_ptr(), dec.data_ptr(),
+                float(beta), float(gamma), cache.data_ptr(), msg.data_ptr(), llr.data_ptr(), dec.data_ptr(),
                 conv.data_ptr(), iters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "mbp")
         LAUNCHES += 1
-        STATE_LAUNCHES[state] += 1
         DTYPE_LAUNCHES[str(dt).removeprefix("torch.")] += 1
     return dec, llr, conv, iters
 

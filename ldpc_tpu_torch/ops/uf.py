@@ -217,15 +217,13 @@ def grow_until_valid(
     return in_bit, x0, ~bad.any(dim=1)
 
 
-def _decoder_inputs(syndromes, llrs, device, dtype):
+def _decoder_inputs(syndromes, llrs, device):
     syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device).contiguous()
-    llrs = torch.as_tensor(llrs, device=device).to(dtype)
+    llrs = torch.as_tensor(llrs, dtype=torch.float32, device=device)
     return syndromes, llrs
 
 
-def make_uf_decoder(
-    graph: PcmGraph, bits_per_step: int = 0, device="cuda", dtype=torch.float32
-):
+def make_uf_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     """Batched union-find decoder, inversion mode (``make_uf_decoder``;
     reference union_find.hpp:485-532): grow until valid, K4' once per
     round; the last round's solve is the decoding.
@@ -236,9 +234,9 @@ def make_uf_decoder(
     admits every boundary bit, the same as 0.
 
     Returns ``decode(syndromes: (B, m) uint8, llrs: (B, n)) -> (decoding:
-    (B, n) uint8, valid: (B,) bool)``; the LLRs are cast to ``dtype``, the
-    keys the growth sorts (float32 by default, as in the JAX package, so a
-    float64 BP posterior is rounded to float32 keys).
+    (B, n) uint8, valid: (B,) bool)``; the LLRs are cast to float32, the
+    keys the growth sorts, as in the JAX package, so a float64 BP posterior
+    is rounded to float32 keys.
     """
     if bits_per_step >= graph.n:
         bits_per_step = 0
@@ -246,16 +244,14 @@ def make_uf_decoder(
     tg = graph_to_torch(graph, device)
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
-        syndromes, llrs = _decoder_inputs(syndromes, llrs, device, dtype)
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
         _, x0, valid = grow_until_valid(tg, syndromes, llrs, bits_per_step)
         return x0, valid
 
     return decode
 
 
-def make_peel_decoder(
-    graph: PcmGraph, bits_per_step: int = 0, device="cuda", dtype=torch.float32
-):
+def make_peel_decoder(graph: PcmGraph, bits_per_step: int = 0, device="cuda"):
     """Batched union-find decoder, peeling mode (``make_peel_decoder``;
     reference union_find.hpp:428-480), for column degree <= 2.
 
@@ -270,7 +266,7 @@ def make_peel_decoder(
     row still holds a syndrome 1.
 
     Returns ``decode(syndromes, llrs) -> (decoding (B, n) uint8, valid (B,)
-    bool)``; the LLRs are cast to ``dtype`` as in :func:`make_uf_decoder`.
+    bool)``; the LLRs are cast to float32 as in :func:`make_uf_decoder`.
     """
     if graph.dv > 2:
         raise ValueError("peeling requires column degree <= 2")
@@ -287,7 +283,7 @@ def make_peel_decoder(
     col_key = (torch.arange(n, device=device) + torch.where(interior, 0, n)).float()
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
-        syndromes, llrs = _decoder_inputs(syndromes, llrs, device, dtype)
+        syndromes, llrs = _decoder_inputs(syndromes, llrs, device)
         in_bit, _, _ = grow_until_valid(tg, syndromes, llrs, bits_per_step)
         order, count = cluster_columns(in_bit, col_key.expand_as(llrs))
         x0, bad_row = gf2_cuda.masked_solve(tg, syndromes, order, count)

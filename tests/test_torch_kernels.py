@@ -3,7 +3,7 @@ single-scan instance), K2'-K5' (csrc/gf2_elim.cu, each in its warp, block
 and device variants, forced by the wrappers' ``variant`` keyword), the
 flip sweep (csrc/flip.cu), the fold engines K6'-K8' (csrc/bp_fold.cu,
 csrc/bp_exact.cu, each with its lane state in shared or device memory,
-forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu, both states),
+forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu),
 held against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
@@ -1138,35 +1138,23 @@ def _assert_mbp_equal(ker, ref):
     torch.testing.assert_close(ker[1], ref[1], rtol=rtol, atol=1e-5, equal_nan=True)
 
 
-@pytest.mark.parametrize("state", ["shared", "device"])
 @pytest.mark.parametrize("method,alpha,beta", [(mbp.PRODUCT_SUM, 1.0, 0.0),
                                                (mbp.MINIMUM_SUM, 1.0, 0.0),
                                                (mbp.PRODUCT_SUM, 0.65, 0.5),
                                                (mbp.MINIMUM_SUM, 0.65, 0.5)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["surface13", "toric20", "gross"])
-def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta, state):
+def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta):
     g, syn = gf4_codes[name]
     chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.full((3, g.n), alpha), dtype,
                                      syn.device)
     ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
-    before = dict(mbp_cuda.STATE_LAUNCHES)
-    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, beta, method, 0.625, state=state)
+    before = mbp_cuda.DTYPE_LAUNCHES[str(dtype)[6:]]
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
     torch.cuda.synchronize()
-    assert mbp_cuda.STATE_LAUNCHES[state] == before[state] + 1
+    assert mbp_cuda.DTYPE_LAUNCHES[str(dtype)[6:]] == before + 1
     _assert_mbp_equal(ker, ref)
     assert ker[2].any() and ker[1].dtype == dtype
-
-
-def test_k9_default_states(gf4_codes):
-    """A lane above 7 KB keeps its state in device memory: surface d=13
-    (11 KB in float64), the gross code and toric d=20 in float64; surface
-    d=13 in float32 (6 KB) and the gross code in float32 in shared memory."""
-    for name in ("surface13", "gross", "toric20"):
-        assert mbp_cuda.state_variant(gf4_codes[name][0], torch.float64) == "device"
-    for name in ("surface13", "gross"):
-        assert mbp_cuda.state_variant(gf4_codes[name][0], torch.float32) == "shared"
-    assert mbp_cuda.state_variant(gf4_codes["toric20"][0], torch.float32) == "device"
 
 
 @pytest.mark.parametrize("max_iter", [0, 1, 5])
@@ -1179,12 +1167,10 @@ def test_k9_short_runs_and_odd_batches(gf4_codes, lanes, max_iter):
     syn[0] = 0
     chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), torch.float64,
                                      syn.device)
-    for state in ("shared", "device"):
-        ref = mbp.mbp_reference(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625)
-        ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625,
-                                state=state)
-        torch.cuda.synchronize()
-        _assert_mbp_equal(ker, ref)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, max_iter, 0.0, mbp.MINIMUM_SUM, 0.625)
+    torch.cuda.synchronize()
+    _assert_mbp_equal(ker, ref)
     if max_iter == 0:
         assert not ker[1].any() and not ker[2].any()
     else:
@@ -1201,8 +1187,8 @@ def test_k9_wrapper_validates_inputs(gf4_codes):
         mbp_cuda.mbp_cuda(g, syn[:, :-1].contiguous(), chan, inv_alpha, 5, 0.0, 1, 0.625)
     with pytest.raises(ValueError, match="dtype"):
         mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha.float(), 5, 0.0, 1, 0.625)
-    with pytest.raises(ValueError, match="state"):
-        mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 5, 0.0, 1, 0.625, state="warp")
+    with pytest.raises(ValueError, match="bp_method"):
+        mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 5, 0.0, 2, 0.625)
 
 
 def test_mbp_decoder_on_the_card_matches_cpu(gf4_codes):

@@ -10,8 +10,9 @@ torch's exp, log and tanh differ by ulps, and a product-sum lane carries
 that difference through its iterations: on these inputs the largest gap
 is 3.6e-7 (surface d=5, product-sum, alpha 0.65), min-sum's 1.7e-13
 (``tools/jax_contraction_readings.py``). In float32 the same ulps move
-decisions on a few lanes (ROADMAP queue 3), so float32 is held against
-K9' on the card, not against JAX.
+decisions: up to 45 of 200 lanes part on these inputs (ROADMAP queue 3),
+so ``tests/test_torch_mbp_f32.py`` holds float32 against JAX through JAX's
+own exp, log and tanh.
 """
 
 import functools

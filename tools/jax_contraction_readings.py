@@ -26,7 +26,11 @@ Last, MBP over GF(4): the port's plain version against JAX's
 codes and eight settings, 200 syndromes, 12 iterations), in float64 and in
 float32: the lanes whose decisions, flags or iteration counts differ (the
 first of them side by side), and the largest posterior gap on the lanes
-both converge.
+both converge. In float32 also the witness of ``tests/test_torch_mbp_f32.py``
+(the plain version with JAX's exp, log and tanh): the lanes where it
+differs from JAX, and the output entries where it differs from JAX compiled
+with XLA's fusion passes off; and how many of JAX's float32 posterior
+entries are not finite (the clip to +-(1 - 1e-8) rounds to +-1 there).
 """
 
 import sys
@@ -43,6 +47,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import test_torch_bp_schedules as t  # noqa: E402
 import test_torch_mbp as tm  # noqa: E402
+import test_torch_mbp_f32 as tm32  # noqa: E402
 
 from ldpc_tpu.ops import bp as jbp  # noqa: E402
 from ldpc_tpu.ops import mbp as jmbp  # noqa: E402
@@ -118,6 +123,14 @@ def main() -> int:
                 gap = np.where(rt[1] == rj[1], 0.0, np.abs(rt[1].astype(np.float64) - rj[1]))
                 line.append(f"{tdt} {int(lanes.sum())} lanes differ, posterior gap "
                             f"{float(gap[both].max()) if both.any() else 0.0!r}")
+                if tdt == "float32":
+                    fused, unfused, _, witness = tm32._runs(name, method, alpha, beta)
+                    entries = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b))))
+                                      .astype(bool).sum()) for a, b in zip(witness, unfused))
+                    line[-1] += (f", witness {int((~tm32._same_lanes(witness, fused)).sum())} "
+                                 f"lanes differ, {entries} entries differ from unfused JAX, "
+                                 f"{int((~np.isfinite(rj[1])).sum())} of JAX's posterior "
+                                 f"entries not finite")
                 if lanes.any():  # the first such lane, JAX's and the port's side by side
                     b = int(np.flatnonzero(lanes)[0])
                     line[-1] += (f" (lane {b}: converged/iterations/decision weight JAX "
