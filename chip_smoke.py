@@ -24,8 +24,10 @@ against their plain versions, then ``decode_batch`` of BP+OSD-0,
 BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. K9'
 (MBP over GF(4)) is held against its plain version in float64 and float32
 and timed on the MBP workload (Hgf4 = [3 hz; hx] of the d=13 surface code,
-16,384 depolarizing syndromes), K1''s float64 instance (single-scan) the
-same way; then ``MbpDecoder.decode_batch`` on that workload,
+16,384 depolarizing syndromes), with its launch shape (grid, resident warps
+an SM, registers, where the warps' slices live, scratch bytes), and at
+toric d=20, 31, 60 and 85 (``mbp_size``), K1''s float64 instance
+(single-scan) the same way; then ``MbpDecoder.decode_batch`` on that workload,
 ``uf_decode`` on CSS syndromes, single-scan in float64, and the float64
 decoders (BP+LSD-0, BP+LSD-CS-5, BeliefFind, BP+flip) run their main
 paths, each against the CPU path. Every
@@ -1121,6 +1123,62 @@ def compare_mbp(config, g, syn, chan, inv_alpha, method):
     return err
 
 
+def ell_pauli_syndrome(g4, errors: np.ndarray) -> np.ndarray:
+    """``mbp.pauli_syndrome`` of (B, n) GF(4) errors from the code's ELL
+    layout: (B, m) uint8 in B*m*dc steps, where the dense form takes B*m*n
+    (212 G at toric d=60 and 4,096 lanes)."""
+    padded = np.concatenate([errors, np.zeros((errors.shape[0], 1), errors.dtype)], axis=1)
+    e = padded[:, g4.graph.chk_bits]  # (B, m, dc); a pad slot reads the zero column
+    anti = (e != 0) & (g4.chk_val != 0) & (e != g4.chk_val)
+    return np.ascontiguousarray(anti.sum(axis=-1) % 2, dtype=np.uint8)
+
+
+# (code, lanes) of mbp_size_times; at toric d=85 a warp's slice is too
+# large for a block of them in shared memory
+MBP_SIZES = (("surface13", MBP_BATCH), ("toric20", 8192), ("toric31", 8192),
+             ("toric60", 4096), ("toric85", 2048))
+
+
+def mbp_size_times(shape_fields=None):
+    """K9' in float64 and float32 min-sum at codes of growing size
+    (MBP_SIZES): the MBP workload (surface d=13, 16,384 lanes), then toric
+    d=20, 31, 60 and 85 as [3 hz; hx], each Pauli at MBP_ERROR_RATE (numpy
+    seed: the code's index in MBP_SIZES). Each call is held against the
+    plain version, then timed (``device_ms``, 3 calls a graph, 2 replays).
+    ``shape_fields(g, dtype, lanes)`` adds fields to each line. It calls
+    only ``mbp`` and ``mbp_cuda.mbp_cuda``, so it times another checkout's
+    K9' too: import that checkout's ``ldpc_tpu_torch`` first, then this
+    file with ``runpy.run_path``, and call this."""
+    dev = torch.device("cuda")
+    for seed, (config, lanes) in enumerate(MBP_SIZES):
+        if config == "surface13":
+            H, _, _, syn = mbp_workload(lanes)
+        else:
+            code = toric_code(int(config[5:]), compute_logicals=False)
+            hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+            H = np.vstack([3 * hz, hx]).astype(np.uint8)
+            e = np.random.default_rng(seed).choice(
+                4, size=(lanes, H.shape[1]),
+                p=[1 - 3 * MBP_ERROR_RATE] + [MBP_ERROR_RATE] * 3).astype(np.uint8)
+            syn = ell_pauli_syndrome(mbp.compile_gf4(H), e)
+            if not (syn[:4] == mbp.pauli_syndrome(H, e[:4])).all():
+                raise AssertionError(f"ell_pauli_syndrome differs on {config}")
+        g = mbp.gf4_to_torch(mbp.compile_gf4(H), dev)
+        syn = torch.from_numpy(syn).to(dev)
+        for dt in (torch.float64, torch.float32):
+            chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), MBP_ERROR_RATE),
+                                             np.ones((3, g.n)), dt, dev)
+            args = (g, syn, chan, inv_alpha, MAX_ITER, 0.0, MINIMUM_SUM, MS_FACTOR)
+            ker = mbp_cuda.mbp_cuda(*args)
+            torch.cuda.synchronize()
+            nlanes, err = hold_mbp(ker, mbp.mbp_reference(*args), f"mbp_size {config}")
+            ms = device_ms(lambda: mbp_cuda.mbp_cuda(*args), calls=3, replays=2)
+            phase("mbp_size", config=config, dtype=str(dt)[6:], m=g.m, n=g.n, levels=g.levels,
+                  lanes=lanes, lane_iterations=int(ker[3].sum()), ms=ms,
+                  differing_lanes=nlanes, max_abs_err=err,
+                  **(shape_fields(g, dt, lanes) if shape_fields else {}))
+
+
 def mbp_ops(g, lane_iterations: int, method: int) -> float:
     """K9''s operations over ``lane_iterations`` (sweeps), each counted once
     and each exp, log and tanh as one operation (the card computes them
@@ -1531,11 +1589,25 @@ def main() -> int:
               ops_rate=f"float64:{F64_OPS_PER_S}", share_of_bound=bound_ms / ms,
               launches=launches, lane_iterations=lane_iterations, levels=g4.levels,
               converged=int(ker[2].sum()),
-              differing_lanes=nlanes, max_abs_err=err, float32_ms=float32_ms)
+              differing_lanes=nlanes, max_abs_err=err, float32_ms=float32_ms,
+              **k9_shape(g4, torch.float64, mbp_syn_d.shape[0], method),
+              **{f"float32_{k}": v
+                 for k, v in k9_shape(g4, torch.float32, mbp_syn_d.shape[0], method).items()})
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}, err
+
+    def k9_shape(g, dt, lanes, method=MINIMUM_SUM):
+        s = mbp_cuda.launch_shape(g, dt, method, lanes)
+        return {"grid": f"{s.blocks}x{s.warps}", "resident_warps_per_sm": s.resident_warps,
+                "registers": s.registers, "local_bytes": s.local_bytes,
+                "shared_bytes": s.shared_bytes, "slice_bytes": s.slice_bytes,
+                "slices": "shared" if s.slices_in_shared else "device",
+                "scratch_bytes": s.scratch_bytes}
 
     mbp_numbers, err = mbp_timed(MINIMUM_SUM)
     mbp_err = max(mbp_err, err, mbp_timed(PRODUCT_SUM)[1])
+    # K9' at larger codes: fewer warps an SM (toric d=31 in float64, d=60),
+    # and the slices in device memory (d=85)
+    mbp_size_times(k9_shape)
 
     # ---- 5d. K1''s float64 instance (single-scan) against its plain version ----
     ss_err = 0.0

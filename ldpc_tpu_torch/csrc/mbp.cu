@@ -11,7 +11,10 @@
 // the messages its predecessors wrote; the per-edge work is transcendental
 // (three exp and one log an edge, one tanh more for product-sum), done in
 // float64 at the card's float64 rate. The compulsory traffic is the
-// syndromes in and the (B, 3, n) posteriors and (B, n) decisions out.
+// syndromes in and the (B, 3, n) posteriors and (B, n) decisions out. What
+// holds a lane back is the latency of its chain and of its state's
+// scattered reads, so the card wants many lanes in flight, each warp doing
+// only work its lane needs, and each lane's state close to the SM.
 //
 // What the design does about it:
 //   - Level scheduling. Qubits that share no stabilizer commute in the
@@ -24,33 +27,63 @@
 //     qubit writes that edge: the kernel keeps lam (min-sum) or tanh(lam/2)
 //     (product-sum) an edge and never stores the messages, which nothing
 //     reads again. The XLA loop recomputes dv*dc lams a qubit; this kernel
-//     computes dv. A lane's state is the cache (m*dc values, 9,984 bytes
-//     at d=13 in float64) and the widest level's messages.
-//   - One warp a lane, a (qubit, slot) pair a thread in each of two passes
-//     of a level: pass A forms each pair's stabilizer->qubit message from
-//     its row's cached values (slot order, the own slot excluded) into the
-//     lane's message scratch; after a __syncwarp, pass B forms the pair's
-//     qubit posterior from the qubit's messages in slot order, writes the
-//     posterior and decision once a qubit (slot 0's thread), and caches its
-//     own edge's new value. No two pairs of a level touch one row's
-//     entries that another pair writes, so the passes need only the one
-//     __syncwarp between them and one after.
+//     computes dv.
+//   - Persistent warps that claim lanes. The grid is as many blocks as the
+//     card holds at once (the occupancy API), and no more than the lanes
+//     need; lane 0 of a warp claims the next lane from a counter the
+//     wrapper zeroes (atomicAdd) and the warp decodes it, then claims the
+//     next, until the batch is spent. A lane that converges early frees its
+//     warp for the next lane at once, not when the slowest lane of its
+//     block is done. The registers are capped (__launch_bounds__) so that
+//     kMinBlocks blocks of kWarps warps fit an SM: 32 warps.
+//   - Scratch a warp, not a lane. A warp's cache (m rows of dc values,
+//     each row padded to 16 bytes; 9,984 bytes at d=13 in float64) is a
+//     row of a (grid warps, m * row stride) device scratch, rewritten with
+//     the initial values at each claim: the scratch is sized by the warps
+//     in flight (42 MB at d=13 in float64, within the 50 MB L2), not by
+//     the batch. Pass A reads a cache row 16 bytes at a time.
+//   - A warp's slice: the level's messages and its qubits' posteriors, the
+//     lane's decisions and its syndrome; the decisions go to the output
+//     when the lane is done, the posteriors each time a qubit updates. The
+//     slice grows with the code (1,920 bytes at d=13 in float64, 7,184 at
+//     toric d=31, 20,960 at toric d=60) and lives in shared memory, so the
+//     warps an SM fall with the code's size (32 at d=13, 24 at toric d=31
+//     in float64, 8 at d=60): measured, that is faster there than 32 warps
+//     with the slices in device memory, as fewer lanes with larger state
+//     share the SM's L1 and the L2 better. Where a block of kWarps slices
+//     does not fit a block's shared memory (a slice above 29 KB on the
+//     H100: toric codes from d=75 in float64 and d=80 in float32, or wide
+//     levels), the slices live in a second device scratch, a slice a warp
+//     of the grid, and the registers alone set the residency; an instance
+//     of the kernel for each place.
+//   - Real pairs only. The host lists each level's real (qubit, slot)
+//     pairs once (ops/mbp.py::gf4_to_torch: qubit-major, in slot order,
+//     each with its stabilizer, own slot, level position, Pauli and row
+//     degree), so no thread walks a pad slot or divides by a runtime dv.
+//   - Three passes a level, a __syncwarp after each: pass A, a thread a
+//     pair, forms the stabilizer->qubit message from its row's cached
+//     values (slot order, its own slot excluded); pass B1, a thread a
+//     qubit, sums its messages in slot order into its posterior, once a
+//     qubit, and writes the posterior and decision; pass B2, a thread a
+//     pair, forms the pair's new edge value from its qubit's posterior and
+//     caches it. No two pairs of a level touch one row's entries that
+//     another pair writes.
 //   - Every sum, product and quotient is rounded once where the plain
-//     version rounds it (__d*_rn / __f*_rn intrinsics, -fmad=false).
-//     exp, log and tanh are CUDA's, the ones torch's CUDA kernels call, so
-//     on the card the plain version and the kernel agree bit for bit
-//     where their libraries agree; the comparison states its tolerance.
-//   - Lane state in device memory. A lane's cache and messages live in a
-//     lane-major device scratch, the decisions in the output, and its
-//     accesses stay in L1/L2; posteriors go straight to the output each
-//     time a qubit updates. A shared-memory variant measured beside it on
-//     the H100 (16,384 surface-code lanes, min-sum; PERF.md) was slower at
-//     d=9 float64 and d=13 in both types (34.2 against 15.4 ms at d=13
-//     float64, the MBP workload), even at d=5 float64 and d=9 float32, and
-//     ahead only at d=5 float32 (0.97 against 1.04 ms): shared memory
-//     bounds the resident lanes by the state a block holds, device memory
-//     does not.
+//     version rounds it (__d*_rn / __f*_rn intrinsics, -fmad=false), and a
+//     qubit's pad slots add their term (0 * 1/alpha) * 0 after its real
+//     slots as the plain version's sum does (+0 unless 1/alpha is inf or
+//     NaN). exp, log and tanh are CUDA's, the ones torch's CUDA kernels
+//     call, so on the card the plain version and the kernel agree bit for
+//     bit where their libraries agree; the comparison states its tolerance.
 //   - Templated on float64, the decoder's default, and float32.
+//
+// Measured on the H100 (PERF.md): the state a float64 lane keeps hot is
+// about 10 KB and an SM's L1 and shared memory together 256 KB, so 32
+// lanes in flight spill part of it to L2; at 24 warps an SM float64 ran
+// faster, float32 min-sum the same and float32 product-sum slower. Reading
+// the cache through L2 only (ld.global.cg), two pairs a thread in passes A
+// and B2, and an initial cache computed once a block and copied at each
+// claim were slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +91,8 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLanes = 8;  // lanes (warps) a block
+constexpr int kWarps = 8;      // warps (lanes in flight) a block
+constexpr int kMinBlocks = 4;  // blocks an SM the registers must allow
 
 __device__ __forceinline__ float sub_rn(float x, float y) { return __fsub_rn(x, y); }
 __device__ __forceinline__ double sub_rn(double x, double y) { return __dsub_rn(x, y); }
@@ -84,21 +118,58 @@ struct Args {
   const T* inv_alpha;       // (3, n)
   const int* chk_bits;      // (m, dc), pad n
   const uint8_t* chk_val;   // (m, dc), pad 0
-  const int* var_chks;      // (n, dv), pad m
-  const int* var_slot;      // (n, dv)
-  const uint8_t* var_val;   // (n, dv), pad 0
   const int* lv_bits;       // (n,) qubits level by level
-  const int* lv_ptr;        // (levels + 1,)
-  int levels, pairs;        // pairs: the widest level's qubits times dv
+  const int* lv_ptr;        // (levels + 1,) into lv_bits
+  const int* pair_ptr;      // (n + 1,) first real pair of each level position
+  const int4* pairs;        // (edges,) stabilizer, own slot, level position,
+                            // Pauli + 4 * row degree
+  int levels, max_pairs, max_qubits;
   int m, n, dc, dv, B, max_iter;
   T beta, gamma;
-  T* cache;                 // (B, m*dc) scratch
-  T* msg;                   // (B, pairs) scratch
+  int* next;                // the lanes' claim counter, 0 at launch
+  T* cache;                 // (grid warps, m * row stride) scratch
+  unsigned char* slices;    // (grid warps, slice) scratch, unless in shared memory
+  int slice;                // bytes of a warp's slice
   T* llr;                   // (B, 3, n) posteriors
   uint8_t* dec;             // (B, n) GF(4) decisions
   bool* conv;               // (B,)
   int* iters;               // (B,)
 };
+
+// A row of a warp's cache takes dc values rounded up to 16 bytes, so that
+// pass A reads it 16 bytes at a time.
+__host__ __device__ inline int row_stride(int dc, int elem) {
+  const int per16 = 16 / elem;
+  return (dc + per16 - 1) / per16 * per16;
+}
+
+// 16 bytes of a row of the cache (16-byte aligned) into registers.
+__device__ __forceinline__ void load_vec(const double* p, double* v) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
+
+// Bytes of the values of a warp's shared slice: a level's messages, then
+// its qubits' posteriors (three a qubit).
+__host__ __device__ inline int value_bytes(int max_pairs, int max_qubits, int elem) {
+  return align16((max_pairs + 3 * max_qubits) * elem);
+}
+
+// Bytes of a warp's shared slice: the values, then the lane's decisions
+// (n bytes) and syndrome (m bytes).
+__host__ __device__ inline int warp_bytes(int max_pairs, int max_qubits, int m, int n, int elem) {
+  return value_bytes(max_pairs, max_qubits, elem) + align16(n) + align16(m);
+}
 
 // The cached value of an edge whose message is (q0, q1, q2) and whose
 // Pauli is val in 1..3: lam = log(1e-12 + (1 + e^-q[val]) / (sum of the
@@ -116,109 +187,154 @@ __device__ __forceinline__ T edge_value(T q0, T q1, T q2, int val) {
   }
 }
 
+// Pass A for the pair p: its stabilizer->qubit message from the other
+// cached values of its stabilizer's row, in slot order.
 template <typename T, bool kMinSum>
-__global__ void __launch_bounds__(32 * kLanes) mbp_kernel(const Args<T> a) {
+__device__ __forceinline__ T pair_message(const Args<T>& a, const T* cache, const uint8_t* syn,
+                                          int stride, int p, T lo, T hi) {
+  constexpr int kVec = 16 / sizeof(T);  // values a 16-byte load brings
+  const int4 r = __ldg(a.pairs + p);
+  const int own = r.y, deg = r.w >> 2;
+  const T* row = cache + r.x * stride;
+  const int s = syn[r.x];
+  if constexpr (kMinSum) {
+    T mn = T(1e30);
+    int negs = 0;
+    for (int v = 0; v < deg; v += kVec) {
+      T vals[kVec];
+      load_vec(row + v, vals);
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const int g = v + u;
+        if (g >= deg || g == own) continue;
+        const T lam = vals[u];
+        const T x = abs_of(lam);
+        mn = (mn != mn || x >= mn) ? mn : x;  // a NaN propagates
+        negs += lam <= T(0);
+      }
+    }
+    const T mag = mul_rn(a.gamma, mn);
+    return ((s + negs) & 1) ? -mag : mag;
+  } else {
+    T prod = T(1);
+    for (int v = 0; v < deg; v += kVec) {
+      T vals[kVec];
+      load_vec(row + v, vals);
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const int g = v + u;
+        if (g >= deg || g == own) continue;
+        prod = mul_rn(prod, vals[u]);
+      }
+    }
+    prod = prod < lo ? lo : prod;  // a NaN stays
+    prod = prod > hi ? hi : prod;
+    const T mag = log_of(div_rn(add_rn(T(1), prod), sub_rn(T(1), prod)));
+    return s ? -mag : mag;
+  }
+}
+
+// Pass B2 for a pair r whose qubit's posterior is sp[0..2] and whose
+// message is mv: the pair's new edge value.
+template <typename T, bool kMinSum>
+__device__ __forceinline__ T pair_edge_value(const int4 r, const T* sp, T mv) {
+  const int val = r.w & 3;
+  const T n0 = sub_rn(sp[0], val == 1 ? T(0) : mv);
+  const T n1 = sub_rn(sp[1], val == 2 ? T(0) : mv);
+  const T n2 = sub_rn(sp[2], val == 3 ? T(0) : mv);
+  return edge_value<T, kMinSum>(n0, n1, n2, val);
+}
+
+// kShared: the warps' slices are in shared memory (a.slices unused), else
+// in a.slices; an instance each, so that each reaches its slice by its own
+// address space.
+template <typename T, bool kMinSum, bool kShared>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks) mbp_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int b = blockIdx.x * kLanes + w;
-  if (b >= a.B) return;  // whole warps only; no block barrier follows
   const int m = a.m, n = a.n, dc = a.dc, dv = a.dv;
-  const int E = m * dc;
-
-  T* cache = a.cache + (size_t)b * E;
-  T* msg = a.msg + (size_t)b * a.pairs;
-  uint8_t* dec = a.dec + (size_t)b * n;
-  const uint8_t* syn = a.synd + (size_t)b * m;
-  T* llr = a.llr + (size_t)b * 3 * n;
-
-  // each real edge's initial message: its qubit's channel LLR, 0 on the
-  // agreeing Pauli
-  for (int e = t; e < E; e += 32) {
-    const int j = __ldg(a.chk_bits + e);
-    T v = T(0);
-    if (j < n) {
-      const int val = __ldg(a.chk_val + e);
-      const T q0 = val == 1 ? T(0) : __ldg(a.chan + j);
-      const T q1 = val == 2 ? T(0) : __ldg(a.chan + n + j);
-      const T q2 = val == 3 ? T(0) : __ldg(a.chan + 2 * n + j);
-      v = edge_value<T, kMinSum>(q0, q1, q2, val);
-    }
-    cache[e] = v;
-  }
-  for (int j = t; j < n; j += 32) dec[j] = 0;
-  __syncwarp();
-
+  const int stride = row_stride(dc, sizeof(T));
+  // this warp's slice (messages, posteriors, decisions, syndrome) and its
+  // row of the cache scratch
+  const size_t gw = (size_t)blockIdx.x * kWarps + w;
+  unsigned char* mine = kShared ? smem + (size_t)w * a.slice : a.slices + gw * a.slice;
+  T* smsg = reinterpret_cast<T*>(mine);
+  T* spost = smsg + a.max_pairs;
+  uint8_t* dec = mine + value_bytes(a.max_pairs, a.max_qubits, sizeof(T));
+  uint8_t* syn = dec + align16(n);
+  T* cache = a.cache + gw * m * stride;
   const T lo = sub_rn(T(1e-8), T(1)), hi = sub_rn(T(1), T(1e-8));
-  bool converged = false;
-  int it = 0;
-  while (it < a.max_iter) {
-    ++it;
-    for (int l = 0; l < a.levels; ++l) {
-      const int q0 = __ldg(a.lv_ptr + l);
-      const int P = (__ldg(a.lv_ptr + l + 1) - q0) * dv;
 
-      // ---- pass A: each pair's stabilizer->qubit message ---------------
-      for (int p = t; p < P; p += 32) {
-        const int j = __ldg(a.lv_bits + q0 + p / dv);
-        const int k = p % dv;
-        const int c = __ldg(a.var_chks + j * dv + k);
-        T out = T(0);
-        if (c < m) {
-          const int own = __ldg(a.var_slot + j * dv + k);
-          const int s = syn[c];
-          if constexpr (kMinSum) {
-            T mn = T(1e30);
-            int negs = 0;
-            for (int g = 0; g < dc; ++g) {
-              if (g == own || __ldg(a.chk_bits + c * dc + g) >= n) continue;
-              const T lam = cache[c * dc + g];
-              const T x = abs_of(lam);
-              mn = (mn != mn || x >= mn) ? mn : x;  // a NaN propagates
-              negs += lam <= T(0);
-            }
-            const T r = mul_rn(a.gamma, mn);
-            out = ((s + negs) & 1) ? -r : r;
-          } else {
-            T prod = T(1);
-            for (int g = 0; g < dc; ++g) {
-              if (g == own || __ldg(a.chk_bits + c * dc + g) >= n) continue;
-              prod = mul_rn(prod, cache[c * dc + g]);
-            }
-            prod = prod < lo ? lo : prod;  // a NaN stays
-            prod = prod > hi ? hi : prod;
-            const T mag = log_of(div_rn(add_rn(T(1), prod), sub_rn(T(1), prod)));
-            out = s ? -mag : mag;
-          }
+  for (;;) {
+    int b = 0;
+    if (t == 0) b = atomicAdd(a.next, 1);
+    b = __shfl_sync(kFull, b, 0);
+    if (b >= a.B) break;
+    T* llr = a.llr + (size_t)b * 3 * n;
+
+    // the lane's syndrome and zero decisions into shared memory; each real
+    // edge's initial message into the cache: its qubit's channel LLR, 0 on
+    // the agreeing Pauli (pad entries are never read)
+    for (int i = t; i < m; i += 32) syn[i] = a.synd[(size_t)b * m + i];
+    for (int j = t; j < n; j += 32) dec[j] = 0;
+    if (a.max_iter > 0) {
+      for (int e = t; e < m * dc; e += 32) {
+        const int j = __ldg(a.chk_bits + e);
+        if (j < n) {
+          const int val = __ldg(a.chk_val + e);
+          const T q0 = val == 1 ? T(0) : __ldg(a.chan + j);
+          const T q1 = val == 2 ? T(0) : __ldg(a.chan + n + j);
+          const T q2 = val == 3 ? T(0) : __ldg(a.chan + 2 * n + j);
+          cache[e / dc * stride + e % dc] = edge_value<T, kMinSum>(q0, q1, q2, val);
         }
-        msg[p] = out;
       }
-      __syncwarp();
+    }
+    __syncwarp();
 
-      // ---- pass B: the qubit's posterior, decision and new edge values --
-      for (int p = t; p < P; p += 32) {
-        const int qi = p / dv;
-        const int k = p % dv;
-        const int j = __ldg(a.lv_bits + q0 + qi);
-        const int c = __ldg(a.var_chks + j * dv + k);
-        if (c >= m && k != 0) continue;
-        const T ia0 = __ldg(a.inv_alpha + j), ia1 = __ldg(a.inv_alpha + n + j),
-                ia2 = __ldg(a.inv_alpha + 2 * n + j);
-        T acc0 = T(0), acc1 = T(0), acc2 = T(0);
-        for (int kk = 0; kk < dv; ++kk) {
-          const T mv = msg[qi * dv + kk];
-          const int val = __ldg(a.var_val + j * dv + kk);
-          const T on = __ldg(a.var_chks + j * dv + kk) < m ? T(1) : T(0);
-          acc0 = add_rn(acc0, mul_rn(mul_rn(mv, val == 1 ? a.beta : ia0), on));
-          acc1 = add_rn(acc1, mul_rn(mul_rn(mv, val == 2 ? a.beta : ia1), on));
-          acc2 = add_rn(acc2, mul_rn(mul_rn(mv, val == 3 ? a.beta : ia2), on));
+    bool converged = false;
+    int it = 0;
+    while (it < a.max_iter) {
+      ++it;
+      for (int l = 0; l < a.levels; ++l) {
+        const int q0 = __ldg(a.lv_ptr + l), q1 = __ldg(a.lv_ptr + l + 1);
+        const int p0 = __ldg(a.pair_ptr + q0), p1 = __ldg(a.pair_ptr + q1);
+
+        // ---- pass A: each pair's stabilizer->qubit message -----------------
+        for (int p = p0 + t; p < p1; p += 32) {
+          smsg[p - p0] = pair_message<T, kMinSum>(a, cache, syn, stride, p, lo, hi);
         }
-        const T l0 = add_rn(__ldg(a.chan + j), acc0);
-        const T l1 = add_rn(__ldg(a.chan + n + j), acc1);
-        const T l2 = add_rn(__ldg(a.chan + 2 * n + j), acc2);
-        if (k == 0) {
+        __syncwarp();
+
+        // ---- pass B1: each qubit's posterior and decision, once ------------
+        for (int i = q0 + t; i < q1; i += 32) {
+          const int j = __ldg(a.lv_bits + i);
+          const int f = __ldg(a.pair_ptr + i), cnt = __ldg(a.pair_ptr + i + 1) - f;
+          const T ia0 = __ldg(a.inv_alpha + j), ia1 = __ldg(a.inv_alpha + n + j),
+                  ia2 = __ldg(a.inv_alpha + 2 * n + j);
+          T acc0 = T(0), acc1 = T(0), acc2 = T(0);
+          for (int k = 0; k < cnt; ++k) {
+            const T mv = smsg[f - p0 + k];
+            const int val = __ldg(&a.pairs[f + k].w) & 3;
+            acc0 = add_rn(acc0, mul_rn(mv, val == 1 ? a.beta : ia0));
+            acc1 = add_rn(acc1, mul_rn(mv, val == 2 ? a.beta : ia1));
+            acc2 = add_rn(acc2, mul_rn(mv, val == 3 ? a.beta : ia2));
+          }
+          if (cnt < dv) {  // the pad slots' term, the same for each
+            acc0 = add_rn(acc0, mul_rn(mul_rn(T(0), ia0), T(0)));
+            acc1 = add_rn(acc1, mul_rn(mul_rn(T(0), ia1), T(0)));
+            acc2 = add_rn(acc2, mul_rn(mul_rn(T(0), ia2), T(0)));
+          }
+          const T l0 = add_rn(__ldg(a.chan + j), acc0);
+          const T l1 = add_rn(__ldg(a.chan + n + j), acc1);
+          const T l2 = add_rn(__ldg(a.chan + 2 * n + j), acc2);
           llr[j] = l0;
           llr[n + j] = l1;
           llr[2 * n + j] = l2;
+          T* sp = spost + 3 * (i - q0);
+          sp[0] = l0;
+          sp[1] = l1;
+          sp[2] = l2;
           // the first least Pauli (a NaN counts least), identity when all
           // three are positive
           int best = 0;
@@ -227,68 +343,157 @@ __global__ void __launch_bounds__(32 * kLanes) mbp_kernel(const Args<T> a) {
           if (bv == bv && (l2 != l2 || l2 < bv)) { best = 2; bv = l2; }
           dec[j] = (l0 > T(0) && l1 > T(0) && l2 > T(0)) ? 0 : (uint8_t)(best + 1);
         }
-        if (c < m) {
-          const int val = __ldg(a.var_val + j * dv + k);
-          const T mv = msg[p];
-          const T n0 = sub_rn(l0, val == 1 ? T(0) : mv);
-          const T n1 = sub_rn(l1, val == 2 ? T(0) : mv);
-          const T n2 = sub_rn(l2, val == 3 ? T(0) : mv);
-          cache[c * dc + __ldg(a.var_slot + j * dv + k)] = edge_value<T, kMinSum>(n0, n1, n2, val);
-        }
-      }
-      __syncwarp();
-    }
+        __syncwarp();
 
-    // ---- the decisions' Pauli syndrome against the syndrome ---------------
-    bool ok = true;
-    for (int i = t; i < m && ok; i += 32) {
-      int par = syn[i];
-      for (int g = 0; g < dc; ++g) {
-        const int j = __ldg(a.chk_bits + i * dc + g);
-        if (j < n) {
+        // ---- pass B2: each pair's new edge value, cached -------------------
+        for (int p = p0 + t; p < p1; p += 32) {
+          const int4 r = __ldg(a.pairs + p);
+          cache[r.x * stride + r.y] =
+              pair_edge_value<T, kMinSum>(r, spost + 3 * (r.z - q0), smsg[p - p0]);
+        }
+        __syncwarp();
+      }
+
+      // ---- the decisions' Pauli syndrome against the syndrome -------------
+      bool ok = true;
+      for (int i = t; i < m && ok; i += 32) {
+        int par = syn[i];
+        for (int g = 0; g < dc; ++g) {
+          const int j = __ldg(a.chk_bits + i * dc + g);
+          if (j >= n) break;  // a row's pads come last
           const int d = dec[j];
           par ^= (d != 0 && d != __ldg(a.chk_val + i * dc + g)) ? 1 : 0;
         }
+        ok = (par == 0);
       }
-      ok = (par == 0);
+      converged = __all_sync(kFull, ok);
+      if (converged) break;
     }
-    converged = __all_sync(kFull, ok);
-    if (converged) break;
-  }
 
-  if (t == 0) {
-    a.conv[b] = converged;
-    a.iters[b] = it;
+    for (int j = t; j < n; j += 32) a.dec[(size_t)b * n + j] = dec[j];
+    if (t == 0) {
+      a.conv[b] = converged;
+      a.iters[b] = it;
+    }
+    __syncwarp();  // the slice is the next lane's
   }
 }
 
+// The launch shape of an instance for a code: blocks resident on an SM
+// and on the card, whether the warps' slices are in shared memory,
+// registers a thread and local (spill) bytes; found once per (instance,
+// slice bytes, device), with the attributes the launch needs set then. The
+// slices are in shared memory wherever a block of kWarps of them fits.
+struct Shape {
+  int per_sm = 0, sms = 0, regs = 0, local = 0;
+  bool in_shared = false;
+  size_t smem = 0;  // dynamic shared bytes a block
+};
+
+struct ShapeCache {
+  int device = -1, slice_bytes = -1;
+  cudaError_t err = cudaSuccess;
+  Shape s;
+};
+
 template <typename T, bool kMinSum>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const int blocks = (a.B + kLanes - 1) / kLanes;
-  mbp_kernel<T, kMinSum><<<blocks, 32 * kLanes, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+cudaError_t shape_of(int slice_bytes, Shape* out) {
+  static ShapeCache cached;  // one per instantiation
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (cached.device != device || cached.slice_bytes != slice_bytes) {
+    auto in_shared = mbp_kernel<T, kMinSum, true>;
+    auto in_device = mbp_kernel<T, kMinSum, false>;
+    Shape s;
+    int optin = 0;
+    const size_t smem = (size_t)kWarps * slice_bytes;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    s.in_shared = smem <= (size_t)optin;
+    if (err == cudaSuccess && s.in_shared) {
+      s.smem = smem;
+      err = cudaFuncSetAttribute(in_shared, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.per_sm, in_shared, 32 * kWarps,
+                                                            smem);
+      }
+    } else if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&s.per_sm, in_device, 32 * kWarps, 0);
+    }
+    if (err == cudaSuccess && s.per_sm == 0) err = cudaErrorLaunchOutOfResources;
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) {
+      err = cudaFuncGetAttributes(&attr, s.in_shared ? (const void*)in_shared
+                                                      : (const void*)in_device);
+    }
+    if (err == cudaSuccess) {
+      s.regs = attr.numRegs;
+      s.local = (int)attr.localSizeBytes;
+    }
+    if (err != cudaSuccess) cudaGetLastError();  // cleared: not the next launch's error
+    cached = ShapeCache{device, slice_bytes, err, s};
+  }
+  *out = cached.s;
+  return cached.err;
+}
+
+int slice_of(int max_pairs, int max_qubits, int m, int n, int f64) {
+  return warp_bytes(max_pairs, max_qubits, m, n, f64 ? sizeof(double) : sizeof(float));
+}
+
+cudaError_t shape_for(int slice, int min_sum, int f64, Shape* s) {
+  if (f64) return min_sum ? shape_of<double, true>(slice, s) : shape_of<double, false>(slice, s);
+  return min_sum ? shape_of<float, true>(slice, s) : shape_of<float, false>(slice, s);
+}
+
+// Blocks a launch of B lanes takes: those the card holds at once, no more
+// than the lanes need.
+int grid_blocks(const Shape& s, int B) {
+  const int needed = (B + kWarps - 1) / kWarps;
+  const int resident = s.per_sm * s.sms;
+  return needed < resident ? needed : resident;
+}
+
+template <typename T, bool kMinSum>
+void launch(const Args<T>& a, const Shape& s, int blocks, cudaStream_t st) {
+  if (s.in_shared) {
+    mbp_kernel<T, kMinSum, true><<<blocks, 32 * kWarps, s.smem, st>>>(a);
+  } else {
+    mbp_kernel<T, kMinSum, false><<<blocks, 32 * kWarps, 0, st>>>(a);
+  }
 }
 
 template <typename T>
 int run(const void* synd, const void* chan, const void* inv_alpha, const void* chk_bits,
-        const void* chk_val, const void* var_chks, const void* var_slot, const void* var_val,
-        const void* lv_bits, const void* lv_ptr, int levels, int pairs, int m, int n, int dc,
-        int dv, int B, int max_iter, int min_sum, double beta, double gamma,
-        void* cache, void* msg, void* llr, void* dec, void* conv, void* iters,
+        const void* chk_val, const void* lv_bits, const void* lv_ptr, const void* pair_ptr,
+        const void* pairs, int levels, int max_pairs, int max_qubits, int m, int n, int dc,
+        int dv, int B, int max_iter, int min_sum, double beta, double gamma, int blocks,
+        void* next, void* cache, void* slices, void* llr, void* dec, void* conv, void* iters,
         cudaStream_t st) {
+  Shape s;
+  const int slice = slice_of(max_pairs, max_qubits, m, n, sizeof(T) == 8);
+  cudaError_t err = shape_for(slice, min_sum, sizeof(T) == 8, &s);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks < 1 || blocks > s.per_sm * s.sms || (!s.in_shared && !slices)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Args<T> a;
   a.synd = static_cast<const uint8_t*>(synd);
   a.chan = static_cast<const T*>(chan);
   a.inv_alpha = static_cast<const T*>(inv_alpha);
   a.chk_bits = static_cast<const int*>(chk_bits);
   a.chk_val = static_cast<const uint8_t*>(chk_val);
-  a.var_chks = static_cast<const int*>(var_chks);
-  a.var_slot = static_cast<const int*>(var_slot);
-  a.var_val = static_cast<const uint8_t*>(var_val);
   a.lv_bits = static_cast<const int*>(lv_bits);
   a.lv_ptr = static_cast<const int*>(lv_ptr);
+  a.pair_ptr = static_cast<const int*>(pair_ptr);
+  a.pairs = static_cast<const int4*>(pairs);
   a.levels = levels;
-  a.pairs = pairs;
+  a.max_pairs = max_pairs;
+  a.max_qubits = max_qubits;
   a.m = m;
   a.n = n;
   a.dc = dc;
@@ -297,38 +502,77 @@ int run(const void* synd, const void* chan, const void* inv_alpha, const void* c
   a.max_iter = max_iter;
   a.beta = static_cast<T>(beta);
   a.gamma = static_cast<T>(gamma);
+  a.next = static_cast<int*>(next);
   a.cache = static_cast<T*>(cache);
-  a.msg = static_cast<T*>(msg);
+  a.slices = static_cast<unsigned char*>(slices);
+  a.slice = slice;
   a.llr = static_cast<T*>(llr);
   a.dec = static_cast<uint8_t*>(dec);
   a.conv = static_cast<bool*>(conv);
   a.iters = static_cast<int*>(iters);
-  return min_sum ? launch<T, true>(a, st) : launch<T, false>(a, st);
+  if (min_sum) {
+    launch<T, true>(a, s, blocks, st);
+  } else {
+    launch<T, false>(a, s, blocks, st);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success). f64 selects
-// the double instance (chan, inv_alpha, cache, msg and llr are then
-// double). beta and gamma are rounded to the scalar type once. cache (B,
-// m*dc) and msg (B, pairs) are the lanes' scratch. Nothing synchronises.
+// K9''s launch shape for B lanes of an (m, n, dc) code whose widest level
+// has max_pairs real pairs and max_qubits qubits, into out[0..7]: blocks of
+// the grid, warps a block, blocks resident on an SM, registers a thread,
+// local (spill) bytes a thread, shared bytes a block (0: the slices are in
+// device memory), the values of a warp's row of the cache scratch, and the
+// bytes of a warp's slice. Each scratch has a row a warp of the grid; the
+// slices' only where the shared bytes are 0. Returns 0 or the CUDA error of
+// setting the kernel up.
+int ldpc_mbp_shape(int max_pairs, int max_qubits, int m, int n, int dc, int min_sum, int f64,
+                   int B, void* out) {
+  Shape s;
+  const int slice = slice_of(max_pairs, max_qubits, m, n, f64);
+  const cudaError_t err = shape_for(slice, min_sum, f64, &s);
+  if (err != cudaSuccess) return (int)err;
+  int* o = static_cast<int*>(out);
+  o[0] = grid_blocks(s, B);
+  o[1] = kWarps;
+  o[2] = s.per_sm;
+  o[3] = s.regs;
+  o[4] = s.local;
+  o[5] = (int)s.smem;
+  o[6] = m * row_stride(dc, f64 ? sizeof(double) : sizeof(float));
+  o[7] = slice;
+  return 0;
+}
+
+// Launches a grid of `blocks` blocks (ldpc_mbp_shape's; cache holds a row
+// of the values it reports for each of their warps, and slices, where the
+// shape puts them in device memory, a slice of the bytes it reports).
+// Returns cudaGetLastError() after the launch (0 on success), the error of
+// setting the kernel up, or cudaErrorInvalidValue for a grid the card
+// cannot hold at once or slices missing. f64 selects the double instance
+// (chan, inv_alpha, cache and llr are then double). beta and gamma are
+// rounded to the scalar type once. next: one int32, 0 at launch. Nothing
+// synchronises.
 int ldpc_mbp(const void* synd, const void* chan, const void* inv_alpha, const void* chk_bits,
-             const void* chk_val, const void* var_chks, const void* var_slot,
-             const void* var_val, const void* lv_bits, const void* lv_ptr, int levels,
-             int pairs, int m, int n, int dc, int dv, int B, int max_iter, int min_sum,
-             int f64, double beta, double gamma, void* cache, void* msg,
-             void* llr, void* dec, void* conv, void* iters, void* stream) {
+             const void* chk_val, const void* lv_bits, const void* lv_ptr,
+             const void* pair_ptr, const void* pairs, int levels, int max_pairs,
+             int max_qubits, int m, int n, int dc, int dv, int B, int max_iter, int min_sum,
+             int f64, double beta, double gamma, int blocks, void* next, void* cache,
+             void* slices, void* llr, void* dec, void* conv, void* iters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (f64) {
-    return run<double>(synd, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot, var_val,
-                       lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter, min_sum,
-                       beta, gamma, cache, msg, llr, dec, conv, iters, st);
+    return run<double>(synd, chan, inv_alpha, chk_bits, chk_val, lv_bits, lv_ptr, pair_ptr,
+                       pairs, levels, max_pairs, max_qubits, m, n, dc, dv, B, max_iter,
+                       min_sum, beta, gamma, blocks, next, cache, slices, llr, dec, conv,
+                       iters, st);
   }
-  return run<float>(synd, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot, var_val,
-                    lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter, min_sum, beta,
-                    gamma, cache, msg, llr, dec, conv, iters, st);
+  return run<float>(synd, chan, inv_alpha, chk_bits, chk_val, lv_bits, lv_ptr, pair_ptr, pairs,
+                    levels, max_pairs, max_qubits, m, n, dc, dv, B, max_iter, min_sum, beta,
+                    gamma, blocks, next, cache, slices, llr, dec, conv, iters, st);
 }
 
 }  // extern "C"

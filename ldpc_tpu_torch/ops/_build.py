@@ -83,11 +83,17 @@ _SIGNATURES = {
     "ldpc_bp_exact_lane_bytes": [_I, _I, _I],
     # (m, n, dc, dv, min_sum, shared) -> K8' lanes resident on an SM
     "ldpc_bp_exact_resident_lanes": [_I, _I, _I, _I, _I, _I],
-    # (syndromes, chan, inv_alpha, chk_bits, chk_val, var_chks, var_slot,
-    #  var_val, lv_bits, lv_ptr, levels, pairs, m, n, dc, dv, B, max_iter,
-    #  min_sum, f64, beta, gamma, cache, msg, llr, dec, conv, iters, stream)
-    "ldpc_mbp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _I, _I, _I, _D, _D, _P, _P, _P, _P, _P, _P, _P],
+    # (syndromes, chan, inv_alpha, chk_bits, chk_val, lv_bits, lv_ptr,
+    #  pair_ptr, pairs, levels, max_pairs, max_qubits, m, n, dc, dv, B,
+    #  max_iter, min_sum, f64, beta, gamma, blocks, next, cache, slices, llr,
+    #  dec, conv, iters, stream)
+    "ldpc_mbp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _I, _I, _D, _D, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # (max_pairs, max_qubits, m, n, dc, min_sum, f64, B, out (8,) int32)
+    # -> K9''s grid blocks, warps a block, blocks an SM, registers, local
+    # bytes, shared bytes a block (0: slices in device memory), values of a
+    # warp's cache row, bytes of a warp's slice
+    "ldpc_mbp_shape": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (m, n, dv) -> bytes of shared memory a block of the flip sweep takes
     "ldpc_flip_smem": [_I, _I, _I],
     # (syndromes, var_chks, m, n, dv, B, max_iter, pfreq, seed, dec, conv,

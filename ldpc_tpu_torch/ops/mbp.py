@@ -97,7 +97,15 @@ def pauli_syndrome(dense_gf4: np.ndarray, error_gf4: np.ndarray) -> np.ndarray:
 class Gf4Torch(NamedTuple):
     """The GF(4) layout on a torch device, with the level schedule of the
     index order: level l (from 0) holds the qubits ``lv_bits[lv_ptr[l]:
-    lv_ptr[l+1]]``, none of which shares a stabilizer with another."""
+    lv_ptr[l+1]]``, none of which shares a stabilizer with another.
+
+    The real (qubit, slot) pairs of the schedule, which kernel K9' walks
+    (the plain version does not read them): the qubit at level position i
+    owns the pairs ``pairs[pair_ptr[i]:pair_ptr[i+1]]``, one for each of its
+    real slots in slot order, so a level's pairs are qubit-major and no pad
+    slot appears. A pair's row is (stabilizer, its own slot in the
+    stabilizer's row, the qubit's level position, Pauli + 4 * the
+    stabilizer's row degree)."""
 
     m: int
     n: int
@@ -111,18 +119,41 @@ class Gf4Torch(NamedTuple):
     lv_bits: torch.Tensor  # (n,) int32
     lv_ptr: torch.Tensor  # (levels + 1,) int32
     max_level: int  # qubits of the widest level
+    pair_ptr: torch.Tensor  # (n + 1,) int32, by level position
+    pairs: torch.Tensor  # (edges, 4) int32
+    max_pairs: int  # real pairs of the widest level
 
     @property
     def levels(self) -> int:
         return self.lv_ptr.shape[0] - 1
 
 
+def level_pairs(g: PcmGraph, var_val: np.ndarray, bits: np.ndarray, ptr: np.ndarray):
+    """The real (qubit, slot) pairs of a level schedule ``bits`` (level
+    positions -> qubits) with level pointers ``ptr``, as :class:`Gf4Torch`
+    holds them: ``(pair_ptr (n + 1,), pairs (edges, 4), max_pairs)``, int32.
+    A qubit's real slots come first in the ELL layout, as a row's do."""
+    deg = g.var_mask.sum(axis=1)[bits]  # real slots at each level position
+    pair_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    pos = np.repeat(np.arange(g.n), deg)
+    slot = np.arange(pair_ptr[-1]) - pair_ptr[pos]
+    q = bits[pos]
+    chk = g.var_chks[q, slot]
+    row_deg = g.chk_mask.sum(axis=1)
+    pairs = np.stack([chk, g.var_slot[q, slot], pos,
+                      var_val[q, slot].astype(np.int64) + 4 * row_deg[chk]], axis=1)
+    per_level = np.diff(pair_ptr[ptr])
+    return pair_ptr, pairs.astype(np.int32), int(per_level.max()) if per_level.size else 0
+
+
 def gf4_to_torch(g4: Gf4Graph, device) -> Gf4Torch:
-    """Copy a :class:`Gf4Graph` and its level schedule onto ``device``."""
+    """Copy a :class:`Gf4Graph`, its level schedule and the schedule's real
+    pairs onto ``device``."""
     g = g4.graph
     bits, ptr = serial_levels(g.var_chks, g.m, np.arange(g.n, dtype=np.int32))
     nlev = int(np.searchsorted(ptr[0], g.n))  # ptr[l] = n from the last level on
     ptr = ptr[0, : nlev + 1]
+    pair_ptr, pairs, max_pairs = level_pairs(g, g4.var_val, bits[0], ptr)
 
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -137,6 +168,9 @@ def gf4_to_torch(g4: Gf4Graph, device) -> Gf4Torch:
         lv_bits=put(bits[0], torch.int32),
         lv_ptr=put(ptr, torch.int32),
         max_level=int(np.diff(ptr).max()) if nlev else 0,
+        pair_ptr=put(pair_ptr, torch.int32),
+        pairs=put(pairs, torch.int32),
+        max_pairs=max_pairs,
     )
 
 

@@ -4,10 +4,17 @@
 - :func:`ldpc_tpu_torch.ops.mbp.mbp_reference` is the plain PyTorch
   version.
 - :func:`mbp_cuda` launches ``csrc/mbp.cu`` on CUDA tensors and counts the
-  launch in :data:`LAUNCHES`, and by dtype in :data:`DTYPE_LAUNCHES`.
+  launch in :data:`LAUNCHES`, and by dtype in :data:`DTYPE_LAUNCHES`; its
+  persistent warps claim lanes from a counter the wrapper zeroes, and its
+  scratch has a row a warp of the grid that :func:`launch_shape` reports:
+  each warp's cache, and its slice where the slices do not fit shared
+  memory at the SM's full residency.
 - :func:`mbp` picks by the tensors' device: the CPU runs the plain
   version, a CUDA device runs the kernel, anything else raises.
 """
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,9 +31,36 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(f"mbp_cuda: {what}")
 
 
-def _pairs(g: Gf4Torch) -> int:
-    """Message slots of a lane's scratch: the widest level's qubits times dv."""
-    return max(1, g.max_level * g.dv)
+class LaunchShape(NamedTuple):
+    """K9''s launch for a code, a scalar type and a batch."""
+
+    blocks: int  # of the grid: those the card holds at once, no more than the lanes need
+    warps: int  # a block, a lane each at a time
+    resident_warps: int  # on an SM (the occupancy of the registers)
+    registers: int  # a thread
+    local_bytes: int  # a thread's spills
+    shared_bytes: int  # a block: its warps' slices, or 0 where they are in device memory
+    cache_values: int  # a warp's row of the cache scratch: m rows of dc padded to 16 bytes
+    slice_bytes: int  # a warp's slice: level messages and posteriors, decisions, syndrome
+    scratch_bytes: int  # the device scratch, a row a warp of the grid
+
+    @property
+    def slices_in_shared(self) -> bool:
+        return self.shared_bytes > 0
+
+
+def launch_shape(g: Gf4Torch, dtype: torch.dtype, bp_method: int, B: int) -> LaunchShape:
+    """Ask the library for K9''s launch shape (on the current CUDA device)."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.library()
+    rc = lib.ldpc_mbp_shape(g.max_pairs, g.max_level, g.m, g.n, g.dc,
+                            int(bp_method == MINIMUM_SUM), int(dtype == torch.float64), B,
+                            ctypes.addressof(out))
+    _build.check(lib, rc, "mbp")
+    blocks, warps, per_sm, regs, local, smem, row, slice_bytes = out
+    per_warp = row * dtype.itemsize + (0 if smem else slice_bytes)
+    return LaunchShape(blocks, warps, per_sm * warps, regs, local, smem, row, slice_bytes,
+                       blocks * warps * per_warp)
 
 
 def mbp_cuda(
@@ -39,10 +73,12 @@ def mbp_cuda(
     bp_method: int,
     gamma: float,
 ):
-    """Launch K9' (``csrc/mbp.cu``) on CUDA tensors: one warp a lane, the
-    sweep a level of qubits a step, each lane's cache and messages in a
-    device scratch. ``chan`` and ``inv_alpha`` are (3, n) in float32 or
-    float64, the kernel's scalar type. Returns
+    """Launch K9' (``csrc/mbp.cu``) on CUDA tensors: persistent warps, each
+    claiming a lane at a time, the sweep a level of real pairs a step, each
+    warp's cache (and its slice, where :func:`launch_shape` puts the slices
+    in device memory) in a device scratch of that shape's grid. ``chan`` and
+    ``inv_alpha`` are (3, n) in float32 or float64, the kernel's scalar
+    type. Returns
     ``(decoding (B, n) uint8, llrs (B, 3, n), converged (B,) bool,
     iterations (B,) int32)``."""
     global LAUNCHES
@@ -52,9 +88,8 @@ def mbp_cuda(
     _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
     for name, t in (
         ("syndromes", syndromes), ("chan", chan), ("inv_alpha", inv_alpha),
-        ("chk_bits", g.chk_bits), ("chk_val", g.chk_val), ("var_chks", g.var_chks),
-        ("var_slot", g.var_slot), ("var_val", g.var_val), ("lv_bits", g.lv_bits),
-        ("lv_ptr", g.lv_ptr),
+        ("chk_bits", g.chk_bits), ("chk_val", g.chk_val), ("lv_bits", g.lv_bits),
+        ("lv_ptr", g.lv_ptr), ("pair_ptr", g.pair_ptr), ("pairs", g.pairs),
     ):
         _require(t.device == dev, f"{name} is on {t.device}, syndromes on {dev}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
@@ -66,17 +101,13 @@ def mbp_cuda(
     _require(dt in (torch.float32, torch.float64), "chan must be float32 or float64")
     _require(inv_alpha.dtype == dt, "inv_alpha must have chan's dtype")
     _require(chan.shape == (3, n) and inv_alpha.shape == (3, n), f"chan and inv_alpha must be (3, {n})")
-    for name, t, want in (("chk_bits", g.chk_bits, torch.int32), ("var_chks", g.var_chks, torch.int32),
-                          ("var_slot", g.var_slot, torch.int32), ("lv_bits", g.lv_bits, torch.int32),
-                          ("lv_ptr", g.lv_ptr, torch.int32), ("chk_val", g.chk_val, torch.uint8),
-                          ("var_val", g.var_val, torch.uint8)):
+    for name, t, want in (("chk_bits", g.chk_bits, torch.int32), ("lv_bits", g.lv_bits, torch.int32),
+                          ("lv_ptr", g.lv_ptr, torch.int32), ("pair_ptr", g.pair_ptr, torch.int32),
+                          ("pairs", g.pairs, torch.int32), ("chk_val", g.chk_val, torch.uint8)):
         _require(t.dtype == want, f"{name} must be {want}")
     _require(bp_method in (PRODUCT_SUM, MINIMUM_SUM), f"bp_method must be 0 or 1, not {bp_method}")
     _require(max_iter >= 0, "max_iter must be >= 0")
     B = syndromes.shape[0]
-    P = _pairs(g)
-    cache = torch.empty((B, m * dc), dtype=dt, device=dev)
-    msg = torch.empty((B, P), dtype=dt, device=dev)
     # every qubit's posterior is written in the first sweep; none at depth 0
     llr = (torch.empty if max_iter else torch.zeros)((B, 3, n), dtype=dt, device=dev)
     dec = torch.empty((B, n), dtype=torch.uint8, device=dev)
@@ -85,13 +116,20 @@ def mbp_cuda(
     if B:
         lib = _build.library()
         with torch.cuda.device(dev):
+            shape = launch_shape(g, dt, bp_method, B)
+            warps = shape.blocks * shape.warps
+            cache = torch.empty((warps, shape.cache_values), dtype=dt, device=dev)
+            slices = None if shape.slices_in_shared else torch.empty(
+                (warps, shape.slice_bytes), dtype=torch.uint8, device=dev)
+            nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the lanes' claim counter
             rc = lib.ldpc_mbp(
                 syndromes.data_ptr(), chan.data_ptr(), inv_alpha.data_ptr(),
-                g.chk_bits.data_ptr(), g.chk_val.data_ptr(), g.var_chks.data_ptr(),
-                g.var_slot.data_ptr(), g.var_val.data_ptr(), g.lv_bits.data_ptr(),
-                g.lv_ptr.data_ptr(), g.levels, P, m, n, dc, dv, B, max_iter,
-                int(bp_method == MINIMUM_SUM), int(dt == torch.float64),
-                float(beta), float(gamma), cache.data_ptr(), msg.data_ptr(), llr.data_ptr(), dec.data_ptr(),
+                g.chk_bits.data_ptr(), g.chk_val.data_ptr(), g.lv_bits.data_ptr(),
+                g.lv_ptr.data_ptr(), g.pair_ptr.data_ptr(), g.pairs.data_ptr(), g.levels,
+                g.max_pairs, g.max_level, m, n, dc, dv, B, max_iter,
+                int(bp_method == MINIMUM_SUM), int(dt == torch.float64), float(beta),
+                float(gamma), shape.blocks, nxt.data_ptr(), cache.data_ptr(),
+                0 if slices is None else slices.data_ptr(), llr.data_ptr(), dec.data_ptr(),
                 conv.data_ptr(), iters.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )

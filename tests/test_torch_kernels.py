@@ -1109,13 +1109,32 @@ def test_single_scan_float64_path_launches_k1(codes):
 # ---- K9': MBP over GF(4) ---------------------------------------------------------------
 
 
+def _irregular_gf4(m=120, n=180, seed=11):
+    """A random GF(4) matrix with rows of 2-8 entries and an empty last
+    column: rows and columns of many degrees, so both carry pad slots."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.uint8)
+    for i in range(m):
+        k = int(rng.integers(2, 9))
+        H[i, rng.choice(n - 1, k, replace=False)] = rng.integers(1, 4, k)
+    return H
+
+
 def _gf4_workload(code, lanes, seed, dev, p=0.01):
-    hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
-    H = np.vstack([3 * hz, hx]).astype(np.uint8)
+    if isinstance(code, np.ndarray):
+        H = code
+    else:
+        hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+        H = np.vstack([3 * hz, hx]).astype(np.uint8)
     rng = np.random.default_rng(seed)
     e = rng.choice(4, size=(lanes, H.shape[1]), p=[1 - 3 * p, p, p, p]).astype(np.uint8)
-    syn = torch.from_numpy(mbp.pauli_syndrome(H, e).astype(np.uint8)).to(dev)
-    return mbp.gf4_to_torch(mbp.compile_gf4(H), dev), syn
+    g4 = mbp.compile_gf4(H)
+    # pauli_syndrome from the ELL layout: the dense form takes lanes * m * n
+    # bytes (13 GB at toric d=60)
+    padded = np.concatenate([e, np.zeros((lanes, 1), np.uint8)], axis=1)[:, g4.graph.chk_bits]
+    anti = (padded != 0) & (g4.chk_val != 0) & (padded != g4.chk_val)
+    syn = torch.from_numpy(np.ascontiguousarray(anti.sum(axis=-1) % 2, dtype=np.uint8)).to(dev)
+    return mbp.gf4_to_torch(g4, dev), syn
 
 
 @pytest.fixture(scope="module")
@@ -1125,6 +1144,7 @@ def gf4_codes(dev):
         "surface13": _gf4_workload(surface_code(13), 4096, 7, dev),
         "toric20": _gf4_workload(toric_code(20), 1024, 20, dev),
         "gross": _gf4_workload(gross, 512, 144, dev, p=0.02),
+        "irregular": _gf4_workload(_irregular_gf4(), 2048, 11, dev, p=0.02),
     }
 
 
@@ -1143,7 +1163,7 @@ def _assert_mbp_equal(ker, ref):
                                                (mbp.PRODUCT_SUM, 0.65, 0.5),
                                                (mbp.MINIMUM_SUM, 0.65, 0.5)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", ["surface13", "toric20", "gross"])
+@pytest.mark.parametrize("name", ["surface13", "toric20", "gross", "irregular"])
 def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta):
     g, syn = gf4_codes[name]
     chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.full((3, g.n), alpha), dtype,
@@ -1158,10 +1178,10 @@ def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta):
 
 
 @pytest.mark.parametrize("max_iter", [0, 1, 5])
-@pytest.mark.parametrize("lanes", [1, 7, 9, 1001])
+@pytest.mark.parametrize("lanes", [1, 3, 7, 9, 1001])
 def test_k9_short_runs_and_odd_batches(gf4_codes, lanes, max_iter):
-    """Part-filled blocks of eight lanes, zero syndromes among them, depth 0
-    (zero posteriors) and short runs."""
+    """Fewer lanes than a block's warps and part-filled grids, zero
+    syndromes among them, depth 0 (zero posteriors) and short runs."""
     g, syn = gf4_codes["surface13"]
     syn = syn[:lanes].clone()
     syn[0] = 0
@@ -1175,6 +1195,114 @@ def test_k9_short_runs_and_odd_batches(gf4_codes, lanes, max_iter):
         assert not ker[1].any() and not ker[2].any()
     else:
         assert ker[2][0] and ker[3][0] == 1
+
+
+K9_KINDS = [(dt, method) for dt in (torch.float64, torch.float32)
+            for method in (mbp.MINIMUM_SUM, mbp.PRODUCT_SUM)]
+
+
+@pytest.mark.parametrize("dtype,method", K9_KINDS)
+def test_k9_claims_past_the_resident_warps(gf4_codes, dtype, method):
+    """One lane more than the card holds warps: a warp claims a second lane,
+    its cache row rewritten; the grid and its scratch stop at the resident
+    warps, at least 32 an SM."""
+    g, syn = gf4_codes["surface13"]
+    full = mbp_cuda.launch_shape(g, dtype, method, 1 << 30)
+    resident = full.blocks * full.warps
+    assert full.resident_warps >= 32 and full.slices_in_shared
+    assert full.blocks == full.resident_warps // full.warps * torch.cuda.get_device_properties(
+        syn.device).multi_processor_count
+    lanes = resident + 1
+    syn = syn[torch.arange(lanes, device=syn.device) % syn.shape[0]].contiguous()
+    shape = mbp_cuda.launch_shape(g, dtype, method, lanes)
+    assert shape == full and shape.scratch_bytes == resident * shape.cache_values * dtype.itemsize
+    assert shape.cache_values == g.m * (-(-g.dc * dtype.itemsize // 16) * 16 // dtype.itemsize)
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), dtype,
+                                     syn.device)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    torch.cuda.synchronize()
+    _assert_mbp_equal(ker, ref)
+    small = mbp_cuda.launch_shape(g, dtype, method, 3)
+    assert small.blocks == 1
+    assert small.scratch_bytes == small.warps * small.cache_values * dtype.itemsize
+
+
+def _hold_k9(g, syn, dtype, method):
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), dtype,
+                                     syn.device)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    torch.cuda.synchronize()
+    _assert_mbp_equal(ker, ref)
+    assert ker[2].any()
+
+
+@pytest.mark.parametrize("dtype,method", K9_KINDS)
+@pytest.mark.parametrize("distance,lanes,p", [(31, 4400, 0.01), (60, 1100, 0.003)])
+def test_k9_shared_memory_limits_the_warps(dev, distance, lanes, p, dtype, method):
+    """Slices in shared memory that leave an SM fewer than 32 warps (toric
+    d=31 in float64: 7,184 bytes a warp, 24 warps an SM; d=60: 8): more
+    lanes than the grid's warps (4,224 at most on the H100's 132 SMs), so
+    warps claim lane after lane, and every output is the plain
+    version's."""
+    code = toric_code(distance, compute_logicals=False)
+    g, syn = _gf4_workload(code, lanes, distance, dev, p)
+    shape = mbp_cuda.launch_shape(g, dtype, method, lanes)
+    assert shape.slices_in_shared and shape.shared_bytes == shape.warps * shape.slice_bytes
+    assert (shape.resident_warps < 32) == (distance == 60 or dtype == torch.float64)
+    assert shape.scratch_bytes == shape.blocks * shape.warps * shape.cache_values * dtype.itemsize
+    assert shape.blocks * shape.warps < lanes
+    _hold_k9(g, syn, dtype, method)
+
+
+@pytest.mark.parametrize("dtype,method", K9_KINDS)
+def test_k9_slices_in_device_memory(dev, dtype, method):
+    """A code whose slices do not fit a block of them in shared memory
+    (toric d=85: 38,288 bytes a warp in float64, 33,616 in float32) keeps
+    them in a device scratch, a slice a warp of the grid: the registers
+    alone set the residency, 32 warps an SM, and every output is the plain
+    version's."""
+    code = toric_code(85, compute_logicals=False)
+    g, syn = _gf4_workload(code, 256, 85, dev, 0.003)
+    shape = mbp_cuda.launch_shape(g, dtype, method, syn.shape[0])
+    assert not shape.slices_in_shared and shape.shared_bytes == 0
+    assert shape.resident_warps >= 32
+    per_warp = shape.cache_values * dtype.itemsize + shape.slice_bytes
+    assert shape.scratch_bytes == shape.blocks * shape.warps * per_warp
+    _hold_k9(g, syn, dtype, method)
+
+
+@pytest.mark.parametrize("dtype,method", K9_KINDS)
+@pytest.mark.parametrize("name", ["surface13", "irregular"])
+def test_k9_all_zero_syndromes(gf4_codes, name, dtype, method):
+    """Every lane converges at sweep 1, so warps claim lane after lane at
+    the fastest pace."""
+    g, syn = gf4_codes[name]
+    syn = torch.zeros_like(syn)
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.ones((3, g.n)), dtype,
+                                     syn.device)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, 0.0, method, 0.625)
+    torch.cuda.synchronize()
+    _assert_mbp_equal(ker, ref)
+    assert bool(ker[2].all()) and bool((ker[3] == 1).all())
+
+
+@pytest.mark.parametrize("method", [mbp.MINIMUM_SUM, mbp.PRODUCT_SUM])
+def test_k9_pad_slots_with_infinite_inverse_alpha(gf4_codes, method):
+    """At alpha 0 (1/alpha inf) a pad slot's term is NaN in the plain
+    version's sum; K9' adds it after the qubit's real slots, so the NaN
+    posteriors and the decisions they give agree."""
+    g, syn = gf4_codes["irregular"]
+    syn = syn[:256].contiguous()
+    chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.zeros((3, g.n)),
+                                     torch.float64, syn.device)
+    ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 5, 0.5, method, 0.625)
+    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 5, 0.5, method, 0.625)
+    torch.cuda.synchronize()
+    _assert_mbp_equal(ker, ref)
+    assert bool(ker[1].isnan().any())
 
 
 def test_k9_wrapper_validates_inputs(gf4_codes):

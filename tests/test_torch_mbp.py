@@ -26,9 +26,10 @@ import jax.numpy as jnp
 
 import ldpc_tpu
 import ldpc_tpu_torch
-from ldpc_tpu.codes import hamming_code, surface_code
+from ldpc_tpu.codes import hamming_code, surface_code, toric_code
 from ldpc_tpu.ops import mbp as jmbp
 from ldpc_tpu_torch.ops import mbp as tmbp
+from ldpc_tpu_torch.ops.bp_fold import serial_levels
 
 torch.set_num_threads(1)
 
@@ -106,6 +107,162 @@ def test_level_schedule_is_the_serial_sweep():
     for i in range(H.shape[0]):
         on = np.flatnonzero(H[i])
         assert (np.diff(level[on]) > 0).all()  # index order within a row
+
+
+def irregular_gf4(m=40, n=60, seed=11):
+    """A random GF(4) matrix with rows of 2-8 entries and an empty last
+    column: rows and columns of many degrees, so both carry pad slots."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.uint8)
+    for i in range(m):
+        k = int(rng.integers(2, 9))
+        H[i, rng.choice(n - 1, k, replace=False)] = rng.integers(1, 4, k)
+    return H
+
+
+def toric_css_form(d):
+    code = toric_code(d)
+    hx, hz = (np.asarray(h.todense(), np.uint8) for h in (code.hx, code.hz))
+    return np.vstack([hz * 3, hx * 1]).astype(np.uint8)
+
+
+PAIR_CODES = {
+    "surface5_css": lambda: css_form(5),
+    "toric4_css": lambda: toric_css_form(4),
+    "irregular": irregular_gf4,
+}
+
+
+@pytest.mark.parametrize("name", list(PAIR_CODES))
+def test_level_pairs_list_every_real_edge_once(name):
+    """K9''s pair table: each level's pairs are its qubits' real slots,
+    qubit-major in slot order, so a sweep walks every real (qubit,
+    stabilizer) edge exactly once and no pad slot; each row names its
+    stabilizer, its own slot there, the qubit's level position and its
+    Pauli plus 4 times the row degree."""
+    H = PAIR_CODES[name]()
+    g4 = tmbp.compile_gf4(H)
+    pg = g4.graph
+    g = tmbp.gf4_to_torch(g4, "cpu")
+    bits, ptr = (x.numpy() for x in (g.lv_bits, g.lv_ptr))
+    want_bits, want_ptr = serial_levels(pg.var_chks, pg.m, np.arange(pg.n, dtype=np.int32))
+    np.testing.assert_array_equal(bits, want_bits[0])
+    np.testing.assert_array_equal(ptr, want_ptr[0, : g.levels + 1])
+    pair_ptr, pairs = g.pair_ptr.numpy(), g.pairs.numpy()
+    assert pair_ptr.shape == (pg.n + 1,) and pairs.shape == (int(pg.var_mask.sum()), 4)
+    assert pair_ptr[0] == 0 and (np.diff(pair_ptr) >= 0).all()
+    pads = int((~pg.var_mask).sum()) + int((~pg.chk_mask).sum())
+    assert pads > 0 or name == "toric4_css"  # the surface and irregular codes have pads
+    row_deg = pg.chk_mask.sum(axis=1)
+    seen = set()
+    for i, j in enumerate(bits):
+        rows = pairs[pair_ptr[i]:pair_ptr[i + 1]]
+        deg = int(pg.var_mask[j].sum())
+        assert len(rows) == deg
+        np.testing.assert_array_equal(rows[:, 0], pg.var_chks[j, :deg])  # slot order
+        np.testing.assert_array_equal(rows[:, 1], pg.var_slot[j, :deg])
+        assert (rows[:, 2] == i).all()
+        np.testing.assert_array_equal(rows[:, 3] & 3, g4.var_val[j, :deg])
+        np.testing.assert_array_equal(rows[:, 3] >> 2, row_deg[rows[:, 0]])
+        for c, own in rows[:, :2]:
+            assert pg.chk_bits[c, own] == j and H[c, j] == (rows[rows[:, 0] == c, 3] & 3)[0]
+            seen.add((int(c), int(j)))
+    assert seen == {(int(c), int(j)) for c, j in zip(*np.nonzero(H))}
+    assert len(seen) == len(pairs)
+    widest = max(pair_ptr[ptr[lv + 1]] - pair_ptr[ptr[lv]] for lv in range(g.levels))
+    assert g.max_pairs == widest
+
+
+def _table_walk(g, syn, chan, inv_alpha, max_iter, beta, method, gamma):
+    """K9''s sweep as the kernel walks it, lane by lane: pass A over a
+    level's real pairs, pass B1 once a qubit (its pad slots' term after its
+    real ones), pass B2 over the pairs again; edge values and logs through
+    the plain version's torch calls."""
+    m, n, dc, dv = g.m, g.n, g.dc, g.dv
+    ms = method == tmbp.MINIMUM_SUM
+    chk_bits, chk_val = g.chk_bits.numpy(), g.chk_val.numpy()
+    bits, ptr, pair_ptr, pairs = (x.numpy() for x in (g.lv_bits, g.lv_ptr, g.pair_ptr, g.pairs))
+    ch, ia = chan.numpy(), inv_alpha.numpy()
+
+    def edge_values(q, val):
+        return tmbp._edge_value(torch.from_numpy(np.asarray(q, np.float64).reshape(-1, 3)),
+                                torch.from_numpy(np.asarray(val).reshape(-1)), ms).numpy()
+
+    out = (np.zeros((len(syn), n), np.uint8), np.zeros((len(syn), 3, n)),
+           np.zeros(len(syn), bool), np.zeros(len(syn), np.int32))
+    real = chk_bits.reshape(-1) < n
+    q_init = np.where(chk_val.reshape(-1, 1) == np.arange(1, 4), 0.0,
+                      ch[:, np.minimum(chk_bits.reshape(-1), n - 1)].T)
+    init = np.zeros(m * dc)
+    init[real] = edge_values(q_init[real], chk_val.reshape(-1)[real])
+    for b, s in enumerate(syn):
+        cache, dec, llr = init.copy(), out[0][b], out[1][b]
+        it, conv = 0, False
+        while it < max_iter and not conv:
+            it += 1
+            for lv in range(g.levels):
+                q0, q1 = ptr[lv], ptr[lv + 1]
+                p0, p1 = pair_ptr[q0], pair_ptr[q1]
+                msg = np.zeros(p1 - p0)
+                for p in range(p0, p1):
+                    c, own, _, w4 = pairs[p]
+                    others = np.delete(cache[c * dc:c * dc + (w4 >> 2)], own)
+                    if ms:
+                        mn = others.__abs__().min(initial=1e30)
+                        msg[p - p0] = (-1.0 if (s[c] + (others <= 0).sum()) % 2 else 1.0) * (gamma * mn)
+                    else:
+                        prod = 1.0
+                        for v in others:
+                            prod = prod * v
+                        prod = float(np.clip(prod, 1e-8 - 1, 1 - 1e-8))
+                        mag = float(torch.log(torch.tensor((1 + prod) / (1 - prod), dtype=torch.float64)))
+                        msg[p - p0] = -mag if s[c] else mag
+                post = np.zeros((q1 - q0, 3))
+                for i in range(q0, q1):
+                    j, f, cnt = bits[i], pair_ptr[i], pair_ptr[i + 1] - pair_ptr[i]
+                    acc = np.zeros(3)
+                    for k in range(cnt):
+                        agree = (pairs[f + k, 3] & 3) == np.arange(1, 4)
+                        acc = acc + msg[f - p0 + k] * np.where(agree, beta, ia[:, j])
+                    if cnt < dv:
+                        acc = acc + (0.0 * ia[:, j]) * 0.0
+                    post[i - q0] = llr[:, j] = ch[:, j] + acc
+                    dec[j] = 0 if (post[i - q0] > 0).all() else np.argmin(post[i - q0]) + 1
+                rows = pairs[p0:p1]
+                val = rows[:, 3] & 3
+                new_q = post[rows[:, 2] - q0] - np.where(val[:, None] == np.arange(1, 4), 0.0,
+                                                          msg[:, None])
+                cache[rows[:, 0] * dc + rows[:, 1]] = edge_values(new_q, val)
+            d = np.concatenate([dec, [0]])[chk_bits]
+            anti = (chk_bits < n) & (d != 0) & (d != chk_val)
+            conv = bool(((anti.sum(axis=1) % 2) == s).all())
+        out[2][b], out[3][b] = conv, it
+    return out
+
+
+@pytest.mark.parametrize("method", [tmbp.PRODUCT_SUM, tmbp.MINIMUM_SUM])
+@pytest.mark.parametrize("name", list(PAIR_CODES))
+def test_pair_table_walk_matches_plain_version(name, method):
+    """Walking the pair table as K9' does computes the plain version's
+    function: decisions, flags and iterations equal, posteriors bit for bit
+    (equal NaNs) at alpha 1 and at alpha 0, where 1/alpha is inf and a pad
+    slot's term is NaN."""
+    H = PAIR_CODES[name]()
+    g = tmbp.gf4_to_torch(tmbp.compile_gf4(H), "cpu")
+    rng = np.random.default_rng(4)
+    e = rng.choice(4, size=(6, g.n), p=[0.88, 0.04, 0.04, 0.04]).astype(np.uint8)
+    syn = tmbp.pauli_syndrome(H, e).astype(np.uint8)
+    syn[0] = 0
+    for alpha, beta in ((1.0, 0.0), (0.0, 0.5)):
+        chan, inv_alpha = tmbp.mbp_params(np.full((3, g.n), 0.04), np.full((3, g.n), alpha),
+                                          torch.float64, "cpu")
+        ref = tmbp.mbp_reference(g, torch.from_numpy(syn), chan, inv_alpha, 8, beta, method, 0.625)
+        with np.errstate(invalid="ignore", over="ignore"):
+            got = _table_walk(g, syn, chan, inv_alpha, 8, beta, method, 0.625)
+        for k in (0, 2, 3):
+            np.testing.assert_array_equal(got[k], ref[k].numpy())
+        np.testing.assert_array_equal(got[1], ref[1].numpy())
+        assert ref[2][0] or not alpha  # the zero syndrome converges where 1/alpha is finite
 
 
 SETTINGS = [(method, alpha, beta) for method in (tmbp.PRODUCT_SUM, tmbp.MINIMUM_SUM)
