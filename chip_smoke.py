@@ -30,7 +30,16 @@ toric d=20, 31, 60 and 85 (``mbp_size``), K1''s float64 instance
 (single-scan) the same way; then ``MbpDecoder.decode_batch`` on that workload,
 ``uf_decode`` on CSS syndromes, single-scan in float64, and the float64
 decoders (BP+LSD-0, BP+LSD-CS-5, BeliefFind, BP+flip) run their main
-paths, each against the CPU path. Every
+paths, each against the CPU path. Slice L: K1' with a (B, n) prior at the
+analog window's shape (``bp_parallel_per_lane``: held against the plain
+version in both state variants and in float64, timed), the window decoder
+(``make_window_decoder`` on the d=13 hx, 4-round windows, 16 rounds,
+8,192 shots; OSD-0 binary and analog, LSD-0 on 1,024 shots; each against
+the CPU path on 256 shots, with its rate, host syncs and launches by
+variant), OSD-0 on the unconverged lanes against every lane
+(``window_osd_lanes``), and the device QSS (``make_qss_step``, 8,192
+shots, binary and analog; its first 256 shots held against the window
+decoder on the history their draws record). Every
 ``*_time`` phase prints
 the kernel's device time (``device_ms``), its plain version's and its
 bound (see ``bound``). Every phase prints
@@ -54,12 +63,16 @@ import torch
 import ldpc_tpu_torch
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.decoders import mbp_decoder as mbp_decoder_mod
-from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step
+from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step, make_qss_step
+from ldpc_tpu_torch.monte_carlo_simulation.simulation_utils import (
+    error_channel_setup, get_sigma_from_syndr_er)
 from ldpc_tpu_torch.ops import (
     _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, mbp, mbp_cuda, osd, uf)
 from ldpc_tpu_torch.ops.bp import (
     MINIMUM_SUM, PRODUCT_SUM, BpResult, channel_llr, serial_order_table)
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
+from ldpc_tpu_torch.monte_carlo_simulation.memory_experiment import build_multiround_pcm
+from ldpc_tpu_torch.parallel import make_window_decoder, window
 
 DISTANCE = 13
 ERROR_RATE = 0.01
@@ -97,6 +110,25 @@ MBP_ERROR_RATE = 0.01
 MBP_CPU_ROWS = 1024  # rows also decoded on the CPU and compared
 UF_DECODE_ROWS = 64  # CSS syndromes of the uf_decode check
 SINGLE_SCAN_ROWS = 64  # syndromes decoded one at a time by decode_single_scan
+# Sliding windows: tools/window_bench.py:30-49 at the main path's code (the
+# d=13 hx): windows of WINDOW_REPS rounds sliding by half, WINDOW_ROUNDS
+# rounds (7 windows), data and measurement flips at WINDOW_P, <= WINDOW_ITERS
+# iterations, min-sum MS_FACTOR; the final round perfect
+# (tests/test_device_window.py:27); analog: sigma = get_sigma_from_syndr_er(WINDOW_P)
+WINDOW_REPS = 4
+WINDOW_ROUNDS = 16
+WINDOW_P = 0.003
+WINDOW_ITERS = 20
+WINDOW_BATCH = 8192
+WINDOW_LSD_BATCH = 1024  # shots of the LSD-0 engine
+WINDOW_CPU_ROWS = 256  # shots also decoded on the CPU and compared
+WINDOW_CALLS = 3  # timed calls after a warm-up
+# QSS: make_qss_step on the d=13 hx with its lx, per = ser = QSS_P, bias (1, 1,
+# 1), check side X (device_qss.py:49's defaults), 4 repetitions, 16 rounds
+QSS_P = 0.01
+QSS_BATCH = 8192
+QSS_ITERS = 30
+QSS_CALLS = 2  # timed calls after the counted one
 
 
 def phase(name: str, **fields) -> None:
@@ -718,6 +750,8 @@ def reset_counters() -> None:
     bp_cuda.LAUNCHES = 0
     bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
     bp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
+    bp_cuda.PER_LANE_PRIOR_LAUNCHES = 0
+    window.HOST_SYNCS = 0
     mbp_cuda.LAUNCHES = 0
     mbp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
     for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
@@ -736,6 +770,7 @@ def read_counters() -> dict:
         "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
         "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
         "bp_parallel_float64": bp_cuda.DTYPE_LAUNCHES["float64"],
+        "bp_parallel_per_lane": bp_cuda.PER_LANE_PRIOR_LAUNCHES,
         "mbp": mbp_cuda.LAUNCHES,
         "mbp_float32": mbp_cuda.DTYPE_LAUNCHES["float32"],
         "mbp_float64": mbp_cuda.DTYPE_LAUNCHES["float64"],
@@ -751,6 +786,7 @@ def read_counters() -> dict:
            for state, count in by_state.items()},
         "host_syncs": uf.HOST_SYNCS,
         "growth_rounds": uf.GROWTH_ROUNDS,
+        "window_host_syncs": window.HOST_SYNCS,
     }
 
 
@@ -1255,6 +1291,309 @@ def stats_record(make, syn_np, row, device) -> dict:
     record = dataclasses.asdict(dec.statistics)
     record.pop("elapsed_time")
     return record
+
+
+# ---- slice L: the window decoder, K1''s per-lane prior, the device QSS -------
+
+
+def window_history(code, rows: int, analog: bool, seed: int = 3):
+    """A phenomenological memory run on ``code.hx`` as tools/window_bench.py
+    makes it (numpy seed 3): data flips at WINDOW_P every round; measurement
+    flips at WINDOW_P, or with ``analog`` signed syndromes plus N(0, sigma);
+    the final round perfect. Returns (syndromes (rows, m, R) uint8, analog
+    (rows, m, R) float32 or None, the final error (rows, n) uint8)."""
+    H = np.asarray(code.hx.todense(), np.uint8)
+    m, n = H.shape
+    rng = np.random.default_rng(seed)
+    sigma = get_sigma_from_syndr_er(WINDOW_P)
+    err = np.zeros((rows, n), np.uint8)
+    syn = np.zeros((rows, m, WINDOW_ROUNDS), np.uint8)
+    ana = np.zeros((rows, m, WINDOW_ROUNDS), np.float32) if analog else None
+    for r in range(WINDOW_ROUNDS):
+        err ^= (rng.random((rows, n)) < WINDOW_P).astype(np.uint8)
+        s = (err @ H.T % 2).astype(np.uint8)
+        last = r == WINDOW_ROUNDS - 1
+        if analog:
+            a = (1.0 - 2.0 * s) + (0.0 if last else sigma * rng.standard_normal((rows, m)))
+            ana[:, :, r] = a
+            syn[:, :, r] = a < 0
+        else:
+            syn[:, :, r] = s if last else s ^ (rng.random((rows, m)) < WINDOW_P)
+    return syn, ana, err
+
+
+# (label, analog, postprocess, shots) of each window configuration driven
+WINDOW_CONFIGS = (("osd0", False, "osd0", WINDOW_BATCH), ("osd0_analog", True, "osd0", WINDOW_BATCH),
+                  ("lsd0", False, "lsd0", WINDOW_LSD_BATCH))
+
+
+def make_window(code, device, analog: bool, postprocess: str):
+    return make_window_decoder(
+        code.hx, WINDOW_REPS, WINDOW_P, WINDOW_P, max_iter=WINDOW_ITERS,
+        ms_scaling_factor=MS_FACTOR, postprocess=postprocess,
+        sigma=get_sigma_from_syndr_er(WINDOW_P) if analog else None, device=device)
+
+
+def window_osd_all_lanes(post, syn, bp):
+    """The JAX package's window fallback: OSD-0 on every lane, BP's decoding
+    kept where BP converged (``window._postprocess`` runs the unconverged
+    lanes only)."""
+    return torch.where(bp.converged[:, None], bp.decoding, post(syn, bp.llr_posterior))
+
+
+def timed_calls(fn, calls: int):
+    """Walls (s) of ``calls`` calls of ``fn``, each ended by a synchronize."""
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def drive_window(code, H, lx, label, analog, postprocess, rows):
+    """One window configuration: the decode with the launch counters set to 0
+    just before it and read just after; the first WINDOW_CPU_ROWS shots
+    against the CPU path (corrections and iterations); the share of shots
+    whose residual has a zero syndrome, and the logical failures; then the
+    rate, rows * R over the median wall of WINDOW_CALLS calls after the
+    warm-up. Returns the counters and the median wall."""
+    syn, ana, err = window_history(code, rows, analog)
+    dec = make_window(code, "cuda", analog, postprocess)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = dec(syn, ana)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = read_counters()
+    need = ["bp_parallel", "osd0" if postprocess == "osd0" else "masked_solve"]
+    need += ["bp_parallel_per_lane"] if analog else []
+    if any(counts[k] == 0 for k in need):
+        raise AssertionError(f"window {label}: the path skipped kernels {need}: {counts}")
+    c = WINDOW_CPU_ROWS
+    cpu = make_window(code, "cpu", analog, postprocess)(syn[:c], None if ana is None else ana[:c])
+    for x, y in zip(out, cpu):
+        if not torch.equal(x[:c].cpu(), y):
+            raise AssertionError(f"window {label}: the card differs from the CPU path")
+    resid = err ^ out.correction.cpu().numpy()
+    valid = ((resid.astype(np.int64) @ H.T) % 2 == 0).all(axis=1)
+    fails = ((resid.astype(np.int64) @ lx.T) % 2).any(axis=1)
+    # the K1' scratch and outputs are allocated every window, from PyTorch's
+    # caching allocator: no allocation on the device once the shapes repeat
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", -1)
+    walls = timed_calls(lambda: dec(syn, ana), WINDOW_CALLS)
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", -1) - allocs
+    median = statistics.median(walls)
+    phase("window", config=label, shots=rows, rounds=WINDOW_ROUNDS,
+          windows=(WINDOW_ROUNDS - WINDOW_REPS) // (WINDOW_REPS // 2) + 1, warmup_s=warm_s,
+          walls_s=walls, round_syndromes_per_sec_window=rows * WINDOW_ROUNDS / median,
+          zero_syndrome_residual_share=float(valid.mean()), logical_fails=int(fails.sum()),
+          bp_iterations_mean=float(out.bp_iterations.double().mean()),
+          host_syncs_per_call=counts["window_host_syncs"] + counts["host_syncs"],
+          cpu_rows_equal=c, device_allocs_in_timed_calls=allocs,
+          peak_memory_bytes=torch.cuda.max_memory_allocated(),
+          launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")))
+    return counts, median
+
+
+def window_osd_times(code, calls: int = 2):
+    """The window's OSD-0 on the unconverged lanes (the port's) against OSD-0
+    on every lane (the JAX package's), whole binary window decodes in turns
+    (unconverged, all, all, unconverged, ...), outputs held equal."""
+    syn, _, _ = window_history(code, WINDOW_BATCH, False)
+    dec = make_window(code, "cuda", False, "osd0")
+    compact = window._postprocess
+    times = {"unconverged": [], "all": []}
+    outs = {}
+    try:
+        for turn in ["unconverged", "all", "all", "unconverged"] * calls:
+            window._postprocess = compact if turn == "unconverged" else window_osd_all_lanes
+            if turn not in outs:
+                outs[turn] = dec(syn)
+            times[turn] += timed_calls(lambda: dec(syn), 1)
+    finally:
+        window._postprocess = compact
+    for x, y in zip(outs["unconverged"], outs["all"]):
+        if not torch.equal(x, y):
+            raise AssertionError("OSD-0 on the unconverged lanes changed the window's output")
+    phase("window_osd_lanes", shots=WINDOW_BATCH, unconverged_s=times["unconverged"],
+          all_lanes_s=times["all"], unconverged_median_s=statistics.median(times["unconverged"]),
+          all_lanes_median_s=statistics.median(times["all"]), outputs_equal=True)
+    return times
+
+
+def per_lane_k1(code):
+    """K1' with a (B, n) prior at the analog window's shape (its first
+    window's arguments, captured): held lane for lane against the plain
+    version in both state variants and, for an (n,) prior, against the launch
+    with that prior broadcast; timed beside its bound (the prior's B x n x 4
+    bytes counted) and beside an (n,)-prior launch at the same shape; then a
+    float64 min-sum case against the plain version. Returns (the numbers of
+    the kernels line, max |kernel - plain|)."""
+    syn_np, ana, _ = window_history(code, WINDOW_BATCH, True)
+    dec = make_window(code, "cuda", True, "osd0")
+    tg3, syn, prior, method, iters, alpha = captured_calls(
+        bp_cuda, "bp_parallel", lambda: dec(syn_np, ana))[0]
+    if prior.shape != (syn.shape[0], tg3.n):
+        raise AssertionError(f"the analog window's prior is {tuple(prior.shape)}")
+    ref = bp_cuda.bp_parallel_reference(tg3, syn, prior, method, iters, alpha)
+    worst = 0.0
+    for state in (None, "shared"):
+        ker = bp_cuda.bp_parallel_cuda(tg3, syn, prior, method, iters, alpha, state=state)
+        one = bp_cuda.bp_parallel_cuda(tg3, syn, prior[0].contiguous(), method, iters, alpha,
+                                       state=state)
+        wide = bp_cuda.bp_parallel_cuda(
+            tg3, syn, prior[0].expand(syn.shape[0], tg3.n).contiguous(), method, iters, alpha,
+            state=state)
+        torch.cuda.synchronize()
+        nlanes = int(_lanes_differ(ker, ref).sum())
+        err = float((ker.llr_posterior - ref.llr_posterior).abs().max())
+        broadcast_equal = all(torch.equal(x, y) for x, y in zip(one, wide))
+        phase("bp_parallel_per_lane", shape=f"B={syn.shape[0]},n={tg3.n},max_iter={iters}",
+              state=state or bp_cuda.state_variant(tg3.m, tg3.n, tg3.dc),
+              differing_lanes=nlanes, max_abs_err=err, broadcast_equal=broadcast_equal,
+              converged=int(ker.converged.sum()))
+        if nlanes or err != 0.0 or not broadcast_equal:
+            raise AssertionError("K1' with a (B, n) prior differs from its plain version")
+        worst = max(worst, err)
+    out = bp_cuda.bp_parallel_cuda(tg3, syn, prior, method, iters, alpha)
+    graph3 = compile_pcm(build_multiround_pcm(code.hx, WINDOW_REPS - 1))
+    lane_iterations = int(out.iterations.sum())
+    # one lane's prior as an (n,) prior and broadcast to (B, n): the same
+    # work, so the two times show what reading a row a lane costs
+    one = prior[0].contiguous()
+    wide = one.expand(syn.shape[0], tg3.n).contiguous()
+    numbers = timed(
+        "bp_parallel_per_lane_time", f"B={syn.shape[0]},n={tg3.n},max_iter={iters}",
+        lambda: bp_cuda.bp_parallel_cuda(tg3, syn, prior, method, iters, alpha),
+        lambda: bp_cuda.bp_parallel_reference(tg3, syn, prior, method, iters, alpha),
+        nbytes(syn, prior, tg3.chk_bits_t, tg3.var_edges_t, *out), k1_ops(graph3, lane_iterations),
+        lane_iterations=lane_iterations, state=bp_cuda.state_variant(tg3.m, tg3.n, tg3.dc),
+        shared_prior_ms=device_ms(lambda: bp_cuda.bp_parallel_cuda(
+            tg3, syn, one, method, iters, alpha)),
+        broadcast_prior_ms=device_ms(lambda: bp_cuda.bp_parallel_cuda(
+            tg3, syn, wide, method, iters, alpha)),
+        forced_shared_state_ms=device_ms(lambda: bp_cuda.bp_parallel_cuda(
+            tg3, syn, prior, method, iters, alpha, state="shared")))
+    n64 = 2048
+    s64, p64 = syn[:n64].contiguous(), prior[:n64].double().contiguous()
+    ker = bp_cuda.bp_parallel_cuda(tg3, s64, p64, method, iters, alpha)
+    ref64 = bp_cuda.bp_parallel_reference(tg3, s64, p64, method, iters, alpha)
+    torch.cuda.synchronize()
+    nlanes = int(_lanes_differ(ker, ref64).sum())
+    err64 = float((ker.llr_posterior - ref64.llr_posterior).abs().max())
+    phase("bp_parallel_per_lane", shape=f"B={n64},n={tg3.n},max_iter={iters}", dtype="float64",
+          state=bp_cuda.state_variant(tg3.m, tg3.n, tg3.dc, torch.float64),
+          differing_lanes=nlanes, max_abs_err=err64)
+    if nlanes or err64 != 0.0:
+        raise AssertionError("K1''s float64 instance with a (B, n) prior differs from plain")
+    return numbers, max(worst, err64)
+
+
+def qss_channels():
+    """The window channels make_qss_step sets up (check side X)."""
+    xb, yb, zb = error_channel_setup(QSS_P, (1.0, 1.0, 1.0), 1)
+    xs, ys, zs = error_channel_setup(QSS_P, (1.0, 1.0, 1.0), 1)
+    return float((yb + zb)[0]), float((zs + ys)[0])
+
+
+def qss_history(step, u, noise):
+    """The offline view of a QSS call on the draws ``(u, noise)``: the
+    history of syndromes with no commit applied (a round QSS measures after
+    the commits so far, read back through their syndrome, which the port's
+    window step on the history so far gives) and the analog values, and the
+    final cumulative error."""
+    from ldpc_tpu_torch.parallel.window import _window_step, mod2_matmul
+
+    core, W, T, R = step.core, step.W, step.T, step.R
+    B, dev = u.shape[1], u.device
+    m, n = step.m, step.n
+    carry = (torch.zeros((B, m), dtype=torch.uint8, device=dev),) * 2 + (
+        torch.zeros((B, n), dtype=torch.uint8, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev))
+    hist = torch.zeros((B, m, R), dtype=torch.uint8, device=dev)
+    ana = torch.zeros((B, m, R), dtype=torch.float32, device=dev) if step.analog_tg else None
+    err = torch.zeros((B, n), dtype=torch.uint8, device=dev)
+    for r in range(R):
+        if r >= W and (r - W) % T == 0:
+            w = slice((r - W) // T * T, (r - W) // T * T + W)
+            carry = _window_step(core, carry, hist[:, :, w], False,
+                                 None if ana is None else ana[:, :, w])
+        err = err ^ ((u[r] < step.t0) | ((u[r] >= step.t1) & (u[r] < step.t2))).to(torch.uint8)
+        s = mod2_matmul(err, step.Ht)
+        final = r == R - 1
+        if ana is None:
+            hist[:, :, r] = s if final else s ^ (noise[r] < step.p_syn).to(torch.uint8)
+        else:
+            measured = s ^ carry[0]
+            a = (1.0 - 2.0 * measured.to(torch.float32)) + (0.0 if final else step.sigma) * noise[r]
+            ana[:, :, r] = a
+            hist[:, :, r] = (a < 0).to(torch.uint8) ^ carry[0]
+    return hist, ana, err
+
+
+def drive_qss(code, lx, analog: bool):
+    """One QSS configuration: one call with the launch counters set to 0
+    just before it and read just after, QSS_CALLS timed calls, the tallies;
+    then its first WINDOW_CPU_ROWS shots of a further draw against the port's
+    window decoder on the history those draws record (per shot: residual,
+    logical failure, iterations). Returns the counters."""
+    step, runs = make_qss_step(
+        code.hx, QSS_P, QSS_P, code.lx, repetitions=WINDOW_REPS, rounds=WINDOW_ROUNDS,
+        batch_size=QSS_BATCH, max_iter=QSS_ITERS, ms_scaling_factor=MS_FACTOR,
+        analog_tg=analog, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    reset_counters()
+    total = step(gen).cpu().numpy()
+    counts = read_counters()
+    if counts["bp_parallel"] == 0 or counts["osd0"] == 0 or (
+            analog and counts["bp_parallel_per_lane"] == 0):
+        raise AssertionError(f"QSS skipped a kernel: {counts}")
+    walls = []
+    for _ in range(QSS_CALLS):
+        t0 = time.perf_counter()
+        total = total + step(gen).cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    runs_all, fails, iters, windows = (int(x) for x in total)
+    u, noise = step.draw(gen)
+    c = WINDOW_CPU_ROWS
+    u, noise = u[:, :c].contiguous(), noise[:, :c].contiguous()
+    shots = step.run(u, noise)
+    hist, ana, err = qss_history(step, u, noise)
+    pd, ps = qss_channels()
+    want = make_window_decoder(
+        code.hx, WINDOW_REPS, pd, ps, max_iter=QSS_ITERS, ms_scaling_factor=MS_FACTOR,
+        sigma=get_sigma_from_syndr_er(ps) if analog else None, device="cuda")(hist, ana)
+    residual = err ^ want.correction
+    lt = torch.from_numpy(lx.astype(np.float32).T.copy()).cuda()
+    want_fail = (window.mod2_matmul(residual, lt) > 0).any(dim=1)
+    equal = (torch.equal(shots.residual, residual) and torch.equal(shots.logical_fail, want_fail)
+             and torch.equal(shots.bp_iterations, want.bp_iterations))
+    phase("qss", mode="analog" if analog else "binary", runs=runs_all, fails=fails,
+          ler=fails / runs_all, bp_iterations=iters / windows, windows_decoded=windows,
+          walls_s=walls, shots_per_s=runs / statistics.median(walls),
+          host_syncs_per_call=counts["window_host_syncs"] + 1,
+          held_shots=c, held_fails=int(want_fail.sum()), equal_to_offline_window=equal,
+          launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")))
+    if not equal:
+        raise AssertionError("QSS differs from the window decoder on its recorded history")
+    return counts
+
+
+def window_phases(code, H):
+    """Slice L's phases: K1''s per-lane prior, the window decoder and the
+    device QSS. Returns (per-lane numbers, window counts by config, QSS
+    counts by mode)."""
+    lx = np.asarray(code.lx.todense(), np.uint8)
+    per_lane = per_lane_k1(code)
+    win = {label: drive_window(code, H, lx, label, analog, post, rows)[0]
+           for label, analog, post, rows in WINDOW_CONFIGS}
+    window_osd_times(code)
+    qss = {mode: drive_qss(code, lx, mode == "analog") for mode in ("binary", "analog")}
+    return per_lane, win, qss
 
 
 def main() -> int:
@@ -1791,6 +2130,9 @@ def main() -> int:
     if card != host or not card["individual_cluster_stats"]:
         raise AssertionError("LSD statistics on the card differ from the CPU's")
 
+    # ---- 9. slice L: K1''s per-lane prior, the window decoder, the QSS -----------
+    per_lane_numbers, win_counts, qss_counts = window_phases(code, H)
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ldpc_tpu"))
     if imported:
@@ -1813,10 +2155,23 @@ def main() -> int:
     def fold_states(name):
         return {v: f"{name}_{v}_state" for v in ("shared", "device")}
 
+    def window_launches(name):
+        return {f"window_{k}": v[name] for k, v in win_counts.items()} | {
+            f"qss_{k}": v[name] for k, v in qss_counts.items()}
+
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               path["osd0"], k1_err, k1_numbers,
-              {"shared": "bp_shared_state", "device": "bp_device_state"}),
+              {"shared": "bp_shared_state", "device": "bp_device_state"})
+        | {"per_lane_prior": win_counts["osd0_analog"]["bp_parallel_per_lane"],
+           "window_path_launches": window_launches("bp_parallel")},
+        # K1' with a (B, n) prior on its path: the analog window decoder
+        entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
+              win_counts["osd0_analog"], per_lane_numbers[1], per_lane_numbers[0],
+              {"shared": "bp_shared_state", "device": "bp_device_state"})
+        | {"name": "bp_parallel[per_lane_prior]",
+           "launches": win_counts["osd0_analog"]["bp_parallel_per_lane"],
+           "main_path": "make_window_decoder(sigma=...)"},
         # K1''s float64 instance on its path: single-scan, a syndrome a call
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               ss_counts | {"bp_parallel": ss_counts["bp_parallel_float64"]}, ss_err, ss_numbers,
@@ -1824,13 +2179,18 @@ def main() -> int:
         | {"name": "bp_parallel[float64]", "dtype": "float64",
            "main_path": "BpDecoder(dtype=float64).decode_single_scan"},
         entry("osd0", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
-              path["osd0"], k2_err, k2_numbers, elim_variants("osd0")),
+              path["osd0"], k2_err, k2_numbers, elim_variants("osd0"))
+        | {"window_path_launches": window_launches("osd0"),
+           "window_variant_launches": {v: win_counts["osd0"][f"osd0_{v}"] for v in ELIM_VARIANTS}},
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
               path["osd_cs5"], elim_err["rref_export"],
               elim_numbers["rref_export"], elim_variants("rref_export")),
         entry("masked_solve", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:163",
               path["lsd0"], elim_err["masked_solve"],
-              elim_numbers["masked_solve"], elim_variants("masked_solve")),
+              elim_numbers["masked_solve"], elim_variants("masked_solve"))
+        | {"window_path_launches": window_launches("masked_solve"),
+           "window_variant_launches": {v: win_counts["lsd0"][f"masked_solve_{v}"]
+                                       for v in ELIM_VARIANTS}},
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
               path["lsd_cs5"], elim_err["masked_export"],
               elim_numbers["masked_export"], elim_variants("masked_export")),

@@ -13,7 +13,10 @@
 //            keeps the factor fixed even at 0);
 //   product-sum: exclusive prefix/suffix tanh products clipped at
 //            +-(1 - 1e-7), log((1+p)/(1-p)), signed by the syndrome bit;
-//   llr_new = llr0 + (sum of the bit's c2v in slot order);
+//   llr_new = llr0 + (sum of the bit's c2v in slot order), llr0 the
+//            channel prior: one (n,) vector for every lane, or a lane's own
+//            row of a (B, n) prior (the analog-syndrome windows' per-shot
+//            time-like priors, ldpc_tpu/ops/bp.py:185);
 //   hard = llr_new <= 0; converged when every check's parity of hard bits
 //            equals its syndrome bit, tested after each update.
 // A lane stops at its first convergence, so its state when it stops is its
@@ -57,6 +60,9 @@
 //     are read through __ldg rather than staged into shared memory: every
 //     warp of an SM reads the same 6 KB, which stays in L1, short-lived
 //     blocks pay no staging, and the shared memory is left to lane state.
+//     A (B, n) prior is the exception: each lane reads its own row, once in
+//     the prologue and once a bit update, through the same __ldg path (the
+//     rows are not kept in shared memory, whose room goes to lane state).
 //   - No size cliff: when a lane's state exceeds kLaneBudget the same
 //     template keeps c2v and the posterior in a lane-major scratch in
 //     device memory (and the decisions in the output, the syndrome in the
@@ -108,7 +114,7 @@ __device__ __forceinline__ double abs_of(double x) { return fabs(x); }
 template <typename T>
 struct Args {
   const uint8_t* synd;     // (B, m) 0/1
-  const T* llr0;           // (n,)
+  const T* llr0;           // (n,), or (B, n) in the kLanePrior instances
   const int* chk_bits_t;   // (dc, m) slot-major, pad = n
   const int* var_edges_t;  // (dv, n) slot-major edge ids slot*m + check, pad = m*dc
   int m, n, dc, dv, B, max_iter;
@@ -129,7 +135,10 @@ constexpr int min_blocks() {
   return CAP <= 8 ? (sizeof(T) == 4 ? 12 : 8) : (CAP <= 16 ? 6 : 1);
 }
 
-template <typename T, int CAP, bool kMinSum, bool kShared>
+// kLanePrior: the prior is (B, n), lane b's row at llr0 + b * n; otherwise
+// one (n,) prior for every lane. A template flag, so that the (n,)
+// instances compile to the code they had before (B, n) priors existed.
+template <typename T, int CAP, bool kMinSum, bool kShared, bool kLanePrior>
 __global__ void __launch_bounds__(32 * kLanesPerBlock, (min_blocks<T, CAP>()))
     bp_warp_kernel(const Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -160,8 +169,9 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (min_blocks<T, CAP>()))
     hard = a.dec + (size_t)b * n;
     syn = a.synd + (size_t)b * m;
   }
+  const T* prior = kLanePrior ? a.llr0 + (size_t)b * n : a.llr0;
   for (int j = t; j < n; j += 32) {
-    post[j] = __ldg(a.llr0 + j);
+    post[j] = __ldg(prior + j);
     hard[j] = 0;
   }
   __syncwarp();
@@ -269,7 +279,7 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (min_blocks<T, CAP>()))
         const T val = (e < E) ? c2v[e] : T(0);
         acc = (k == 0) ? val : add_rn(acc, val);
       }
-      const T l = add_rn(__ldg(a.llr0 + j), acc);
+      const T l = add_rn(__ldg(prior + j), acc);
       post[j] = l;
       hard[j] = (l <= T(0)) ? 1 : 0;
     }
@@ -303,9 +313,9 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock, (min_blocks<T, CAP>()))
   }
 }
 
-template <typename T, int CAP, bool kMinSum, bool kShared>
+template <typename T, int CAP, bool kMinSum, bool kShared, bool kLanePrior>
 int launch(const Args<T>& a, cudaStream_t stream) {
-  auto kernel = bp_warp_kernel<T, CAP, kMinSum, kShared>;
+  auto kernel = bp_warp_kernel<T, CAP, kMinSum, kShared, kLanePrior>;
   // a forced shared-state block above the card's opt-in limit fails here
   const size_t smem =
       kShared ? (size_t)kLanesPerBlock * lane_layout(a.m, a.n, a.m * a.dc, sizeof(T)).total
@@ -323,35 +333,42 @@ int launch(const Args<T>& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int CAP>
-int launch_cap(const Args<float>& a, int min_sum, int shared, cudaStream_t st) {
-  if (min_sum) {
-    return shared ? launch<float, CAP, true, true>(a, st)
-                  : launch<float, CAP, true, false>(a, st);
+template <typename T, int CAP, bool kMinSum>
+int launch_state(const Args<T>& a, int shared, int lane_prior, cudaStream_t st) {
+  if (shared) {
+    return lane_prior ? launch<T, CAP, kMinSum, true, true>(a, st)
+                      : launch<T, CAP, kMinSum, true, false>(a, st);
   }
-  return shared ? launch<float, CAP, false, true>(a, st)
-                : launch<float, CAP, false, false>(a, st);
+  return lane_prior ? launch<T, CAP, kMinSum, false, true>(a, st)
+                    : launch<T, CAP, kMinSum, false, false>(a, st);
+}
+
+template <int CAP>
+int launch_cap(const Args<float>& a, int min_sum, int shared, int lane_prior,
+               cudaStream_t st) {
+  return min_sum ? launch_state<float, CAP, true>(a, shared, lane_prior, st)
+                 : launch_state<float, CAP, false>(a, shared, lane_prior, st);
 }
 
 // double: min-sum only (the wrapper refuses product-sum in float64)
 template <int CAP>
-int launch_cap(const Args<double>& a, int min_sum, int shared, cudaStream_t st) {
+int launch_cap(const Args<double>& a, int min_sum, int shared, int lane_prior,
+               cudaStream_t st) {
   if (!min_sum) return (int)cudaErrorInvalidValue;
-  return shared ? launch<double, CAP, true, true>(a, st)
-                : launch<double, CAP, true, false>(a, st);
+  return launch_state<double, CAP, true>(a, shared, lane_prior, st);
 }
 
 template <typename T>
-int launch_dc(const Args<T>& a, int min_sum, int shared, cudaStream_t st) {
-  if (a.dc <= 4) return launch_cap<4>(a, min_sum, shared, st);
-  if (a.dc <= 8) return launch_cap<8>(a, min_sum, shared, st);
-  if (a.dc <= 16) return launch_cap<16>(a, min_sum, shared, st);
-  if (a.dc <= 32) return launch_cap<32>(a, min_sum, shared, st);
+int launch_dc(const Args<T>& a, int min_sum, int shared, int lane_prior, cudaStream_t st) {
+  if (a.dc <= 4) return launch_cap<4>(a, min_sum, shared, lane_prior, st);
+  if (a.dc <= 8) return launch_cap<8>(a, min_sum, shared, lane_prior, st);
+  if (a.dc <= 16) return launch_cap<16>(a, min_sum, shared, lane_prior, st);
+  if (a.dc <= 32) return launch_cap<32>(a, min_sum, shared, lane_prior, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int run(const void* synd, const void* llr0, const void* chk_bits_t,
+int run(const void* synd, const void* llr0, int lane_prior, const void* chk_bits_t,
         const void* var_edges_t, int m, int n, int dc, int dv, int B, int max_iter,
         int min_sum, double ms_scaling, int dynamic_alpha, int shared, void* c2v,
         void* post, void* dec, void* conv, void* iters, cudaStream_t st) {
@@ -373,7 +390,7 @@ int run(const void* synd, const void* llr0, const void* chk_bits_t,
   a.dec = static_cast<uint8_t*>(dec);
   a.conv = static_cast<bool*>(conv);
   a.iters = static_cast<int*>(iters);
-  return launch_dc<T>(a, min_sum, shared, st);
+  return launch_dc<T>(a, min_sum, shared, lane_prior, st);
 }
 
 }  // namespace
@@ -389,22 +406,23 @@ int ldpc_bp_shared_state(int m, int n, int dc, int elem) {
 
 // Returns cudaGetLastError() after the launch (0 on success), or the error
 // of raising the block's shared-memory limit. f64 selects the double
-// instance (llr0, c2v and post are then double; min-sum only). The caller
-// checks dc <= 32 and allocates every buffer; c2v is read only by the
-// device-memory variant (shared == 0). Nothing synchronises.
-int ldpc_bp_parallel(const void* synd, const void* llr0, const void* chk_bits_t,
-                     const void* var_edges_t, int m, int n, int dc, int dv,
+// instance (llr0, c2v and post are then double; min-sum only). llr0 is one
+// (n,) prior (lane_prior 0) or a lane-major (B, n) prior (lane_prior 1).
+// The caller checks dc <= 32 and allocates every buffer; c2v is read only
+// by the device-memory variant (shared == 0). Nothing synchronises.
+int ldpc_bp_parallel(const void* synd, const void* llr0, int lane_prior,
+                     const void* chk_bits_t, const void* var_edges_t, int m, int n, int dc, int dv,
                      int B, int max_iter, int min_sum, double ms_scaling,
                      int dynamic_alpha, int shared, int f64, void* c2v, void* post,
                      void* dec, void* conv, void* iters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (f64) {
-    return run<double>(synd, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-                       min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+    return run<double>(synd, llr0, lane_prior, chk_bits_t, var_edges_t, m, n, dc, dv, B,
+                       max_iter, min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
                        iters, st);
   }
-  return run<float>(synd, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-                    min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
+  return run<float>(synd, llr0, lane_prior, chk_bits_t, var_edges_t, m, n, dc, dv, B,
+                    max_iter, min_sum, ms_scaling, dynamic_alpha, shared, c2v, post, dec, conv,
                     iters, st);
 }
 

@@ -35,10 +35,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # (syndromes, llr0, chk_bits_t, var_edges_t, m, n, dc, dv, B, max_iter,
-    #  min_sum, ms_scaling, dynamic_alpha, shared, f64, c2v, post, dec, conv,
-    #  iters, stream)
-    "ldpc_bp_parallel": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # (syndromes, llr0, lane_prior, chk_bits_t, var_edges_t, m, n, dc, dv, B,
+    #  max_iter, min_sum, ms_scaling, dynamic_alpha, shared, f64, c2v, post,
+    #  dec, conv, iters, stream)
+    "ldpc_bp_parallel": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _D, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # (m, n, dc, elem bytes) -> 1 when K1 keeps a lane's state in shared memory
     "ldpc_bp_shared_state": [_I, _I, _I, _I],

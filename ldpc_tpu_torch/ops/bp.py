@@ -77,11 +77,14 @@ def make_parallel_decoder(
 ):
     """Build a batched parallel-schedule BP decoder on ``device``.
 
-    Returns ``decode(syndromes: (B, m) uint8, init_llr: (n,)) -> BpResult``.
-    Each lane stops at its first convergence; the decision, posterior and
-    iteration count are those of that iteration (or of ``max_iter``).
-    float32 runs K1' (the gather-only engine); float64 runs K8', the
-    fold-exact engine the golden fixtures are replayed in.
+    Returns ``decode(syndromes: (B, m) uint8, init_llr) -> BpResult``, with
+    ``init_llr`` one (n,) prior for every lane or, in float32, a (B, n)
+    prior, a row a lane (the analog-syndrome windows' per-shot priors, as
+    the JAX package's fast engine takes them). Each lane stops at its first
+    convergence; the decision, posterior and iteration count are those of
+    that iteration (or of ``max_iter``). float32 runs K1' (the gather-only
+    engine); float64 runs K8', the fold-exact engine the golden fixtures are
+    replayed in, whose prior is (n,) only, as the JAX package's exact engine.
     """
     from ldpc_tpu_torch.ops import bp_cuda, bp_fold
     from ldpc_tpu_torch.ops.pcm import graph_to_torch
@@ -93,6 +96,8 @@ def make_parallel_decoder(
 
     def decode(syndromes: torch.Tensor, init_llr: torch.Tensor) -> BpResult:
         syndromes, init_llr = convert(syndromes, torch.uint8, init_llr)
+        if dtype == torch.float64 and init_llr.dim() != 1:
+            raise ValueError("float64 parallel BP (K8') takes an (n,) prior only")
         engine = bp_cuda.bp_parallel if dtype == torch.float32 else bp_fold.bp_parallel_exact
         return engine(tg, syndromes, init_llr, bp_method, max_iter, ms_scaling_factor)
 

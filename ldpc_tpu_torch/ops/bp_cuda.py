@@ -2,14 +2,16 @@
 
 - :func:`bp_parallel_reference` is the plain PyTorch version: the
   gather-only engine of ``ldpc_tpu/ops/bp.py`` (``_make_parallel_decoder_
-  fast``), op for op, in the dtype of ``init_llr``. With
+  fast``), op for op, in the dtype of ``init_llr``, which is one ``(n,)``
+  prior for every lane or a ``(B, n)`` prior, a row a lane. With
   ``dynamic_alpha=False`` it is the single-scan engine
   (``make_single_scan_decoder``): min-sum keeps the fixed factor even at 0.
 - :func:`bp_parallel_cuda` launches ``csrc/bp_parallel.cu`` on a CUDA
   tensor: float32 (both methods) or float64 (min-sum, single-scan's
   instance). It counts the launch in :data:`LAUNCHES`, by where the lanes'
-  state lived in :data:`STATE_LAUNCHES` and by dtype in
-  :data:`DTYPE_LAUNCHES`.
+  state lived in :data:`STATE_LAUNCHES`, by dtype in
+  :data:`DTYPE_LAUNCHES` and, when the prior is ``(B, n)``, in
+  :data:`PER_LANE_PRIOR_LAUNCHES`.
 - :func:`bp_parallel` picks by the tensors' device: the CPU runs the plain
   version, a CUDA device runs the kernel, anything else raises.
 """
@@ -27,6 +29,8 @@ LAUNCHES = 0  # kernel launches made by bp_parallel_cuda
 STATE_LAUNCHES = {"shared": 0, "device": 0}
 # ... of them by the scalar type of the messages
 DTYPE_LAUNCHES = {"float32": 0, "float64": 0}
+# ... of them with a (B, n) prior, a row a lane
+PER_LANE_PRIOR_LAUNCHES = 0
 
 _BIG = 1e30  # magnitude of absent slots in the min-sum reduction
 _MAX_DC = 32  # largest row degree the kernel is instantiated for
@@ -78,7 +82,8 @@ def bp_parallel_reference(
     dynamic_alpha: bool = True,
 ) -> BpResult:
     """Plain PyTorch parallel-schedule BP on (B, m) uint8 syndromes, in the
-    dtype of ``init_llr`` (float32 or float64)."""
+    dtype of ``init_llr`` (float32 or float64): an (n,) prior shared by the
+    lanes or a (B, n) prior, one row a lane."""
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     E = m * dc
     B = syndromes.shape[0]
@@ -88,7 +93,7 @@ def bp_parallel_reference(
     var_edges = tg.var_edges.reshape(-1).long()  # (n*dv,) pad = E
     mask3 = tg.chk_mask[:, :, None]
     syndrome = syndromes.t().to(torch.int32)  # (m, B)
-    llr_col = init_llr[:, None]  # (n, 1)
+    llr_col = init_llr.t() if init_llr.dim() == 2 else init_llr[:, None]  # (n, B) or (n, 1)
     zero_row = torch.zeros((1, B), dtype=dt, device=dev)
     false_row = torch.zeros((1, B), dtype=torch.bool, device=dev)
 
@@ -163,10 +168,11 @@ def bp_parallel_cuda(
     """Launch K1' (``csrc/bp_parallel.cu``) on CUDA tensors: one warp per
     lane, several lanes per block. float32 runs either method; float64 (the
     dtype of ``init_llr``) runs min-sum, the single-scan engine's instance.
+    ``init_llr`` is one (n,) prior or a (B, n) prior, a row a lane.
     ``state`` forces where a lane's state lives (``"shared"`` or
     ``"device"``; tests only); by default :func:`state_variant` chooses by
     footprint."""
-    global LAUNCHES
+    global LAUNCHES, PER_LANE_PRIOR_LAUNCHES
     dev = syndromes.device
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
@@ -189,7 +195,12 @@ def bp_parallel_cuda(
         dt == torch.float32 or bp_method == MINIMUM_SUM,
         "float64 runs min-sum only (product-sum in float64 is K8')",
     )
-    _require(init_llr.shape == (n,), f"init_llr must have shape ({n},)")
+    B = syndromes.shape[0]
+    per_lane = init_llr.dim() == 2
+    _require(
+        init_llr.shape in ((n,), (B, n)),
+        f"init_llr must have shape ({n},) or ({B}, {n}), not {tuple(init_llr.shape)}",
+    )
     _require(tg.chk_bits_t.dtype == torch.int32, "chk_bits_t must be int32")
     _require(tg.var_edges_t.dtype == torch.int32, "var_edges_t must be int32")
     _require(dc <= _MAX_DC, f"row degree {dc} exceeds {_MAX_DC}")
@@ -197,7 +208,6 @@ def bp_parallel_cuda(
     state = state_variant(m, n, dc, dt) if state is None else state
     _require(state in STATE_LAUNCHES, f"state must be one of {tuple(STATE_LAUNCHES)}")
     shared = state == "shared"
-    B = syndromes.shape[0]
     # the device-memory variant's c2v scratch, lane-major (B, m*dc)
     c2v = torch.empty((0 if shared else B, m * dc), dtype=dt, device=dev)
     llr = torch.empty((B, n), dtype=dt, device=dev)
@@ -208,7 +218,7 @@ def bp_parallel_cuda(
         lib = _build.library()
         with torch.cuda.device(dev):
             rc = lib.ldpc_bp_parallel(
-                syndromes.data_ptr(), init_llr.data_ptr(),
+                syndromes.data_ptr(), init_llr.data_ptr(), int(per_lane),
                 tg.chk_bits_t.data_ptr(), tg.var_edges_t.data_ptr(),
                 m, n, dc, dv, B, max_iter,
                 int(bp_method == MINIMUM_SUM), float(ms_scaling_factor),
@@ -221,6 +231,7 @@ def bp_parallel_cuda(
         LAUNCHES += 1
         STATE_LAUNCHES[state] += 1
         DTYPE_LAUNCHES[str(dt).removeprefix("torch.")] += 1
+        PER_LANE_PRIOR_LAUNCHES += int(per_lane)
     return BpResult(decoding=dec, llr_posterior=llr, converged=conv, iterations=iters)
 
 

@@ -196,9 +196,12 @@ def test_bplsd_imports_no_jax():
     float64, single-scan, SoftInfoBpDecoder, SoftInfoBpOsdDecoder, one
     device Monte-Carlo step, MbpDecoder in both input forms with its
     union-find fallback, float64 BpLsdDecoder, BeliefFindDecoder,
-    BpFlipDecoder and single-scan), imports the host modules ``mod2``,
-    ``code_util``, ``alist``, ``protograph`` and ``noise_models``, and never
-    imports jax or any module of the JAX package ``ldpc_tpu``."""
+    BpFlipDecoder and single-scan), builds and runs the window decoder
+    (OSD-0, LSD-0 and analog), a QSS step in binary and analog mode,
+    DeviceQss, QssSimulator and MonteCarloBscSimulation, imports the host
+    modules ``mod2``, ``code_util``, ``alist``, ``protograph`` and
+    ``noise_models``, and never imports jax or any module of the JAX package
+    ``ldpc_tpu``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = (
         "import sys, numpy as np\n"
@@ -280,6 +283,28 @@ def test_bplsd_imports_no_jax():
         "                                                   device='cpu')\n"
         "assert e.shape == (4, 9) and protograph.permutation_matrix(3, 1).shape == (3, 3)\n"
         "assert callable(alist.save_alist)\n"
+        "from ldpc_tpu_torch.parallel import make_window_decoder\n"
+        "from ldpc_tpu_torch.monte_carlo_simulation import (DeviceQss, QssSimulator,\n"
+        "    MonteCarloBscSimulation, make_qss_step)\n"
+        "hist = np.zeros((2, H.shape[0], 8), np.uint8)\n"
+        "hist[:, 3, 2:] = 1\n"
+        "for kw in ({}, {'postprocess': 'lsd0'}, {'sigma': 0.5}):\n"
+        "    win = make_window_decoder(code.hx, 4, 0.01, 0.01, max_iter=5, device='cpu', **kw)\n"
+        "    r = win(hist, 1.0 - 2.0 * hist if 'sigma' in kw else None)\n"
+        "    assert r.correction.shape == (2, H.shape[1])\n"
+        "lx = np.asarray(code.lx.todense(), np.uint8)\n"
+        "for analog in (False, True):\n"
+        "    step, runs = make_qss_step(code.hx, 0.02, 0.02, lx, repetitions=4, rounds=8,\n"
+        "                               batch_size=8, max_iter=5, analog_tg=analog,\n"
+        "                               device='cpu')\n"
+        "    assert int(step(torch.Generator())[0]) == runs\n"
+        "assert DeviceQss(code.hx, 0.02, 0.02, lx, repetitions=4, rounds=8, batch_size=8,\n"
+        "                 max_iter=5, device='cpu').run(8)['nr_runs'] == 8\n"
+        "QssSimulator(H, 0.02, 0.02, lx, [1, 1, 1], repetitions=4, rounds=8,\n"
+        "             bp_params=None, device='cpu').run(2)\n"
+        "d = ldpc_tpu_torch.BpOsdDecoder(code.hx, error_rate=0.05, max_iter=5, device='cpu')\n"
+        "MonteCarloBscSimulation(H, 0.05, d, target_run_count=4, tqdm_disable=True,\n"
+        "                        seed=1).run()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m == 'ldpc_tpu' or m.startswith('ldpc_tpu.'))\n"
         "assert not ref, ref\n"

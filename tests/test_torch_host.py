@@ -19,12 +19,19 @@ from ldpc_tpu_torch import mod2 as tmod2
 from ldpc_tpu_torch import noise_models as tnoise
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.helpers import convert_to_binary_sparse as t_convert
-from ldpc_tpu_torch.monte_carlo_simulation import DeviceMonteCarlo, make_mc_decoder_step
+from ldpc_tpu_torch.monte_carlo_simulation import (
+    DeviceMonteCarlo,
+    DeviceQss,
+    QssSimulator,
+    make_mc_decoder_step,
+    make_qss_step,
+)
 from ldpc_tpu_torch.ops import flip as tflip
 from ldpc_tpu_torch.ops import lsd as tlsd
 from ldpc_tpu_torch.ops import mbp as tmbp
 from ldpc_tpu_torch.ops import uf as tuf
 from ldpc_tpu_torch.ops.pcm import compile_pcm as t_compile_pcm
+from ldpc_tpu_torch.parallel import make_window_decoder
 
 GROSS = (12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)])
 
@@ -171,11 +178,22 @@ ENTRY_POINTS = {
         HX_CSS=_hx(), HZ_CSS=tcodes.surface_code(3, compute_logicals=False).hz,
         error_rate=0.1, **d),
     "make_mbp_decoder": lambda d: _make_mbp(d),
+    "make_window_decoder": lambda d: make_window_decoder(_hx(), 4, 0.01, 0.01, **d),
+    "make_qss_step": lambda d: make_qss_step(_hx(), 0.01, 0.01, _lx(), repetitions=4,
+                                             rounds=8, batch_size=8, **d),
+    "DeviceQss": lambda d: DeviceQss(_hx(), 0.01, 0.01, _lx(), repetitions=4, rounds=8,
+                                     batch_size=8, **d),
+    "QssSimulator": lambda d: QssSimulator(_hx().toarray(), 0.01, 0.01, _lx().toarray(),
+                                           [1.0, 1.0, 1.0], repetitions=4, rounds=8, **d),
     "generate_bsc_error_batch": lambda d: tnoise.generate_bsc_error_batch(
         torch.Generator(), 4, 5, 0.1, **d),
     "generate_depolarizing_error_batch": lambda d: tnoise.generate_depolarizing_error_batch(
         torch.Generator(), 4, 5, 0.1, **d),
 }
+
+
+def _lx():
+    return tcodes.surface_code(3, compute_logicals=True).lx
 
 
 def _make_mbp(d):

@@ -4,7 +4,9 @@ and device variants, forced by the wrappers' ``variant`` keyword), the
 flip sweep (csrc/flip.cu), the fold engines K6'-K8' (csrc/bp_fold.cu,
 csrc/bp_exact.cu, each with its lane state in shared or device memory,
 forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu),
-held against their plain PyTorch versions on the card.
+held against their plain PyTorch versions on the card; K1' with a (B, n)
+prior, a row a lane, in both state variants and both instances; and the
+window decoder and a QSS call on the card against the CPU path.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -1354,3 +1356,120 @@ def test_column_order_puts_every_nan_last_on_the_card(dev):
         want = gf2.column_order(keys.to(dt))
         assert torch.equal(gf2.column_order(keys.to(dt).to(dev)).cpu(), want)
         assert want[0].tolist() == [2, 4, 7, 0, 5, 1, 3, 6]
+
+
+# ---- K1' with a (B, n) prior: the analog windows' per-shot priors ----------
+
+
+def _lane_priors(n, lanes, dtype, dev, seed=5):
+    """A (lanes, n) prior, a row a lane: the channel LLR at p=0.01 beside
+    |2 a / sigma^2| of Gaussian-smeared signed values (the analog windows'
+    time-like priors) on the second half of the bits."""
+    rng = np.random.default_rng(seed)
+    prior = np.tile(channel_llr(np.full(n, P), np.float64), (lanes, 1))
+    half = n // 2
+    a = (1 - 2 * (rng.random((lanes, n - half)) < 0.05)) + 0.43 * rng.standard_normal(
+        (lanes, n - half))
+    prior[:, half:] = np.abs(2.0 * a / 0.43 ** 2)
+    return torch.from_numpy(prior).to(dev, dtype).contiguous()
+
+
+@pytest.mark.parametrize("state", ["shared", "device"])
+@pytest.mark.parametrize("dtype,method,alpha", [
+    (torch.float32, MINIMUM_SUM, 0.625), (torch.float32, MINIMUM_SUM, 0.0),
+    (torch.float32, PRODUCT_SUM, 1.0), (torch.float64, MINIMUM_SUM, 0.625)])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_k1_per_lane_prior_matches_plain_version(codes, name, dtype, method, alpha, state):
+    """K1' with a (B, n) prior in both state variants and both instances
+    (float32 both methods, float64 min-sum) against the plain version; a
+    broadcast (n,) prior gives the (n,) launch's outputs exactly."""
+    _, tg, syn, _ = codes[name]
+    syn = syn[:2048].contiguous()
+    prior = _lane_priors(tg.n, syn.shape[0], dtype, syn.device)
+    kw = dict(dynamic_alpha=dtype == torch.float32)
+    before = bp_cuda.PER_LANE_PRIOR_LAUNCHES
+    ker = bp_cuda.bp_parallel_cuda(tg, syn, prior, method, 30, alpha, state=state, **kw)
+    assert bp_cuda.PER_LANE_PRIOR_LAUNCHES == before + 1
+    ref = bp_cuda.bp_parallel_reference(tg, syn, prior, method, 30, alpha, **kw)
+    torch.cuda.synchronize()
+    _assert_k1_equal(ker, ref, method)
+    shared = prior[0].contiguous()
+    one = bp_cuda.bp_parallel_cuda(tg, syn, shared, method, 30, alpha, state=state, **kw)
+    wide = bp_cuda.bp_parallel_cuda(tg, syn, shared.expand(syn.shape[0], tg.n).contiguous(),
+                                    method, 30, alpha, state=state, **kw)
+    for x, y in zip(one, wide):
+        assert torch.equal(x, y)
+
+
+def test_k1_per_lane_prior_device_state_by_itself(dev):
+    """Toric d=31 keeps its state in device memory by itself; with a (B, n)
+    prior it equals the plain version, float32 and float64."""
+    graph = compile_pcm(toric_code(31, compute_logicals=False).hx)
+    tg = graph_to_torch(graph, dev)
+    rng = np.random.default_rng(31)
+    errors = (rng.random((300, graph.n)) < 0.03).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).to(dev)
+    for dtype in (torch.float32, torch.float64):
+        assert bp_cuda.state_variant(graph.m, graph.n, graph.dc, dtype) == "device"
+        prior = _lane_priors(graph.n, 300, dtype, dev)
+        ker = bp_cuda.bp_parallel(tg, syn, prior, MINIMUM_SUM, 30, 0.625)
+        ref = bp_cuda.bp_parallel_reference(tg, syn, prior, MINIMUM_SUM, 30, 0.625)
+        torch.cuda.synchronize()
+        _assert_k1_equal(ker, ref, MINIMUM_SUM)
+
+
+def test_k1_per_lane_prior_shape_checked(codes):
+    _, tg, syn, llr0 = codes["surface13"]
+    with pytest.raises(ValueError, match="init_llr must have shape"):
+        bp_cuda.bp_parallel_cuda(tg, syn, llr0.expand(3, tg.n).contiguous(), MINIMUM_SUM,
+                                 5, 0.625)
+
+
+@pytest.mark.parametrize("config", ["osd0", "analog", "lsd0"])
+def test_window_decoder_on_the_card_matches_cpu(dev, config):
+    """The window decoder on the card (K1', K2' or K4') against the CPU path
+    on the same history, every lane: corrections and iterations equal."""
+    from ldpc_tpu_torch.monte_carlo_simulation.simulation_utils import get_sigma_from_syndr_er
+    from ldpc_tpu_torch.parallel import make_window_decoder
+
+    H = surface_code(7).hx
+    Hd = np.asarray(H.todense(), np.uint8)
+    m, n = Hd.shape
+    B, W, R, p = 64, 4, 10, 0.01
+    rng = np.random.default_rng(3)
+    err = np.zeros((B, n), np.uint8)
+    syn = np.zeros((B, m, R), np.uint8)
+    analog = np.zeros((B, m, R), np.float32)
+    sigma = get_sigma_from_syndr_er(p)
+    for r in range(R):
+        err ^= (rng.random((B, n)) < p).astype(np.uint8)
+        s = (err @ Hd.T % 2).astype(np.uint8)
+        noisy = (1.0 - 2.0 * s) + (sigma * rng.standard_normal((B, m)) if r < R - 1 else 0.0)
+        analog[:, :, r] = noisy
+        syn[:, :, r] = (noisy < 0) if config == "analog" else (
+            s ^ (rng.random((B, m)) < p) if r < R - 1 else s)
+    kw = {"osd0": {}, "analog": {"sigma": sigma}, "lsd0": {"postprocess": "lsd0"}}[config]
+    a = analog if config == "analog" else None
+    outs = [make_window_decoder(H, W, p, p, max_iter=20, device=d, **kw)(syn, a)
+            for d in ("cuda", "cpu")]
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("analog", [False, True])
+def test_qss_step_on_the_card_matches_cpu(dev, analog):
+    """One QSS call's shots on the same draws, the card against the CPU."""
+    from ldpc_tpu_torch.monte_carlo_simulation import make_qss_step
+
+    code = surface_code(5, compute_logicals=True)
+    steps = [make_qss_step(code.hx, 0.02, 0.02, code.lx, repetitions=4, rounds=8,
+                           batch_size=64, max_iter=20, analog_tg=analog, device=d)[0]
+             for d in ("cuda", "cpu")]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    u, noise = steps[0].draw(gen)
+    card = steps[0].run(u, noise)
+    cpu = steps[1].run(u.cpu(), noise.cpu())
+    for x, y in zip(card, cpu):
+        assert torch.equal(x.cpu(), y)

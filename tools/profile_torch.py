@@ -7,8 +7,11 @@ The workload and the configurations are ``chip_smoke.py``'s, imported
 from it (``main_workload``, ``decode_paths``, ``mc_step``): every
 ``decode_batch`` configuration decodes the same 65,536 d=13 surface-code
 syndromes (soft-information BP their soft versions), ``MbpDecoder`` the
-16,384 depolarizing syndromes of ``mbp_workload``, and the device
-Monte-Carlo step runs 16,384 x 8 rounds. For
+16,384 depolarizing syndromes of ``mbp_workload``, the device
+Monte-Carlo step runs 16,384 x 8 rounds, the window decoder decodes the
+histories of ``window_history`` in each of ``WINDOW_CONFIGS`` (rates in
+round-syndromes/s) and the QSS step runs one call of 8,192 shots, binary
+and analog (rates in shots/s). For
 each: two warm-up calls, the median of three unprofiled calls,
 then one call under ``torch.profiler`` (CPU and CUDA activities). From the
 profiler's trace: the device's busy time, the union of its kernel, copy and
@@ -145,6 +148,21 @@ def main() -> int:
     out = profile_call(lambda: step(gen).cpu())
     out["syndromes_per_s"] = runs / (out["unprofiled_ms"] / 1e3)
     report(record, "device_mc", out)
+    for label, analog, post, rows in chip_smoke.WINDOW_CONFIGS:
+        hist, ana, _ = chip_smoke.window_history(code, rows, analog)
+        wdec = chip_smoke.make_window(code, "cuda", analog, post)
+        out = profile_call(lambda: wdec(hist, ana).correction.cpu())
+        out["syndromes_per_s"] = rows * chip_smoke.WINDOW_ROUNDS / (out["unprofiled_ms"] / 1e3)
+        report(record, f"window[{label}]", out)
+    for analog in (False, True):
+        qstep, qruns = chip_smoke.make_qss_step(
+            code.hx, chip_smoke.QSS_P, chip_smoke.QSS_P, code.lx,
+            repetitions=chip_smoke.WINDOW_REPS, rounds=chip_smoke.WINDOW_ROUNDS,
+            batch_size=chip_smoke.QSS_BATCH, max_iter=chip_smoke.QSS_ITERS,
+            ms_scaling_factor=chip_smoke.MS_FACTOR, analog_tg=analog, device="cuda")
+        out = profile_call(lambda: qstep(gen).cpu())
+        out["syndromes_per_s"] = qruns / (out["unprofiled_ms"] / 1e3)
+        report(record, f"qss[{'analog' if analog else 'binary'}]", out)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(record, indent=1))
     print(f"wrote {args.out}", flush=True)
