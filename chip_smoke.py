@@ -39,7 +39,16 @@ the CPU path on 256 shots, with its rate, host syncs and launches by
 variant), OSD-0 on the unconverged lanes against every lane
 (``window_osd_lanes``), and the device QSS (``make_qss_step``, 8,192
 shots, binary and analog; its first 256 shots held against the window
-decoder on the history their draws record). Every
+decoder on the history their draws record). Slice M (``owd``): a
+phenomenological memory DEM of the d=13 hx (2,496 detectors, 7,348
+mechanisms, 16 rounds at p=0.003) decoded by ``BpOsdOverlappingWindowDecoder``
+(8,192 shots) and ``LsdOverlappingWindowDecoder`` (1,024) in windows of 4
+rounds committing 2, windows 1-5 on the device (``make_device_owd``): K1'
+(with +inf priors on the committed columns) and K2' held against their
+plain versions on the path's own launches (``owd_k1_vs_plain``,
+``owd_k2_vs_plain``), the device windows' taking and launches by variant
+checked, the first 256 shots against the CPU path, the forced host loop on
+the card against the device windows, both rates timed in turns. Every
 ``*_time`` phase prints
 the kernel's device time (``device_ms``), its plain version's and its
 bound (see ``bound``). Every phase prints
@@ -55,12 +64,14 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
 import ldpc_tpu_torch
+from ldpc_tpu_torch import ckt_noise
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.decoders import mbp_decoder as mbp_decoder_mod
 from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step, make_qss_step
@@ -1583,6 +1594,266 @@ def drive_qss(code, lx, analog: bool):
     return counts
 
 
+# ---- slice M: circuit-level (DEM) overlapping-window decoding ---------------
+# A phenomenological memory DEM of the main path's hx over WINDOW_ROUNDS
+# rounds at WINDOW_P, decoded in windows of 4 rounds committing 2: the windows
+# of tools/window_bench.py and of the window phase, so the rates read side by side
+OWD_WINDOW = 4
+OWD_COMMIT = 2
+OWD_DECODINGS = (WINDOW_ROUNDS - OWD_WINDOW) // OWD_COMMIT + 1  # 7: windows 1-5 on the device
+OWD_BATCH = 8192
+OWD_LSD_BATCH = 1024  # shots of BP+LSD-0 (host-bound, as the LSD-0 window is)
+OWD_CPU_ROWS = 256  # shots also decoded on the CPU and compared
+OWD_KERNEL_ROWS = 1024  # shots whose kernel launches are held against the plain versions
+# timed calls after a warm-up: three of each path, in turns
+OWD_TURNS = ("scan", "host", "host", "scan", "scan", "host")
+
+
+class _DemTarget:
+    """A detector (or, with ``observable``, an observable) target of a DEM
+    error: what the DEM conversion reads of stim's ``DemTarget``."""
+
+    def __init__(self, val: int, observable: bool = False):
+        self.val, self._observable = val, observable
+
+    def is_relative_detector_id(self) -> bool:
+        return not self._observable
+
+    def is_logical_observable_id(self) -> bool:
+        return self._observable
+
+    def is_separator(self) -> bool:
+        return False
+
+
+class _DemError:
+    type = "error"
+
+    def __init__(self, p: float, targets: list):
+        self._p, self._targets = p, targets
+
+    def args_copy(self) -> list:
+        return [self._p]
+
+    def targets_copy(self) -> list:
+        return self._targets
+
+
+class PhenomenologicalDem:
+    """The detector error model of a phenomenological memory experiment on
+    the checks ``H`` over ``rounds`` rounds, difference-syndrome detectors
+    (detector r*m + c is check c's change in round r), stim's instruction
+    interface (``flattened``, ``num_detectors``, ``num_observables``). Per
+    round, a data flip at ``p`` of bit j flips that round's detectors of its
+    checks, and observable 0 where ``logical`` holds j; below the last round
+    (which is perfect) a measurement flip at ``p`` flips check c's detectors
+    in that round and the next."""
+
+    def __init__(self, H: np.ndarray, logical: np.ndarray, rounds: int, p: float):
+        m, n = H.shape
+        self.num_checks, self.num_detectors, self.num_observables = m, m * rounds, 1
+        checks = [np.flatnonzero(H[:, j]) for j in range(n)]
+        self._errors = []
+        for r in range(rounds):
+            for j in range(n):
+                dets = [_DemTarget(r * m + int(c)) for c in checks[j]]
+                self._errors.append(_DemError(p, dets + [_DemTarget(0, True)] * int(logical[j])))
+            if r < rounds - 1:
+                self._errors += [_DemError(p, [_DemTarget(r * m + c), _DemTarget((r + 1) * m + c)])
+                                 for c in range(m)]
+
+    def flattened(self) -> list:
+        return self._errors
+
+
+def owd_workload(code, rows: int, seed: int = 13):
+    """The DEM of ``code.hx`` (logical ``lx`` row 0, as drive_window reads
+    failures), its matrices, and ``rows`` shots: errors drawn from the DEM's
+    priors (numpy seed 13), their detectors (uint8) and observable flips."""
+    H = np.asarray(code.hx.todense(), np.uint8)
+    lx0 = np.asarray(code.lx.todense(), np.uint8)[0]
+    dem = PhenomenologicalDem(H, lx0, WINDOW_ROUNDS, WINDOW_P)
+    mats = ckt_noise.detector_error_model_to_check_matrices(dem)
+    rng = np.random.default_rng(seed)
+    errs = (rng.random((rows, mats.check_matrix.shape[1])) < mats.priors).astype(np.uint8)
+    shots = np.ascontiguousarray((mats.check_matrix @ errs.T).T % 2, dtype=np.uint8)
+    truth = ((mats.observables_matrix @ errs.T).T % 2).astype(bool)
+    return dem, mats, shots, truth
+
+
+def make_owd(cls, dem, device):
+    return cls(dem, decodings=OWD_DECODINGS, window=OWD_WINDOW, commit=OWD_COMMIT,
+               num_checks=dem.num_checks, device=device)
+
+
+def hold_owd_k1(where, call):
+    """K1' against its plain version on one captured OWD launch, whose prior
+    holds +inf (committed columns): decisions, flags, iterations and
+    posteriors equal, infinities included, and no NaN."""
+    tg, syn, llr, method, iters, alpha = call
+    ref = bp_cuda.bp_parallel_reference(tg, syn, llr, method, iters, alpha)
+    states = (None, "shared") if where == "window" else (None,)
+    for state in states:
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr, method, iters, alpha, state=state)
+        torch.cuda.synchronize()
+        differ = ((ker.decoding != ref.decoding).any(dim=1) | (ker.converged != ref.converged)
+                  | (ker.iterations != ref.iterations)
+                  | (ker.llr_posterior != ref.llr_posterior).any(dim=1))
+        finite = torch.isfinite(ref.llr_posterior) & torch.isfinite(ker.llr_posterior)
+        err = float((ker.llr_posterior - ref.llr_posterior)[finite].abs().max())
+        nan = bool(torch.isnan(ker.llr_posterior).any() | torch.isnan(ref.llr_posterior).any())
+        phase("owd_k1_vs_plain", window=where, m=tg.m, n=tg.n, lanes=syn.shape[0],
+              state=state or bp_cuda.state_variant(tg.m, tg.n, tg.dc), max_iter=iters, alpha=alpha,
+              inf_prior_bits=int(torch.isposinf(llr).sum()),
+              inf_posteriors=int(torch.isposinf(ker.llr_posterior).sum()), nan=nan,
+              differing_lanes=int(differ.sum()), max_abs_err=err,
+              converged=int(ker.converged.sum()))
+        if nan or int(differ.sum()) or err:
+            raise AssertionError(f"K1' differs from its plain version on the OWD {where} window")
+    return ref, err
+
+
+def hold_owd_k2(where, call, keys=None, lanes=None):
+    """K2' against its plain version on one captured OWD launch (its
+    variant by default, and the device variant forced on the window); with
+    ``keys``, the column order it was given equals the CPU's stable argsort
+    of the keys (the JAX package's order), ties at +inf included."""
+    tg, syn, order, rank = call
+    if lanes is not None:
+        syn, order = syn[:lanes].contiguous(), order[:lanes].contiguous()
+    ties = None
+    if keys is not None:
+        want = torch.argsort(keys.cpu(), dim=1, stable=True).to(torch.int32)
+        if not torch.equal(order.cpu(), want):
+            raise AssertionError("OSD-0's column order on the card differs from the CPU's")
+        ties = int((torch.isposinf(keys).sum(dim=1) > 1).sum())
+    ref = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    worst = 0
+    for variant in ((None, "device") if where == "window" else (None,)):
+        ker = run_variant("osd0", variant, tg, syn, order, rank)
+        nlanes, err = int(_lanes_differ(ker, ref).sum()), _max_abs_err(ker, ref)
+        phase("owd_k2_vs_plain", window=where, m=tg.m, n=tg.n, lanes=syn.shape[0],
+              variant=variant or gf2_cuda.elim_variant("osd0", tg.m, tg.n),
+              lanes_with_inf_ties=ties, differing_lanes=nlanes, max_abs_err=err)
+        if nlanes or err:
+            raise AssertionError(f"K2' differs from its plain version on the OWD {where} window")
+        worst = max(worst, err)
+    return worst
+
+
+def owd_kernels(code) -> tuple:
+    """K1' and K2' on the inputs the OWD path gives them (captured from a
+    decode of OWD_KERNEL_ROWS shots): the device windows' BP launches up to
+    the first that leaves lanes unconverged, and its OSD-0 launch on those
+    lanes (keys with ties at +inf); the last boundary window's BP launch
+    (+inf on every committed column) and a boundary window's last OSD-0
+    launch (lanes of a 624 x 7,348 window, 32 of them). Returns the largest
+    |kernel - plain| of K1' and of K2'."""
+    dem, _, shots, _ = owd_workload(code, OWD_KERNEL_ROWS, seed=5)
+    dec = make_owd(ckt_noise.BpOsdOverlappingWindowDecoder, dem, "cuda")
+    uw = dec._maybe_device_scan()[0]
+    osd_calls = []
+    bp_calls = captured_calls(bp_cuda, "bp_parallel", lambda: osd_calls.extend(
+        captured_calls(gf2_cuda, "osd0", lambda: dec.decode_batch(shots))))
+    k1_err = 0.0
+    for call in (c for c in bp_calls if c[0].n == uw.wdec):
+        ref, err = hold_owd_k1("window", call)
+        k1_err = max(k1_err, err)
+        if not bool(ref.converged.all()):
+            break  # the window whose unconverged lanes make the first OSD-0 launch
+    last_bp = [c for c in bp_calls if c[0].n == uw.num_cols and torch.isposinf(c[2]).any()][0]
+    k1_err = max(k1_err, hold_owd_k1("last", last_bp)[1])
+    win_osd = next(c for c in osd_calls if c[0].n == uw.wdec)
+    k2_err = hold_owd_k2("window", win_osd, keys=ref.llr_posterior[~ref.converged])
+    boundary_osd = [c for c in osd_calls if c[0].n == uw.num_cols][-1]
+    k2_err = max(k2_err, hold_owd_k2("boundary", boundary_osd, lanes=32))
+    return k1_err, k2_err
+
+
+def count_syncs(fn) -> int:
+    """Host syncs of one ``fn()``: the synchronizing CUDA operations torch
+    reports in its sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def drive_owd(code, label, cls, rows):
+    """One OWD family on the DEM: the decode with the launch counters set
+    to 0 just before it and read just after (the device windows must be
+    taken and their kernels launched); its first OWD_CPU_ROWS corrections
+    against the port's CPU path; the forced host loop on the card against
+    the device windows' predictions; then timed calls of each, in turns
+    (OWD_TURNS). Returns the counters."""
+    dem, mats, shots, truth = owd_workload(code, rows)
+    dec = make_owd(cls, dem, "cuda")
+    scan = dec._maybe_device_scan()
+    if scan is None or (scan[0].w_lo, scan[0].w_hi) != (1, OWD_DECODINGS - 1):
+        raise AssertionError(f"owd {label}: the device windows were not taken")
+    dec.decode_batch(shots[:64])  # builds the boundary windows' decoders
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    corr = dec._corr_multiple_rounds_batch(shots.copy())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counters()
+    need = ["bp_parallel", "osd0" if label == "bposd" else "masked_solve"]
+    if any(counts[k] == 0 for k in need):
+        raise AssertionError(f"owd {label}: the path skipped kernels {need}: {counts}")
+    obs = np.asarray(mats.observables_matrix.todense(), np.uint8)
+    pred = ((corr @ obs.T) % 2).astype(bool)
+    c = OWD_CPU_ROWS
+    t0 = time.perf_counter()
+    cpu = make_owd(cls, dem, "cpu")._corr_multiple_rounds_batch(shots[:c].copy())
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(cpu, corr[:c]):
+        raise AssertionError(f"owd {label}: the card differs from the CPU path")
+    host = make_owd(cls, dem, "cuda")
+    host._device_scan = None  # the forced host loop
+    if not np.array_equal(host.decode_batch(shots), pred):
+        raise AssertionError(f"owd {label}: the host loop differs from the device windows")
+    syncs = {"scan": count_syncs(lambda: dec.decode_batch(shots)),
+             "host": count_syncs(lambda: host.decode_batch(shots))}
+    walls = {"scan": [], "host": []}
+    for turn in OWD_TURNS:
+        walls[turn] += timed_calls(lambda: (dec if turn == "scan" else host).decode_batch(shots), 1)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    phase("owd", family=label, decoder=cls.__name__, shots=rows, detectors=dem.num_detectors,
+          mechanisms=mats.check_matrix.shape[1], rounds=WINDOW_ROUNDS, decodings=OWD_DECODINGS,
+          device_windows=f"{scan[0].w_lo}-{scan[0].w_hi - 1}", window_shape=f"{scan[0].R}x{scan[0].wdec}",
+          first_call_s=first_s, walls_s=walls["scan"], host_loop_walls_s=walls["host"],
+          shots_per_sec_owd=rows / med["scan"],
+          detector_shots_per_sec_owd=rows * dem.num_detectors / med["scan"],
+          shots_per_sec_owd_host_loop=rows / med["host"],
+          detector_shots_per_sec_owd_host_loop=rows * dem.num_detectors / med["host"],
+          host_syncs_per_call=syncs["scan"], host_syncs_per_call_host_loop=syncs["host"],
+          window_host_syncs=counts["window_host_syncs"], growth_rounds=counts["growth_rounds"],
+          logical_error_rate=float((pred != truth).any(axis=1).mean()),
+          logical_fails=int((pred != truth).any(axis=1).sum()),
+          cpu_rows_equal=c, cpu_s=cpu_s, host_loop_equal=True,
+          peak_memory_bytes=torch.cuda.max_memory_allocated(),
+          launches=json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":")))
+    return counts
+
+
+def owd_phases(code):
+    """Slice M's phases: K1' and K2' on the OWD path's inputs, then both OWD
+    families. Returns (K1' error, K2' error, counts by family)."""
+    k1_err, k2_err = owd_kernels(code)
+    counts = {label: drive_owd(code, label, cls, rows) for label, cls, rows in (
+        ("bposd", ckt_noise.BpOsdOverlappingWindowDecoder, OWD_BATCH),
+        ("lsd", ckt_noise.LsdOverlappingWindowDecoder, OWD_LSD_BATCH))}
+    return k1_err, k2_err, counts
+
+
 def window_phases(code, H):
     """Slice L's phases: K1''s per-lane prior, the window decoder and the
     device QSS. Returns (per-lane numbers, window counts by config, QSS
@@ -2133,6 +2404,10 @@ def main() -> int:
     # ---- 9. slice L: K1''s per-lane prior, the window decoder, the QSS -----------
     per_lane_numbers, win_counts, qss_counts = window_phases(code, H)
 
+    # ---- 10. slice M: circuit-level (DEM) overlapping-window decoding -----------
+    owd_k1_err, owd_k2_err, owd_counts = owd_phases(code)
+    k1_err, k2_err = max(k1_err, owd_k1_err), max(k2_err, owd_k2_err)
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ldpc_tpu"))
     if imported:
@@ -2159,12 +2434,19 @@ def main() -> int:
         return {f"window_{k}": v[name] for k, v in win_counts.items()} | {
             f"qss_{k}": v[name] for k, v in qss_counts.items()}
 
+    def owd_launches(name, variants):
+        """The OWD path's launches of a kernel by family, and by variant."""
+        return {"owd_path_launches": {k: v[name] for k, v in owd_counts.items()},
+                "owd_variant_launches": {k: {var: v[key] for var, key in variants.items()}
+                                         for k, v in owd_counts.items()}}
+
     print(json.dumps({"kernels": [
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               path["osd0"], k1_err, k1_numbers,
               {"shared": "bp_shared_state", "device": "bp_device_state"})
         | {"per_lane_prior": win_counts["osd0_analog"]["bp_parallel_per_lane"],
-           "window_path_launches": window_launches("bp_parallel")},
+           "window_path_launches": window_launches("bp_parallel")}
+        | owd_launches("bp_parallel", {"shared": "bp_shared_state", "device": "bp_device_state"}),
         # K1' with a (B, n) prior on its path: the analog window decoder
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               win_counts["osd0_analog"], per_lane_numbers[1], per_lane_numbers[0],
@@ -2181,7 +2463,8 @@ def main() -> int:
         entry("osd0", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:46",
               path["osd0"], k2_err, k2_numbers, elim_variants("osd0"))
         | {"window_path_launches": window_launches("osd0"),
-           "window_variant_launches": {v: win_counts["osd0"][f"osd0_{v}"] for v in ELIM_VARIANTS}},
+           "window_variant_launches": {v: win_counts["osd0"][f"osd0_{v}"] for v in ELIM_VARIANTS}}
+        | owd_launches("osd0", elim_variants("osd0")),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
               path["osd_cs5"], elim_err["rref_export"],
               elim_numbers["rref_export"], elim_variants("rref_export")),
@@ -2190,7 +2473,8 @@ def main() -> int:
               elim_numbers["masked_solve"], elim_variants("masked_solve"))
         | {"window_path_launches": window_launches("masked_solve"),
            "window_variant_launches": {v: win_counts["lsd0"][f"masked_solve_{v}"]
-                                       for v in ELIM_VARIANTS}},
+                                       for v in ELIM_VARIANTS}}
+        | owd_launches("masked_solve", elim_variants("masked_solve")),
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
               path["lsd_cs5"], elim_err["masked_export"],
               elim_numbers["masked_export"], elim_variants("masked_export")),

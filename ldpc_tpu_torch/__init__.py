@@ -17,8 +17,9 @@ package imports nothing of ``ldpc_tpu`` and never ``jax``: its host modules
 code utilities, alist files, protographs, the noise models and the PCM
 compiler) are its own copies, in ``codes/``, ``helpers.py``, ``mod2/``,
 ``code_util/``, ``alist.py``, ``protograph.py``, ``noise_models/`` and
-``ops/pcm.py``; ``alist``, ``code_util``, ``noise_models`` and
-``protograph`` load on first use.
+``ops/pcm.py``; ``alist``, ``ckt_noise`` (circuit-level DEM decoding),
+``code_util``, ``noise_models``, ``protograph`` and ``sinter_decoders``
+(with ``SinterBpOsdDecoder``) load on first use.
 """
 
 __version__ = "0.1.0"
@@ -33,13 +34,18 @@ from ldpc_tpu_torch.decoders.lsd_decoder import LsdDecoder
 from ldpc_tpu_torch.decoders.mbp_decoder import MbpDecoder, mbp_decoder
 from ldpc_tpu_torch.decoders.union_find import UnionFindDecoder
 
-_LAZY_SUBMODULES = ("alist", "code_util", "noise_models", "protograph")
+_LAZY_SUBMODULES = (
+    "alist", "ckt_noise", "code_util", "noise_models", "protograph", "sinter_decoders",
+)
+_LAZY_EXPORTS = {"SinterBpOsdDecoder": "ldpc_tpu_torch.sinter_decoders"}
 
 
 def __getattr__(name):
-    """The host submodules, imported on first use."""
+    """The host submodules and the sinter adapter, imported on first use."""
     import importlib
 
+    if name in _LAZY_EXPORTS:
+        return getattr(importlib.import_module(_LAZY_EXPORTS[name]), name)
     if name in _LAZY_SUBMODULES:
         return importlib.import_module(f"ldpc_tpu_torch.{name}")
     raise AttributeError(f"module 'ldpc_tpu_torch' has no attribute '{name}'")
@@ -54,6 +60,7 @@ __all__ = [
     "FlipDecoder",
     "LsdDecoder",
     "MbpDecoder",
+    "SinterBpOsdDecoder",
     "SoftInfoBpDecoder",
     "SoftInfoBpOsdDecoder",
     "UnionFindDecoder",

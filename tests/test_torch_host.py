@@ -32,6 +32,12 @@ from ldpc_tpu_torch.ops import mbp as tmbp
 from ldpc_tpu_torch.ops import uf as tuf
 from ldpc_tpu_torch.ops.pcm import compile_pcm as t_compile_pcm
 from ldpc_tpu_torch.parallel import make_window_decoder
+from ldpc_tpu_torch import ckt_noise as tckt
+from ldpc_tpu_torch import sinter_decoders as tsinter
+from ldpc_tpu_torch.ckt_noise import device_scan as tscan
+from ldpc_tpu_torch.ckt_noise.not_an_arb_ckt_simulator import count_logical_errors
+from test_ckt_noise import rep_code_memory_dem
+from test_torch_ckt_noise import mock_circuit
 
 GROSS = (12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)])
 
@@ -189,7 +195,24 @@ ENTRY_POINTS = {
         torch.Generator(), 4, 5, 0.1, **d),
     "generate_depolarizing_error_batch": lambda d: tnoise.generate_depolarizing_error_batch(
         torch.Generator(), 4, 5, 0.1, **d),
+    "BpOsdOverlappingWindowDecoder": lambda d: tckt.BpOsdOverlappingWindowDecoder(
+        rep_code_memory_dem(n_checks=3, rounds=14), **_OWD, **d),
+    "LsdOverlappingWindowDecoder": lambda d: tckt.LsdOverlappingWindowDecoder(
+        rep_code_memory_dem(n_checks=3, rounds=14), **_OWD, **d),
+    "PyMatchingOverlappingWindowDecoder": lambda d: tckt.PyMatchingOverlappingWindowDecoder(
+        rep_code_memory_dem(n_checks=3, rounds=14), **_OWD, **d),
+    "make_device_owd": lambda d: tscan.make_device_owd(_uniform_windows(), 0.0, **d),
+    "SinterBpOsdDecoder": lambda d: tsinter.SinterBpOsdDecoder(**d),
+    "SinterLsdDecoder": lambda d: tsinter.SinterLsdDecoder(**d),
+    "SinterBeliefFindDecoder": lambda d: tsinter.SinterBeliefFindDecoder(**d),
+    "count_logical_errors": lambda d: count_logical_errors(mock_circuit(B=8), 8, **d),
 }
+_OWD = dict(decodings=6, window=4, commit=2, num_checks=3)
+
+
+def _uniform_windows():
+    mats = tckt.detector_error_model_to_check_matrices(rep_code_memory_dem(n_checks=3, rounds=14))
+    return tscan.analyze_uniform_windows(mats.check_matrix, 6, 4, 2, 3, mats.priors)
 
 
 def _lx():
@@ -218,3 +241,79 @@ def test_default_device_raises_without_a_card(monkeypatch, name):
 def test_resolve_device():
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+
+
+def test_ckt_noise_and_sinter_import_no_jax():
+    """A fresh process decodes on the CPU through both overlapping-window
+    decoders (device windows and host loop), the sinter adapters (packed
+    path) and an overlapping-window sinter adapter, reaches
+    ``ldpc_tpu_torch.SinterBpOsdDecoder`` lazily, and never imports jax or
+    any module of the JAX package ``ldpc_tpu``."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        "import sys, numpy as np\n"
+        "import ldpc_tpu_torch\n"
+        "assert 'ldpc_tpu_torch.sinter_decoders' not in sys.modules\n"
+        "assert 'ldpc_tpu_torch.ckt_noise' not in sys.modules\n"
+        "from ldpc_tpu_torch import ckt_noise\n"
+        "from ldpc_tpu_torch.ckt_noise.sinter_overlapping_window_decoder import (\n"
+        "    SinterDecoder_BPOSD_OWD)\n"
+        "class T:\n"
+        "    def __init__(self, kind, val=0): self.kind, self.val = kind, val\n"
+        "    def is_relative_detector_id(self): return self.kind == 'det'\n"
+        "    def is_logical_observable_id(self): return self.kind == 'obs'\n"
+        "    def is_separator(self): return False\n"
+        "class I:\n"
+        "    type = 'error'\n"
+        "    def __init__(self, p, t): self.p, self.t = p, t\n"
+        "    def args_copy(self): return [self.p]\n"
+        "    def targets_copy(self): return self.t\n"
+        "class Dem:\n"
+        "    num_detectors, num_observables = 42, 1\n"
+        "    def flattened(self):\n"
+        "        out = []\n"
+        "        for r in range(14):\n"
+        "            for j in range(4):\n"
+        "                dets = [T('det', r * 3 + c) for c in (j - 1, j) if 0 <= c < 3]\n"
+        "                out.append(I(0.02, dets + ([T('obs', 0)] if j == 0 else [])))\n"
+        "            if r < 13:\n"
+        "                out += [I(0.02, [T('det', r * 3 + c), T('det', r * 3 + 3 + c)])\n"
+        "                        for c in range(3)]\n"
+        "        return out\n"
+        "dem = Dem()\n"
+        "shots = np.zeros((4, 42), np.uint8)\n"
+        "shots[1, [3, 6]] = 1\n"
+        "kw = dict(decodings=6, window=4, commit=2, num_checks=3, device='cpu')\n"
+        "for cls in (ckt_noise.BpOsdOverlappingWindowDecoder,\n"
+        "            ckt_noise.LsdOverlappingWindowDecoder):\n"
+        "    d = cls(dem, **kw)\n"
+        "    assert d._maybe_device_scan() is not None\n"
+        "    p = d.decode_batch(shots)\n"
+        "    d._device_scan = None\n"
+        "    assert (d.decode_batch(shots) == p).all() and p.shape == (4, 1)\n"
+        "packed = np.packbits(shots, axis=1, bitorder='little')\n"
+        "for name in ('SinterBpOsdDecoder', 'SinterLsdDecoder', 'SinterBeliefFindDecoder'):\n"
+        "    a = getattr(ldpc_tpu_torch.sinter_decoders, name)(max_iter=10, device='cpu')\n"
+        "    c = a.compile_decoder_for_dem(dem=dem)\n"
+        "    assert c.decode_shots_bit_packed(bit_packed_detection_event_data=packed).shape == (4, 1)\n"
+        "    assert a.decode_batch_from_dem(dem, shots).shape == (4, 1)\n"
+        "assert ldpc_tpu_torch.SinterBpOsdDecoder is ldpc_tpu_torch.sinter_decoders.SinterBpOsdDecoder\n"
+        "c = SinterDecoder_BPOSD_OWD(decodings=6, window=4, commit=2, num_checks=3,\n"
+        "                            device='cpu').compile_decoder_for_dem(dem=dem)\n"
+        "assert c.decode_shots_bit_packed(bit_packed_detection_event_data=packed).shape == (4, 1)\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = sorted(m for m in sys.modules if m == 'ldpc_tpu' or m.startswith('ldpc_tpu.'))\n"
+        "assert not ref, ref\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        cwd=repo, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -5,8 +5,10 @@ flip sweep (csrc/flip.cu), the fold engines K6'-K8' (csrc/bp_fold.cu,
 csrc/bp_exact.cu, each with its lane state in shared or device memory,
 forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu),
 held against their plain PyTorch versions on the card; K1' with a (B, n)
-prior, a row a lane, in both state variants and both instances; and the
-window decoder and a QSS call on the card against the CPU path.
+prior, a row a lane, in both state variants and both instances; the
+window decoder and a QSS call on the card against the CPU path; and the
+overlapping-window decoders and sinter adapters on a phenomenological
+memory DEM on the card against the CPU path.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -1473,3 +1475,64 @@ def test_qss_step_on_the_card_matches_cpu(dev, analog):
     cpu = steps[1].run(u.cpu(), noise.cpu())
     for x, y in zip(card, cpu):
         assert torch.equal(x.cpu(), y)
+
+
+# ---- circuit-level (DEM) overlapping windows and the sinter adapters --------
+
+
+def _phenomenological_dem(d=7, rounds=10, p=0.01):
+    """The memory DEM ``chip_smoke.py`` decodes, at surface d=7 over 10
+    rounds: (dem, its matrices, 128 shots drawn from its priors)."""
+    import importlib.util
+    import pathlib
+
+    from ldpc_tpu_torch.ckt_noise import detector_error_model_to_check_matrices
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_dem", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    code = surface_code(d, compute_logicals=True)
+    dem = smoke.PhenomenologicalDem(np.asarray(code.hx.todense(), np.uint8),
+                                    np.asarray(code.lx.todense(), np.uint8)[0], rounds, p)
+    mats = detector_error_model_to_check_matrices(dem)
+    rng = np.random.default_rng(5)
+    errs = (rng.random((128, mats.check_matrix.shape[1])) < mats.priors).astype(np.uint8)
+    shots = np.ascontiguousarray((mats.check_matrix @ errs.T).T % 2, dtype=np.uint8)
+    return dem, mats, shots
+
+
+@pytest.mark.parametrize("family", ["bposd", "lsd"])
+@pytest.mark.parametrize("path", ["device_windows", "host_loop"])
+def test_owd_on_the_card_matches_cpu(dev, family, path):
+    """Both overlapping-window families on the card (K1' with +inf priors on
+    the committed look-back columns, then K2' or K4') against the CPU path,
+    every shot's correction; the device windows are taken unless forced off."""
+    from ldpc_tpu_torch import ckt_noise
+
+    dem, _, shots = _phenomenological_dem()
+    cls = {"bposd": ckt_noise.BpOsdOverlappingWindowDecoder,
+           "lsd": ckt_noise.LsdOverlappingWindowDecoder}[family]
+    decs = [cls(dem, decodings=4, window=4, commit=2, num_checks=dem.num_checks, device=d)
+            for d in ("cuda", "cpu")]
+    for d in decs:
+        if path == "host_loop":
+            d._device_scan = None
+        else:
+            assert d._maybe_device_scan() is not None
+    card, cpu = (d._corr_multiple_rounds_batch(shots.copy()) for d in decs)
+    assert np.array_equal(card, cpu)
+
+
+@pytest.mark.parametrize("name", ["SinterBpOsdDecoder", "SinterLsdDecoder",
+                                  "SinterBeliefFindDecoder"])
+def test_sinter_adapters_on_the_card_match_cpu(dev, name):
+    """The sinter adapters' packed path on the card against the CPU's."""
+    from ldpc_tpu_torch import sinter_decoders
+
+    dem, _, shots = _phenomenological_dem(d=5, rounds=3)
+    packed = np.packbits(shots, axis=1, bitorder="little")
+    outs = [getattr(sinter_decoders, name)(max_iter=30, device=d).compile_decoder_for_dem(
+        dem=dem).decode_shots_bit_packed(bit_packed_detection_event_data=packed)
+        for d in ("cuda", "cpu")]
+    assert np.array_equal(*outs)

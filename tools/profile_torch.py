@@ -10,8 +10,11 @@ syndromes (soft-information BP their soft versions), ``MbpDecoder`` the
 16,384 depolarizing syndromes of ``mbp_workload``, the device
 Monte-Carlo step runs 16,384 x 8 rounds, the window decoder decodes the
 histories of ``window_history`` in each of ``WINDOW_CONFIGS`` (rates in
-round-syndromes/s) and the QSS step runs one call of 8,192 shots, binary
-and analog (rates in shots/s). For
+round-syndromes/s), the QSS step runs one call of 8,192 shots, binary
+and analog (rates in shots/s), and the overlapping-window decoders decode
+the DEM shots of ``owd_workload``: BP+OSD-0 through the device windows and
+through the forced host loop on 8,192 shots, BP+LSD-0 through the device
+windows on 1,024 (rates in shots/s). For
 each: two warm-up calls, the median of three unprofiled calls,
 then one call under ``torch.profiler`` (CPU and CUDA activities). From the
 profiler's trace: the device's busy time, the union of its kernel, copy and
@@ -163,6 +166,18 @@ def main() -> int:
         out = profile_call(lambda: qstep(gen).cpu())
         out["syndromes_per_s"] = qruns / (out["unprofiled_ms"] / 1e3)
         report(record, f"qss[{'analog' if analog else 'binary'}]", out)
+    for label, cls, rows, scan in (
+            ("bposd", chip_smoke.ckt_noise.BpOsdOverlappingWindowDecoder, chip_smoke.OWD_BATCH, True),
+            ("bposd_host_loop", chip_smoke.ckt_noise.BpOsdOverlappingWindowDecoder,
+             chip_smoke.OWD_BATCH, False),
+            ("lsd", chip_smoke.ckt_noise.LsdOverlappingWindowDecoder, chip_smoke.OWD_LSD_BATCH, True)):
+        dem, _, shots, _ = chip_smoke.owd_workload(code, rows)
+        odec = chip_smoke.make_owd(cls, dem, "cuda")
+        if not scan:
+            odec._device_scan = None
+        out = profile_call(lambda: odec.decode_batch(shots))
+        out["syndromes_per_s"] = rows / (out["unprofiled_ms"] / 1e3)
+        report(record, f"owd[{label}]", out)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(record, indent=1))
     print(f"wrote {args.out}", flush=True)
