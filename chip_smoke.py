@@ -48,7 +48,18 @@ rounds committing 2, windows 1-5 on the device (``make_device_owd``): K1'
 plain versions on the path's own launches (``owd_k1_vs_plain``,
 ``owd_k2_vs_plain``), the device windows' taking and launches by variant
 checked, the first 256 shots against the CPU path, the forced host loop on
-the card against the device windows, both rates timed in turns. Every
+the card against the device windows, both rates timed in turns. Slice N
+(``multi_device``, phase 11): the multi-device surface on a two-entry mesh
+(``[cuda:0, cuda:0]`` on one card, two cards where there are two) at the
+d=13 shapes: the sharded MC and QSS steps held exactly against the sum of
+their entries' local steps, the rounds-sharded window decoder against
+``make_window_decoder`` on every shot, the BP -> OSD-0 pipeline against K1'
+then K2' on every row, check-sharded BP against K1' (flags, iterations,
+converged decisions, posteriors within 2e-4), one sharded MC call through a
+one-rank NCCL group, and ``profile_decode`` with a trace; each rate beside
+the card's name and power limit, and K1' and K2' launches required on each
+path (the kernels line's ``multi_device_path_launches``). The
+``[section_seconds]`` line gives each section's wall in s. Every
 ``*_time`` phase prints
 the kernel's device time (``device_ms``), its plain version's and its
 bound (see ``bound``). Every phase prints
@@ -60,9 +71,11 @@ is a JSON object describing each kernel; the last line is ``{"ok": true,
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from typing import Callable
@@ -74,7 +87,8 @@ import ldpc_tpu_torch
 from ldpc_tpu_torch import ckt_noise
 from ldpc_tpu_torch.codes import surface_code, toric_code
 from ldpc_tpu_torch.decoders import mbp_decoder as mbp_decoder_mod
-from ldpc_tpu_torch.monte_carlo_simulation import make_mc_decoder_step, make_qss_step
+from ldpc_tpu_torch.monte_carlo_simulation import (
+    make_mc_decoder_step, make_qss_step, make_sharded_mc_step, make_sharded_qss_step)
 from ldpc_tpu_torch.monte_carlo_simulation.simulation_utils import (
     error_channel_setup, get_sigma_from_syndr_er)
 from ldpc_tpu_torch.ops import (
@@ -83,7 +97,9 @@ from ldpc_tpu_torch.ops.bp import (
     MINIMUM_SUM, PRODUCT_SUM, BpResult, channel_llr, serial_order_table)
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 from ldpc_tpu_torch.monte_carlo_simulation.memory_experiment import build_multiround_pcm
-from ldpc_tpu_torch.parallel import make_window_decoder, window
+from ldpc_tpu_torch import parallel
+from ldpc_tpu_torch.parallel import distributed, make_window_decoder, window
+from ldpc_tpu_torch.utils import profile_decode
 
 DISTANCE = 13
 ERROR_RATE = 0.01
@@ -92,7 +108,8 @@ PHASE1_ITERS = 6  # the cascade's first BP launch (BpDecoderBase._CASCADE_ITERS)
 MS_FACTOR = 0.625
 BATCH = 65536  # the host-boundary workload (numpy seed 7)
 KERNEL_BATCH = 8192  # kernel-vs-plain comparisons
-CPU_ROWS = 4096  # rows also decoded on the CPU and compared
+CPU_ROWS = 2048  # rows also decoded on the CPU and compared (halved from 4096
+# to keep the script's time: the CPU decodes take most of section 6)
 TIMED_ROUNDS = 7
 SLICE_B_ROUNDS = 3  # timed decode_batch calls of each slice-B configuration
 SLICE_C_ROUNDS = 3  # ... of each slice-C configuration
@@ -140,6 +157,20 @@ QSS_P = 0.01
 QSS_BATCH = 8192
 QSS_ITERS = 30
 QSS_CALLS = 2  # timed calls after the counted one
+
+
+_SECTIONS = []  # (name, perf_counter at its start), in order
+
+
+def section(name: str) -> None:
+    """Start the script's section ``name`` (it ends where the next starts)."""
+    _SECTIONS.append((name, time.perf_counter()))
+
+
+def section_seconds() -> dict:
+    """Each section's wall in s, the last ending now."""
+    ends = [t for _, t in _SECTIONS[1:]] + [time.perf_counter()]
+    return {name: end - t for (name, t), end in zip(_SECTIONS, ends)}
 
 
 def phase(name: str, **fields) -> None:
@@ -1307,7 +1338,7 @@ def stats_record(make, syn_np, row, device) -> dict:
 # ---- slice L: the window decoder, K1''s per-lane prior, the device QSS -------
 
 
-def window_history(code, rows: int, analog: bool, seed: int = 3):
+def window_history(code, rows: int, analog: bool, seed: int = 3, rounds: int = WINDOW_ROUNDS):
     """A phenomenological memory run on ``code.hx`` as tools/window_bench.py
     makes it (numpy seed 3): data flips at WINDOW_P every round; measurement
     flips at WINDOW_P, or with ``analog`` signed syndromes plus N(0, sigma);
@@ -1318,12 +1349,12 @@ def window_history(code, rows: int, analog: bool, seed: int = 3):
     rng = np.random.default_rng(seed)
     sigma = get_sigma_from_syndr_er(WINDOW_P)
     err = np.zeros((rows, n), np.uint8)
-    syn = np.zeros((rows, m, WINDOW_ROUNDS), np.uint8)
-    ana = np.zeros((rows, m, WINDOW_ROUNDS), np.float32) if analog else None
-    for r in range(WINDOW_ROUNDS):
+    syn = np.zeros((rows, m, rounds), np.uint8)
+    ana = np.zeros((rows, m, rounds), np.float32) if analog else None
+    for r in range(rounds):
         err ^= (rng.random((rows, n)) < WINDOW_P).astype(np.uint8)
         s = (err @ H.T % 2).astype(np.uint8)
-        last = r == WINDOW_ROUNDS - 1
+        last = r == rounds - 1
         if analog:
             a = (1.0 - 2.0 * s) + (0.0 if last else sigma * rng.standard_normal((rows, m)))
             ana[:, :, r] = a
@@ -1867,6 +1898,242 @@ def window_phases(code, H):
     return per_lane, win, qss
 
 
+# ---- slice N: the multi-device surface on a two-entry mesh ----------------------
+# At the main path's shapes: the sharded MC step (MC_BATCH shots an entry,
+# MC_ROUNDS rounds), the sharded QSS step (the qss phase's settings,
+# MD_QSS_BATCH shots an entry), the rounds-sharded window decoder (the window
+# phase's history at MD_WINDOWS windows, 18 rounds, MD_MICROBATCHES
+# microbatches), the BP -> OSD-0 pipeline (BATCH syndromes, MD_PIPELINE_MB a
+# microbatch) and check-sharded BP (BATCH syndromes), each on two entries:
+# [cuda:0, cuda:0] on one card (the port's sharding overhead, not scaling),
+# two distinct cards where there are two.
+MD_QSS_BATCH = 8192
+MD_WINDOWS = 8
+MD_WINDOW_ROUNDS = (MD_WINDOWS + 1) * (WINDOW_REPS // 2)  # 18
+MD_MICROBATCHES = 4
+MD_PIPELINE_MB = 8192
+MD_CALLS = 3  # timed calls of each sharded path after the counted one
+MD_TP_TOL = 2e-4  # tests/test_tensor_parallel.py's posterior tolerance
+
+
+def md_devices():
+    n = torch.cuda.device_count()
+    return ["cuda:0", "cuda:1"] if n >= 2 else ["cuda:0", "cuda:0"]
+
+
+def md_note(devs) -> str:
+    return ("2 entries on one card: the port's sharding overhead, not scaling"
+            if devs[0] == devs[1] else "2 entries on 2 cards")
+
+
+def counted(run):
+    """``run()`` with the launch counters set to 0 just before it and read
+    just after: (its output, the counters, its wall in s)."""
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, read_counters(), wall
+
+
+def require_kernels(label, counts, names=("bp_parallel", "osd0")):
+    if any(counts[k] == 0 for k in names):
+        raise AssertionError(f"{label}: the path skipped kernels {names}: {counts}")
+
+
+def launches_json(counts) -> str:
+    return json.dumps({k: v for k, v in counts.items() if v}, separators=(",", ":"))
+
+
+def md_sharded_step(label, step, card, devs, counter_names):
+    """One sharded call counted, held exactly against the sum of the
+    entries' local steps on the same generators, then timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    got, counts, _ = counted(lambda: step(gen).cpu())
+    require_kernels(label, counts)
+    gen.manual_seed(0)
+    gens = step.generators(gen)
+    t0 = time.perf_counter()
+    want = sum(step.local[step.devices[i]](g).cpu() for i, g in enumerate(gens))
+    local_s = time.perf_counter() - t0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: {got.tolist()} != the entries' sum {want.tolist()}")
+    walls = timed_calls(lambda: step(gen), MD_CALLS)
+    fields = dict(zip(counter_names, (int(x) for x in got)))
+    phase(label, entries=devs, **fields, equal_to_entry_sum=True,
+          entries_sum_s=local_s, walls_s=walls,
+          shots_per_s=int(got[0]) / statistics.median(walls), card=card,
+          note=md_note(devs), launches=launches_json(counts))
+    return got, counts
+
+
+def md_window(code, card, devs):
+    """The rounds-sharded window decoder against make_window_decoder on the
+    card, every shot's correction and iterations."""
+    syn, _, _ = window_history(code, WINDOW_BATCH, False, rounds=MD_WINDOW_ROUNDS)
+    kw = dict(max_iter=WINDOW_ITERS, ms_scaling_factor=MS_FACTOR)
+    chain = parallel.make_rounds_sharded_window_decoder(
+        code.hx, WINDOW_REPS, WINDOW_P, WINDOW_P,
+        mesh=parallel.make_mesh(devices=devs, axis_name="rounds"),
+        n_windows=MD_WINDOWS, microbatches=MD_MICROBATCHES, **kw)
+    out, counts, warm_s = counted(lambda: chain(syn))
+    require_kernels("rounds_window", counts)
+    plain = make_window_decoder(code.hx, WINDOW_REPS, WINDOW_P, WINDOW_P, device="cuda", **kw)
+    want = plain(syn)
+    equal = (torch.equal(out.correction, want.correction)
+             and torch.equal(out.bp_iterations, want.bp_iterations))
+    # the chain and the one-entry decoder on the same history, in turns
+    walls, plain_walls = [], []
+    for _ in range(MD_CALLS):
+        walls += timed_calls(lambda: chain(syn), 1)
+        plain_walls += timed_calls(lambda: plain(syn), 1)
+    rate = WINDOW_BATCH * MD_WINDOW_ROUNDS
+    phase("md_rounds_window", entries=devs, shots=WINDOW_BATCH, rounds=MD_WINDOW_ROUNDS,
+          windows=MD_WINDOWS, microbatches=MD_MICROBATCHES, equal_to_window_decoder=equal,
+          warmup_s=warm_s, walls_s=walls, single_entry_walls_s=plain_walls,
+          round_syndromes_per_sec_window=rate / statistics.median(walls),
+          single_entry_round_syndromes_per_sec=rate / statistics.median(plain_walls),
+          card=card, note=md_note(devs), launches=launches_json(counts))
+    if not equal:
+        raise AssertionError("the rounds-sharded window decoder differs from make_window_decoder")
+    return counts
+
+
+def md_pipeline(code, graph, tg, syn_np, llr0, card, devs):
+    """The pipeline against K1' at full depth, then K2' on every row, picked
+    by the converged flag, zero rows for zero syndromes
+    (tests/test_pipeline.py:40-59's composition)."""
+    pipe = parallel.make_pipelined_decoder(
+        code.hx, ERROR_RATE, mesh=parallel.make_pipeline_mesh(devices=devs),
+        microbatch_size=MD_PIPELINE_MB, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR)
+    out, counts, warm_s = counted(lambda: pipe(syn_np))
+    require_kernels("pipeline", counts)
+    syn = torch.from_numpy(syn_np).cuda()
+    bp = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, MAX_ITER, MS_FACTOR)
+    x0 = osd.make_osd_decoder(graph, np.full(graph.n, ERROR_RATE), osd.OSD_0, 0, "cuda")(
+        syn, bp.llr_posterior)[0]
+    want = torch.where(bp.converged[:, None], bp.decoding, x0)
+    want = (want * syn.any(dim=1, keepdim=True).to(torch.uint8)).cpu().numpy()
+    differ = int((out != want).any(axis=1).sum())
+    walls = timed_calls(lambda: pipe(syn_np), MD_CALLS)
+    phase("md_pipeline", entries=devs, syndromes=len(syn_np), microbatch=MD_PIPELINE_MB,
+          differing_rows=differ, warmup_s=warm_s, walls_s=walls,
+          syndromes_per_s=len(syn_np) / statistics.median(walls), card=card,
+          note=md_note(devs), launches=launches_json(counts))
+    if differ:
+        raise AssertionError(f"the pipeline differs from K1' + K2' on {differ} rows")
+    return counts
+
+
+def md_tensor_parallel(graph, tg, syn_np, llr0, card, devs):
+    """Check-sharded BP against K1' by tests/test_tensor_parallel.py's rule:
+    flags and iterations equal, decisions equal on converged lanes,
+    posteriors within MD_TP_TOL; the lanes that differ printed."""
+    tp = parallel.make_tp_bp_decoder(graph, parallel.Mesh(devs, ("code",)), max_iter=MAX_ITER,
+                                     ms_scaling_factor=MS_FACTOR)
+    syn = torch.from_numpy(syn_np).cuda()
+    got, counts, warm_s = counted(lambda: tp(syn, llr0))
+    ref, _, _ = counted(lambda: bp_cuda.bp_parallel_cuda(
+        tg, syn, llr0, MINIMUM_SUM, MAX_ITER, MS_FACTOR))
+    conv = ref.converged
+    flag_lanes = (got.converged != conv) | (got.iterations != ref.iterations)
+    dec_lanes = conv & (got.decoding != ref.decoding).any(dim=1)
+    gap = (got.llr_posterior - ref.llr_posterior).abs()
+    tol = MD_TP_TOL + MD_TP_TOL * ref.llr_posterior.abs()
+    post_lanes = (gap > tol).any(dim=1)
+    bad = torch.nonzero(flag_lanes | dec_lanes | post_lanes).squeeze(1)[:8].tolist()
+    walls = timed_calls(lambda: tp(syn, llr0), 1)
+    phase("md_tensor_parallel", entries=devs, syndromes=len(syn_np),
+          flag_or_iteration_lanes=int(flag_lanes.sum()), decision_lanes=int(dec_lanes.sum()),
+          posterior_lanes=int(post_lanes.sum()), max_posterior_gap=float(gap.max()),
+          differing=[{"lane": i, "tp": [float(v) for v in got.llr_posterior[i][:4]],
+                      "k1": [float(v) for v in ref.llr_posterior[i][:4]]} for i in bad],
+          warmup_s=warm_s, walls_s=walls, syndromes_per_s=len(syn_np) / walls[0], card=card,
+          note=md_note(devs))
+    if bad:
+        raise AssertionError("check-sharded BP breaks tests/test_tensor_parallel.py's rule")
+    return counts
+
+
+def md_nccl(step, want, card):
+    """One sharded MC call in a one-rank NCCL group (rendezvous on a free
+    localhost port): its counters cross dist.all_reduce and must equal the
+    in-process call's ``want``."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"LDPC_TPU_COORDINATOR": f"localhost:{port}", "LDPC_TPU_NUM_PROCESSES": "1",
+           "LDPC_TPU_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        rank = parallel.initialize_distributed(device="cuda", timeout=60)
+        backend = dist.get_backend()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        got = step(gen).cpu()
+    finally:
+        distributed.shutdown()
+        for k in env:
+            os.environ.pop(k)
+    phase("md_nccl", rank=rank, backend=backend, counters=got.tolist(),
+          equal_to_in_process=torch.equal(got, want), card=card)
+    if backend != "nccl" or not torch.equal(got, want):
+        raise AssertionError("the NCCL all-reduced counters differ from the in-process ones")
+
+
+def md_profile(syn_np, card):
+    """profile_decode on BpOsdDecoder over BATCH syndromes, with a trace."""
+    dec = ldpc_tpu_torch.BpOsdDecoder(
+        surface_code(DISTANCE).hx, error_rate=ERROR_RATE, max_iter=MAX_ITER,
+        bp_method="minimum_sum", ms_scaling_factor=MS_FACTOR, osd_method="osd_0")
+    with tempfile.TemporaryDirectory() as log_dir:
+        rep = profile_decode(dec, syn_np, repeats=3, log_dir=log_dir)
+        sizes = [f.stat().st_size for f in os.scandir(log_dir)]
+    phase("md_profile_decode", syndromes=len(syn_np), **rep, trace_files=len(sizes),
+          trace_bytes=sum(sizes), card=card)
+    if not sizes or not all(sizes):
+        raise AssertionError("profile_decode wrote no trace")
+
+
+def multi_device_phases(code, graph, tg, syn_np, llr0, card):
+    """Slice N's phases; returns each path's launch counters."""
+    devs = md_devices()
+    mesh = parallel.make_mesh(devices=devs)
+    section("11_sharded_mc")
+    mc, _ = make_sharded_mc_step(
+        code.hx, ERROR_RATE, mesh=mesh, batch_size_per_device=MC_BATCH, logicals=code.lx,
+        rounds_per_call=MC_ROUNDS, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR)
+    mc_counters, mc_counts = md_sharded_step(
+        "md_sharded_mc", mc, card, devs,
+        ("runs", "fails", "bp_converged", "bp_iters_total", "osd_used", "bucket_overflow"))
+    section("11_sharded_qss")
+    qss, _ = make_sharded_qss_step(
+        code.hx, QSS_P, QSS_P, code.lx, mesh=mesh, batch_size_per_device=MD_QSS_BATCH,
+        repetitions=WINDOW_REPS, rounds=WINDOW_ROUNDS, max_iter=QSS_ITERS,
+        ms_scaling_factor=MS_FACTOR)
+    _, qss_counts = md_sharded_step("md_sharded_qss", qss, card, devs,
+                                    ("runs", "fails", "bp_iters_total", "windows_decoded"))
+    counts = {"sharded_mc": mc_counts, "sharded_qss": qss_counts}
+    section("11_rounds_window")
+    counts["rounds_window"] = md_window(code, card, devs)
+    section("11_pipeline")
+    counts["pipeline"] = md_pipeline(code, graph, tg, syn_np, llr0, card, devs)
+    section("11_tensor_parallel")
+    counts["tensor_parallel"] = md_tensor_parallel(graph, tg, syn_np, llr0, card, devs)
+    section("11_nccl")
+    md_nccl(mc, mc_counters, card)
+    section("11_profile_decode")
+    md_profile(syn_np, card)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1876,6 +2143,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    section("1_env")
     dev = torch.device("cuda")
     phase(
         "env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -1883,6 +2151,7 @@ def main() -> int:
     )
 
     # ---- 2. build ----------------------------------------------------------
+    section("2_build")
     t0 = time.perf_counter()
     _build.library()
     phase("build", seconds=round(time.perf_counter() - t0, 3))
@@ -1905,6 +2174,7 @@ def main() -> int:
     syn20 = torch.from_numpy(workload(H20, KERNEL_BATCH)[1]).to(dev)
 
     # ---- 3. K1' against its plain version ------------------------------------
+    section("3_k1")
     # each in the place the footprint chooses for a lane's state, then in
     # device memory, forced
     k1_err = 0.0
@@ -1957,6 +2227,7 @@ def main() -> int:
     k1_err = max(k1_err, err, k1_timed("k1_bucket_time", bucket, MAX_ITER)[2])
 
     # ---- 4. K2' against its plain version ------------------------------------
+    section("4_k2")
     rank13 = gf2.batched_rank(graph.dense)
     rank20 = gf2.batched_rank(graph20.dense)
     k2_err = compare_osd("surface13", tg, H, syn_k, posteriors["surface13"], rank13)
@@ -1975,6 +2246,7 @@ def main() -> int:
                                       config="toric20")[1])
 
     # ---- 4b. K3', K4', K5' against their plain versions ------------------------
+    section("4b_k3_k5")
     elim_err = {"rref_export": 0, "masked_solve": 0, "masked_export": 0}
     for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
         for k, v in compare_elim(cname, tgx, gx, syn, posteriors[cname]).items():
@@ -2007,6 +2279,7 @@ def main() -> int:
         time_sizes(cname, size_code)
 
     # ---- 4c. a code above a block's shared memory: toric d=31 ------------------
+    section("4c_toric31")
     # K2'-K5' by default, which must be the device variant, against their
     # plain versions; then the decoders that reach them, against the CPU path
     for kname in gf2_cuda.VARIANT_LAUNCHES:
@@ -2032,6 +2305,7 @@ def main() -> int:
               error_rate=LARGE_ERROR_RATE, device_variant_launches=json.dumps(reached))
 
     # ---- 5. the flip sweep against its plain version -------------------------
+    section("5_flip")
     flip_err = 0
     for cname, tgx, gx, syn in (("surface13", tg, graph, syn_k), ("toric20", tg20, graph20, syn20)):
         for pfreq, sweeps in ((0, gx.n), (3, PFLIP_SWEEPS)):
@@ -2048,6 +2322,7 @@ def main() -> int:
                                            config=name)[1])
 
     # ---- 5b. the fold engines K6'-K8', K1' with its factor fixed, golden -----
+    section("5b_fold")
     # each held against its plain version in both state variants (forced),
     # on surface d=13, toric d=20 and toric d=60 (float64: above the shared
     # budget, the device variant by default); then timed at the main paths'
@@ -2144,6 +2419,7 @@ def main() -> int:
         fold_numbers.setdefault(kernel, numbers)
 
     # ---- 5c. K9' (MBP over GF(4)) against its plain version, and timed ---------
+    section("5c_mbp")
     H4, hx4, hz4, mbp_syn = mbp_workload()
     g4 = mbp.gf4_to_torch(mbp.compile_gf4(H4), dev)
     n4 = H4.shape[1]
@@ -2220,6 +2496,7 @@ def main() -> int:
     mbp_size_times(k9_shape)
 
     # ---- 5d. K1''s float64 instance (single-scan) against its plain version ----
+    section("5d_k1_f64")
     ss_err = 0.0
     for alpha in (MS_FACTOR, 0.0):
         ref = bp_cuda.bp_parallel_reference(tg, syn_k, llr0_64, MINIMUM_SUM, MAX_ITER, alpha,
@@ -2266,6 +2543,7 @@ def main() -> int:
           state=bp_cuda.state_variant(tg.m, tg.n, tg.dc, torch.float64))
 
     # ---- 6. main paths: decode_batch -----------------------------------------
+    section("6_decode_batch")
     paths = {p.key: p for p in decode_paths(code)}
     path = {key: drive_decoder(p, H, syn_np) for key, p in paths.items()}
     # K4' at the standalone UnionFind shape: every lane of the batch
@@ -2276,6 +2554,7 @@ def main() -> int:
     k4_residency(graph, {"lsd0": k4_calls, "uf_matrix": uf_calls})
 
     # ---- 6b. single-scan in float64: decode_single_scan, a syndrome a call -----
+    section("6b_single_scan")
     ss_rows = syn_np[np.flatnonzero(syn_np.any(axis=1))[:SINGLE_SCAN_ROWS]]
     bp64 = dict(error_rate=ERROR_RATE, max_iter=MAX_ITER, ms_scaling_factor=MS_FACTOR,
                 dtype="float64")
@@ -2294,6 +2573,7 @@ def main() -> int:
           bp_parallel_float64=ss_counts["bp_parallel_float64"], cpu_rows_equal=len(ss_rows))
 
     # ---- 6c. MbpDecoder: decode_batch and uf_decode ----------------------------
+    section("6c_mbp_decoder")
     reset_counters()
     mdec = make_mbp_decoder(H4, "cuda")
     t0 = time.perf_counter()
@@ -2366,6 +2646,7 @@ def main() -> int:
           launches=json.dumps({k: v for k, v in uf_counts.items() if v}))
 
     # ---- 7. device Monte-Carlo -----------------------------------------------
+    section("7_device_mc")
     step, runs_per_call = mc_step(code, "cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2390,6 +2671,7 @@ def main() -> int:
     k2_err = max(k2_err, time_k2("k2_bucket_time", k2_bucket)[1])
 
     # ---- 8. one LSD statistics record: the card against the CPU ---------------
+    section("8_lsd_stats")
     make_lsd0 = paths["lsd0"].make
     probe = make_lsd0("cuda")
     probe.decode_batch(syn_np[:STATS_ROWS])
@@ -2402,11 +2684,19 @@ def main() -> int:
         raise AssertionError("LSD statistics on the card differ from the CPU's")
 
     # ---- 9. slice L: K1''s per-lane prior, the window decoder, the QSS -----------
+    section("9_window_qss")
     per_lane_numbers, win_counts, qss_counts = window_phases(code, H)
 
     # ---- 10. slice M: circuit-level (DEM) overlapping-window decoding -----------
+    section("10_owd")
     owd_k1_err, owd_k2_err, owd_counts = owd_phases(code)
     k1_err, k2_err = max(k1_err, owd_k1_err), max(k2_err, owd_k2_err)
+
+    # ---- 11. slice N: the multi-device surface ------------------------------------
+    section("11_mesh")
+    md_counts = multi_device_phases(code, graph, tg, syn_np, llr0, smi)
+
+    phase("section_seconds", **section_seconds())
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "ldpc_tpu"))
@@ -2434,6 +2724,11 @@ def main() -> int:
         return {f"window_{k}": v[name] for k, v in win_counts.items()} | {
             f"qss_{k}": v[name] for k, v in qss_counts.items()}
 
+    def md_launches(name):
+        """The multi-device paths' launches of a kernel. Check-sharded BP is
+        plain PyTorch: its entry counts the TP call's own launches, 0."""
+        return {"multi_device_path_launches": {k: v[name] for k, v in md_counts.items()}}
+
     def owd_launches(name, variants):
         """The OWD path's launches of a kernel by family, and by variant."""
         return {"owd_path_launches": {k: v[name] for k, v in owd_counts.items()},
@@ -2446,7 +2741,8 @@ def main() -> int:
               {"shared": "bp_shared_state", "device": "bp_device_state"})
         | {"per_lane_prior": win_counts["osd0_analog"]["bp_parallel_per_lane"],
            "window_path_launches": window_launches("bp_parallel")}
-        | owd_launches("bp_parallel", {"shared": "bp_shared_state", "device": "bp_device_state"}),
+        | owd_launches("bp_parallel", {"shared": "bp_shared_state", "device": "bp_device_state"})
+        | md_launches("bp_parallel"),
         # K1' with a (B, n) prior on its path: the analog window decoder
         entry("bp_parallel", "bp_parallel.cu", "ldpc_tpu/ops/bp_pallas.py:69",
               win_counts["osd0_analog"], per_lane_numbers[1], per_lane_numbers[0],
@@ -2464,7 +2760,7 @@ def main() -> int:
               path["osd0"], k2_err, k2_numbers, elim_variants("osd0"))
         | {"window_path_launches": window_launches("osd0"),
            "window_variant_launches": {v: win_counts["osd0"][f"osd0_{v}"] for v in ELIM_VARIANTS}}
-        | owd_launches("osd0", elim_variants("osd0")),
+        | owd_launches("osd0", elim_variants("osd0")) | md_launches("osd0"),
         entry("rref_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:363",
               path["osd_cs5"], elim_err["rref_export"],
               elim_numbers["rref_export"], elim_variants("rref_export")),

@@ -15,11 +15,14 @@ Importing the package builds nothing and initialises no CUDA context. The
 package imports nothing of ``ldpc_tpu`` and never ``jax``: its host modules
 (code constructions, input validation, the GF(2) toolbox ``mod2``, the
 code utilities, alist files, protographs, the noise models and the PCM
-compiler) are its own copies, in ``codes/``, ``helpers.py``, ``mod2/``,
+compiler) are its own copies, in ``codes/``, ``helpers/``, ``mod2/``,
 ``code_util/``, ``alist.py``, ``protograph.py``, ``noise_models/`` and
-``ops/pcm.py``; ``alist``, ``ckt_noise`` (circuit-level DEM decoding),
-``code_util``, ``noise_models``, ``protograph`` and ``sinter_decoders``
-(with ``SinterBpOsdDecoder``) load on first use.
+``ops/pcm.py``; ``alist``, ``bp_decode_sim``, ``ckt_noise`` (circuit-level
+DEM decoding), ``code_util``, ``monte_carlo_simulation``, ``noise_models``,
+``parallel`` (the mesh: sharded, pipelined and tensor-parallel decoding),
+``protograph``, ``sinter_decoders`` (with ``SinterBpOsdDecoder``) and
+``utils`` (profiling) load on first use, as do the ldpc v1 classes
+``bp_decoder`` and ``bposd_decoder``.
 """
 
 __version__ = "0.1.0"
@@ -35,13 +38,20 @@ from ldpc_tpu_torch.decoders.mbp_decoder import MbpDecoder, mbp_decoder
 from ldpc_tpu_torch.decoders.union_find import UnionFindDecoder
 
 _LAZY_SUBMODULES = (
-    "alist", "ckt_noise", "code_util", "noise_models", "protograph", "sinter_decoders",
+    "alist", "bp_decode_sim", "ckt_noise", "code_util", "monte_carlo_simulation",
+    "noise_models", "parallel", "protograph", "sinter_decoders", "utils",
 )
-_LAZY_EXPORTS = {"SinterBpOsdDecoder": "ldpc_tpu_torch.sinter_decoders"}
+_LAZY_EXPORTS = {
+    "SinterBpOsdDecoder": "ldpc_tpu_torch.sinter_decoders",
+    # ldpc v1 compatibility shims
+    "bp_decoder": "ldpc_tpu_torch._legacy_v1",
+    "bposd_decoder": "ldpc_tpu_torch._legacy_v1",
+}
 
 
 def __getattr__(name):
-    """The host submodules and the sinter adapter, imported on first use."""
+    """The host submodules, the sinter adapter and the v1 classes, imported
+    on first use."""
     import importlib
 
     if name in _LAZY_EXPORTS:
@@ -64,6 +74,8 @@ __all__ = [
     "SoftInfoBpDecoder",
     "SoftInfoBpOsdDecoder",
     "UnionFindDecoder",
+    "bp_decoder",
+    "bposd_decoder",
     "codes",
     "helpers",
     "mbp_decoder",

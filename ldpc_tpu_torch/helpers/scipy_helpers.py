@@ -1,7 +1,8 @@
 """Input validation of parity-check matrices (host-side).
 
 The port's own copy of the JAX package's ``helpers.scipy_helpers``, with
-the same errors and messages.
+the same errors and messages (reference:
+src_python/ldpc/helpers/scipy_helpers.py:6-72).
 """
 
 from typing import Union

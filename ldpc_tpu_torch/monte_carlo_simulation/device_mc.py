@@ -12,6 +12,10 @@ A call runs ``rounds_per_call`` rounds in a Python loop and pulls one
 (6,) counter vector. Errors come from ``torch.rand`` on an explicit
 generator, seeded per call from ``(seed, call index)``, so a checkpointed
 run resumes exactly.
+
+:func:`make_sharded_mc_step` runs the step on every entry of a mesh's
+batch axis, each on its own generator, and sums the counters (in the
+process, then over the processes).
 """
 
 from typing import Dict
@@ -224,6 +228,97 @@ def make_mc_decoder_step(
 def call_seed(seed: int, call: int) -> int:
     """The generator seed of call ``call`` of a run seeded with ``seed``."""
     return int(np.random.SeedSequence([seed, call]).generate_state(1, np.uint64)[0])
+
+
+class ShardedStep:
+    """A step run on every entry of a mesh axis: ``step(generator)`` -> the
+    counters of every entry's local step, summed.
+
+    Entry ``i`` (global index ``process_index() * D + i``) draws from its
+    own generator, on its own device, seeded by :func:`call_seed` from one
+    key drawn from the call's generator and the entry's global index — as
+    the JAX package splits the call's key into one key an entry. Every
+    process draws the same key from an identically seeded generator, so
+    the processes' entries take distinct streams. The counters are summed
+    over the entries in entry order (:func:`~ldpc_tpu_torch.parallel.
+    sharding.psum`), then all-reduced over the processes; they land on the
+    first entry's device. ``local`` maps each distinct device of the axis
+    to its local step.
+    """
+
+    def __init__(self, devices, local):
+        self.devices = list(devices)
+        self.local = local
+
+    def generators(self, generator: torch.Generator) -> list:
+        """The entries' generators of a call drawing from ``generator``."""
+        from ldpc_tpu_torch.parallel.distributed import process_index
+
+        key = int(torch.randint(2**62, (1,), generator=generator, device=generator.device))
+        first = process_index() * len(self.devices)
+        gens = []
+        for i, dev in enumerate(self.devices):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(call_seed(key, first + i))
+            gens.append(gen)
+        return gens
+
+    def run(self, generators) -> torch.Tensor:
+        """The summed counters of every entry's step on ``generators``."""
+        from ldpc_tpu_torch.parallel.distributed import all_reduce
+        from ldpc_tpu_torch.parallel.sharding import psum, run_entries
+
+        counters = run_entries(
+            self.devices, lambda i: self.local[self.devices[i]](generators[i]))
+        return all_reduce(psum(counters, self.devices)[0])
+
+    def __call__(self, generator: torch.Generator) -> torch.Tensor:
+        return self.run(self.generators(generator))
+
+
+def make_sharded_step(make_local, mesh, batch_size_per_device: int, kwargs):
+    """``(ShardedStep, runs a call)`` over the mesh's batch axis (or its
+    first axis), with ``make_local(batch_size=..., device=..., **kwargs)``
+    building the local step of each distinct device."""
+    from ldpc_tpu_torch.parallel.distributed import process_count
+    from ldpc_tpu_torch.parallel.sharding import BATCH_AXIS, make_mesh
+
+    if "device" in kwargs:
+        raise TypeError("a sharded step runs on its mesh's devices; pass mesh=, not device=")
+    if mesh is None:
+        mesh = make_mesh()
+    axis = BATCH_AXIS if BATCH_AXIS in mesh.axis_names else mesh.axis_names[0]
+    devices = mesh.axis_devices(axis)
+    local = {}
+    for dev in dict.fromkeys(devices):
+        local[dev], runs_local = make_local(
+            batch_size=batch_size_per_device, device=dev, **kwargs)
+    return ShardedStep(devices, local), runs_local * len(devices) * process_count()
+
+
+def make_sharded_mc_step(
+    pcm,
+    error_rate: float,
+    *,
+    mesh=None,
+    batch_size_per_device: int = 16384,
+    **kwargs,
+):
+    """Multi-device Monte-Carlo step: data-parallel over the mesh's
+    ``batch`` axis (every visible card by default). Every entry runs the
+    whole device pipeline (:class:`McDecoderStep`) on its own generator and
+    the counters are summed (:class:`ShardedStep`).
+
+    Returns ``(step, runs_per_call)`` where ``step(generator)`` -> (6,)
+    int64 counters, ``runs_per_call`` counting every entry of every process
+    (build after :func:`~ldpc_tpu_torch.parallel.initialize_distributed`).
+    ``kwargs`` are :func:`make_mc_decoder_step`'s.
+    """
+
+    def make_local(**kw):
+        return make_mc_decoder_step(pcm, error_rate, **kw)
+
+    return make_sharded_step(make_local, mesh, batch_size_per_device, kwargs)
 
 
 class DeviceMonteCarlo:

@@ -283,6 +283,30 @@ def make_qss_step(
     return step, step.batch
 
 
+def make_sharded_qss_step(
+    pcm,
+    per: float,
+    ser: float,
+    logicals,
+    *,
+    mesh=None,
+    batch_size_per_device: int = 1024,
+    **kwargs,
+):
+    """Multi-device QSS: data-parallel over the mesh's ``batch`` axis
+    (every visible card by default). Every entry simulates its own shots
+    (:class:`QssStep`) on its own generator and the counters are summed
+    (:class:`~ldpc_tpu_torch.monte_carlo_simulation.device_mc.ShardedStep`).
+    Returns ``(step, runs_per_call)``; ``kwargs`` are
+    :func:`make_qss_step`'s."""
+    from ldpc_tpu_torch.monte_carlo_simulation.device_mc import make_sharded_step
+
+    def make_local(**kw):
+        return make_qss_step(pcm, per, ser, logicals, **kw)
+
+    return make_sharded_step(make_local, mesh, batch_size_per_device, kwargs)
+
+
 class DeviceQss:
     """Device-resident QSS logical-error-rate estimator.
 

@@ -1,6 +1,6 @@
 """Sliding-window decoding of recorded syndrome histories on the device.
 
-Port of the single-device part of ``ldpc_tpu.parallel.window``. The
+Port of ``ldpc_tpu.parallel.window``. The
 measurement-rounds axis is the "sequence length" of circuit-level
 decoding: ``repetitions`` noisy rounds are decoded jointly on the
 space-time PCM (``build_multiround_pcm``), and the window slides by
@@ -27,6 +27,11 @@ memory_experiment_v2.py:72-160):
 In analog mode the time-like bits of each window take per-shot priors
 ``|2 a / sigma^2|`` of the analog syndrome values ``a``, so the window's BP
 runs with a ``(B, n3d)`` prior (K1''s per-lane prior).
+
+:func:`make_rounds_sharded_window_decoder` splits the windows over the
+entries of a mesh axis (sequence parallelism along the rounds): the same
+window steps, placed on a chain of entries, with the inter-window carry
+handed from entry to entry.
 """
 
 from typing import NamedTuple, Optional
@@ -43,6 +48,7 @@ from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops.pcm import compile_pcm
 
 HOST_SYNCS = 0  # host syncs of the post-processor's lane selection
+ROUNDS_AXIS = "rounds"
 
 
 class WindowDecodeResult(NamedTuple):
@@ -325,5 +331,108 @@ def make_window_decoder(
             carry = _window_step(core, carry, syndromes[:, :, rounds], w == NW - 1, a_win)
         _, _, total, iters = carry
         return WindowDecodeResult(correction=total, bp_iterations=iters)
+
+    return decode
+
+
+def make_rounds_sharded_window_decoder(
+    pcm,
+    repetitions: int,
+    data_channel,
+    syndr_channel,
+    *,
+    mesh,
+    n_windows: int,
+    microbatches: int = 4,
+    axis_name: Optional[str] = None,
+    **engine_kwargs,
+):
+    """Rounds-axis (sequence) parallel window decoding over a mesh.
+
+    Entry ``d`` of the ``axis_name`` mesh axis owns windows
+    ``[d*wpd, (d+1)*wpd)`` (``wpd = n_windows / D``) and holds only its
+    halo'd slice of the syndrome history, ``(wpd + 1) * T`` rounds. Shots
+    stream through the chain of entries in ``microbatches`` chunks on a
+    GPipe schedule: at tick ``t`` entry ``d`` decodes microbatch ``t - d``
+    through its windows (:func:`_window_step`, the single-device decoder's
+    step), then hands the inter-window carry (the committed correction's
+    syndrome and the time-boundary bit) to entry ``d+1``
+    (:func:`~ldpc_tpu_torch.parallel.sharding.ppermute`). A shot's commits
+    are disjoint across entries, so the total correction is one sum mod 2
+    at the end, and the iterations one sum. Where the entries are distinct
+    cards, each tick's entries run at once
+    (:func:`~ldpc_tpu_torch.parallel.sharding.run_entries`).
+
+    The result equals :func:`make_window_decoder`'s bit for bit: the same
+    (window, shot) computations run, only their placement changes.
+    ``engine_kwargs`` are :func:`make_window_decoder`'s (binary mode).
+    Returns ``decode(syndromes (B, m, R) uint8) -> WindowDecodeResult`` on
+    the first entry's device (``B`` must divide by ``microbatches``,
+    ``R = (n_windows + 1) * T``).
+    """
+    from ldpc_tpu_torch.parallel.sharding import ppermute, psum, run_entries
+
+    if axis_name is None:
+        axis_name = ROUNDS_AXIS if ROUNDS_AXIS in mesh.axis_names else mesh.axis_names[0]
+    devices = mesh.axis_devices(axis_name)
+    D = len(devices)
+    NW = int(n_windows)
+    if NW % D:
+        raise ValueError(f"n_windows={NW} must divide evenly over {D} mesh devices")
+    cores = {
+        dev: _build_core(pcm, repetitions, data_channel, syndr_channel, device=dev,
+                         **engine_kwargs)
+        for dev in dict.fromkeys(devices)
+    }
+    core = cores[devices[0]]
+    m, n, T = core.m, core.n, core.T
+    wpd = NW // D
+    LR = (wpd + 1) * T  # local rounds incl. the right halo
+    R = (NW + 1) * T
+    M = int(microbatches)
+
+    def decode(syndromes) -> WindowDecodeResult:
+        syndromes = torch.as_tensor(syndromes).to(torch.uint8)
+        B, m_, R_ = syndromes.shape
+        if m_ != m or R_ != R:
+            raise ValueError(
+                f"expected (B, {m}, {R}) syndromes for n_windows={NW}, "
+                f"got {tuple(syndromes.shape)}"
+            )
+        if B % M:
+            raise ValueError(f"batch {B} must divide by microbatches={M}")
+        mbs = B // M
+        slabs = [syndromes[:, :, d * wpd * T: d * wpd * T + LR].to(dev)
+                 for d, dev in enumerate(devices)]
+        totals = [torch.zeros((B, n), dtype=torch.uint8, device=dev) for dev in devices]
+        iters = [torch.zeros((B,), dtype=torch.int32, device=dev) for dev in devices]
+        # entry 0 starts every microbatch's chain from a zero carry
+        carry_in = [None] * D
+
+        def local_windows(d, t):
+            """Entry d's windows on microbatch t - d; its carry out."""
+            mb = t - d
+            if not 0 <= mb < M:
+                return None
+            dev, rows = devices[d], slice(mb * mbs, (mb + 1) * mbs)
+            if d == 0:
+                zero = torch.zeros((mbs, m), dtype=torch.uint8, device=dev)
+                carry_in[0] = (zero, zero)
+            carry = (*carry_in[d], torch.zeros((mbs, n), dtype=torch.uint8, device=dev),
+                     torch.zeros((mbs,), dtype=torch.int32, device=dev))
+            for wl in range(wpd):
+                s_win = slabs[d][rows, :, wl * T: wl * T + core.W]
+                carry = _window_step(cores[dev], carry, s_win, d * wpd + wl == NW - 1)
+            carry_syn, tb, totals[d][rows], iters[d][rows] = carry
+            return carry_syn, tb
+
+        for t in range(M + D - 1):
+            carry_out = run_entries(devices, lambda d: local_windows(d, t))
+            # entry d's carry goes on to entry d+1 (entry 0 drops what the
+            # ring brings back to it)
+            carry_in = ppermute([() if c is None else c for c in carry_out], devices)
+        total = psum([x.to(torch.int32) for x in totals], devices)[0] % 2
+        return WindowDecodeResult(
+            correction=total.to(torch.uint8), bp_iterations=psum(iters, devices)[0])
 
     return decode

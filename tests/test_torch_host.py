@@ -25,12 +25,16 @@ from ldpc_tpu_torch.monte_carlo_simulation import (
     QssSimulator,
     make_mc_decoder_step,
     make_qss_step,
+    make_sharded_mc_step,
+    make_sharded_qss_step,
 )
 from ldpc_tpu_torch.ops import flip as tflip
 from ldpc_tpu_torch.ops import lsd as tlsd
 from ldpc_tpu_torch.ops import mbp as tmbp
 from ldpc_tpu_torch.ops import uf as tuf
 from ldpc_tpu_torch.ops.pcm import compile_pcm as t_compile_pcm
+from ldpc_tpu_torch import parallel as tpar
+from ldpc_tpu_torch.bp_decode_sim import classical_decode_sim
 from ldpc_tpu_torch.parallel import make_window_decoder
 from ldpc_tpu_torch import ckt_noise as tckt
 from ldpc_tpu_torch import sinter_decoders as tsinter
@@ -165,6 +169,13 @@ def _hx():
     return tcodes.surface_code(3, compute_logicals=False).hx
 
 
+def _mesh(d, axis="batch"):
+    """The default mesh (every card), or two entries on ``d["device"]``."""
+    if not d:
+        return tpar.make_mesh(axis_name=axis)
+    return tpar.make_mesh(devices=[d["device"]] * 2, axis_name=axis)
+
+
 ENTRY_POINTS = {
     "BpDecoder": lambda d: ldpc_tpu_torch.BpDecoder(_hx(), error_rate=0.1, **d),
     "BpOsdDecoder": lambda d: ldpc_tpu_torch.BpOsdDecoder(_hx(), error_rate=0.1, **d),
@@ -206,6 +217,21 @@ ENTRY_POINTS = {
     "SinterLsdDecoder": lambda d: tsinter.SinterLsdDecoder(**d),
     "SinterBeliefFindDecoder": lambda d: tsinter.SinterBeliefFindDecoder(**d),
     "count_logical_errors": lambda d: count_logical_errors(mock_circuit(B=8), 8, **d),
+    "bp_decoder": lambda d: ldpc_tpu_torch.bp_decoder(_hx(), error_rate=0.1, **d),
+    "bposd_decoder": lambda d: ldpc_tpu_torch.bposd_decoder(_hx(), error_rate=0.1, **d),
+    "classical_decode_sim": lambda d: classical_decode_sim(_hx(), 0.1, target_runs=8, **d),
+    "make_mesh": lambda d: _mesh(d),
+    "make_sharded_mc_step": lambda d: make_sharded_mc_step(
+        _hx(), 0.05, mesh=_mesh(d) if d else None, batch_size_per_device=8),
+    "make_sharded_qss_step": lambda d: make_sharded_qss_step(
+        _hx(), 0.01, 0.01, _lx(), mesh=_mesh(d) if d else None, batch_size_per_device=8,
+        repetitions=4, rounds=8),
+    "make_rounds_sharded_window_decoder": lambda d: tpar.make_rounds_sharded_window_decoder(
+        _hx(), 4, 0.01, 0.01, mesh=_mesh(d, "rounds"), n_windows=2),
+    "make_pipelined_decoder": lambda d: tpar.make_pipelined_decoder(
+        _hx(), 0.05, mesh=tpar.make_pipeline_mesh(devices=[d["device"]] * 2) if d else None),
+    "TpBpDecoder": lambda d: tpar.TpBpDecoder(
+        _hx(), tpar.Mesh([d.get("device", "cuda")] * 2, ("code",)), error_rate=0.05),
 }
 _OWD = dict(decodings=6, window=4, commit=2, num_checks=3)
 
@@ -247,8 +273,13 @@ def test_ckt_noise_and_sinter_import_no_jax():
     """A fresh process decodes on the CPU through both overlapping-window
     decoders (device windows and host loop), the sinter adapters (packed
     path) and an overlapping-window sinter adapter, reaches
-    ``ldpc_tpu_torch.SinterBpOsdDecoder`` lazily, and never imports jax or
-    any module of the JAX package ``ldpc_tpu``."""
+    ``ldpc_tpu_torch.SinterBpOsdDecoder`` lazily, drives every module of
+    ``ldpc_tpu_torch.parallel`` (the mesh helpers, the rounds-sharded window
+    decoder, the pipeline, tensor-parallel BP, the sharded MC and QSS steps,
+    the single-process branch of the distributed layer), ``utils``, the
+    three import shims (calling the shadowed v1 modules), ``_legacy_v1`` and
+    ``bp_decode_sim``, and never imports jax or any module of the JAX
+    package ``ldpc_tpu``."""
     import os
     import subprocess
     import sys
@@ -305,6 +336,51 @@ def test_ckt_noise_and_sinter_import_no_jax():
         "c = SinterDecoder_BPOSD_OWD(decodings=6, window=4, commit=2, num_checks=3,\n"
         "                            device='cpu').compile_decoder_for_dem(dem=dem)\n"
         "assert c.decode_shots_bit_packed(bit_packed_detection_event_data=packed).shape == (4, 1)\n"
+        "import warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "import ldpc_tpu_torch.parallel as par\n"
+        "from ldpc_tpu_torch.parallel import distributed, pipeline, sharding, tensor_parallel, window\n"
+        "import ldpc_tpu_torch.bp_decoder, ldpc_tpu_torch.bposd_decoder, ldpc_tpu_torch.bplsd_decoder\n"
+        "from ldpc_tpu_torch import _legacy_v1, bp_decode_sim, utils\n"
+        "from ldpc_tpu_torch.utils import reference_baseline\n"
+        "from ldpc_tpu_torch.codes import rep_code\n"
+        "from ldpc_tpu_torch.monte_carlo_simulation import make_sharded_mc_step, make_sharded_qss_step\n"
+        "H = rep_code(6)\n"
+        "Hd = np.asarray(H.todense(), np.uint8)\n"
+        "mesh = par.make_mesh(devices=['cpu'] * 2)\n"
+        "x, B = par.shard_batch(np.arange(5)[:, None], mesh)\n"
+        "assert int(par.psum_tally(x, mesh)) == 10 and par.unshard(x, B).shape == (5, 1)\n"
+        "rounds = par.make_mesh(devices=['cpu'] * 2, axis_name='rounds')\n"
+        "r = par.make_rounds_sharded_window_decoder(H, 4, 0.03, 0.02, mesh=rounds, n_windows=4,\n"
+        "                                           microbatches=2)(np.zeros((4, 5, 10), np.uint8))\n"
+        "assert not r.correction.any()\n"
+        "syn = np.zeros((8, 5), np.uint8)\n"
+        "syn[1] = Hd[:, 0]  # a weight-1 error's syndrome\n"
+        "out = par.make_pipelined_decoder(H, 0.05, mesh=par.make_pipeline_mesh(devices=['cpu'] * 2),\n"
+        "                                 microbatch_size=4)(syn)\n"
+        "assert (out.astype(int) @ Hd.T % 2 == syn).all()\n"
+        "tp = par.TpBpDecoder(H, par.Mesh(['cpu'] * 2, ('code',)), error_rate=0.05, max_iter=10)\n"
+        "assert tp.decode_batch(syn).shape == (8, 6)\n"
+        "step, runs = make_sharded_mc_step(H, 0.05, mesh=mesh, batch_size_per_device=8,\n"
+        "                                  rounds_per_call=1, max_iter=4)\n"
+        "import torch\n"
+        "assert int(step(torch.Generator())[0]) == runs\n"
+        "step, runs = make_sharded_qss_step(H, 0.02, 0.02, np.ones((1, 6), np.uint8), mesh=mesh,\n"
+        "                                   batch_size_per_device=8, repetitions=4, rounds=8)\n"
+        "assert int(step(torch.Generator())[0]) == runs\n"
+        "assert par.initialize_distributed() == 0 and not par.is_distributed()\n"
+        "t = utils.StageTimer()\n"
+        "with t.stage('s'), utils.annotate('s'):\n"
+        "    pass\n"
+        "assert set(t.report()) == {'s'}\n"
+        "for v1 in (ldpc_tpu_torch.bp_decoder, ldpc_tpu_torch.bposd_decoder):\n"
+        "    assert (Hd @ v1(Hd, error_rate=0.1, device='cpu').decode(syn[1]) % 2 == syn[1]).all()\n"
+        "assert isinstance(ldpc_tpu_torch.bp_decoder(Hd, error_rate=0.1, device='cpu'),\n"
+        "                  _legacy_v1.bp_decoder)\n"
+        "sim = bp_decode_sim.classical_decode_sim(H, 0.1, target_runs=16, max_iter=4, seed=1,\n"
+        "                                         device='cpu')\n"
+        "assert sim['run_count'] == 16\n"
+        "assert reference_baseline.make_input(Hd, [0.1] * 6, syn[:1]).startswith('5 6')\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = sorted(m for m in sys.modules if m == 'ldpc_tpu' or m.startswith('ldpc_tpu.'))\n"
         "assert not ref, ref\n"

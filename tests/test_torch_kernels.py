@@ -6,9 +6,13 @@ csrc/bp_exact.cu, each with its lane state in shared or device memory,
 forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu),
 held against their plain PyTorch versions on the card; K1' with a (B, n)
 prior, a row a lane, in both state variants and both instances; the
-window decoder and a QSS call on the card against the CPU path; and the
+window decoder and a QSS call on the card against the CPU path; the
 overlapping-window decoders and sinter adapters on a phenomenological
-memory DEM on the card against the CPU path.
+memory DEM on the card against the CPU path; and the multi-device surface
+on a two-entry mesh of the card (``["cuda:0", "cuda:0"]``): the sharded
+Monte-Carlo and QSS steps against the sum of their entries' local steps,
+the pipeline, the rounds-sharded window decoder and check-sharded BP
+against the CPU path.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -1536,3 +1540,88 @@ def test_sinter_adapters_on_the_card_match_cpu(dev, name):
         dem=dem).decode_shots_bit_packed(bit_packed_detection_event_data=packed)
         for d in ("cuda", "cpu")]
     assert np.array_equal(*outs)
+
+
+MESH2 = ["cuda:0", "cuda:0"]  # two entries on one card
+
+
+def _surface5_syndromes(B=600, p=0.08, seed=17):
+    """tests/test_pipeline.py's workload: surface d=5 hx, numpy seed 17."""
+    code = surface_code(5)
+    H = np.asarray(code.hx.todense(), np.uint8)
+    errors = (np.random.default_rng(seed).random((B, H.shape[1])) < p).astype(np.uint8)
+    return code, H, (errors @ H.T % 2).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["mc", "qss"])
+def test_sharded_steps_on_the_card_are_their_entries_sum(dev, kind):
+    from ldpc_tpu_torch.monte_carlo_simulation import (
+        make_sharded_mc_step, make_sharded_qss_step)
+    from ldpc_tpu_torch.parallel import make_mesh
+
+    code = surface_code(5, compute_logicals=True)
+    mesh = make_mesh(devices=MESH2)
+    if kind == "mc":
+        step, runs = make_sharded_mc_step(code.hx, 0.03, mesh=mesh, batch_size_per_device=1024,
+                                          logicals=code.lx, rounds_per_call=2, max_iter=12)
+    else:
+        step, runs = make_sharded_qss_step(code.hx, 0.02, 0.02, code.lx, mesh=mesh,
+                                           batch_size_per_device=256, repetitions=4,
+                                           rounds=8, max_iter=12)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    got = step(gen)
+    gen.manual_seed(3)
+    want = sum(step.local[step.devices[i]](g) for i, g in enumerate(step.generators(gen)))
+    assert torch.equal(got, want) and int(got[0]) == runs
+
+
+def test_pipeline_on_the_card_matches_cpu(dev):
+    from ldpc_tpu_torch.parallel import make_pipeline_mesh, make_pipelined_decoder
+
+    code, H, syn = _surface5_syndromes()
+    outs = [make_pipelined_decoder(code.hx, 0.08, mesh=make_pipeline_mesh(devices=d),
+                                   microbatch_size=128, max_iter=12)(syn)
+            for d in (MESH2, ["cpu"] * 2)]
+    assert np.array_equal(*outs)
+    assert ((outs[0].astype(np.int64) @ H.T) % 2 == syn).all()
+
+
+@pytest.mark.parametrize("postprocess", ["osd0", "lsd0"])
+def test_rounds_sharded_window_on_the_card_matches_cpu(dev, postprocess):
+    from ldpc_tpu_torch.parallel import (
+        make_mesh, make_rounds_sharded_window_decoder, make_window_decoder)
+
+    H = np.asarray(surface_code(3).hx.todense(), np.uint8)
+    rng = np.random.default_rng(5)
+    err = np.zeros((12, H.shape[1]), np.uint8)
+    hist = np.zeros((12, H.shape[0], 10), np.uint8)
+    for t in range(10):
+        err ^= (rng.random(err.shape) < 0.06).astype(np.uint8)
+        s = err @ H.T % 2
+        hist[:, :, t] = s if t == 9 else s ^ (rng.random(s.shape) < 0.04)
+    kw = dict(max_iter=6, postprocess=postprocess)
+    chain = make_rounds_sharded_window_decoder(
+        H, 4, 0.06, 0.04, mesh=make_mesh(devices=MESH2, axis_name="rounds"), n_windows=4,
+        microbatches=3, **kw)(hist)
+    plain = make_window_decoder(H, 4, 0.06, 0.04, device="cpu", **kw)(hist)
+    assert torch.equal(chain.correction.cpu(), plain.correction)
+    assert torch.equal(chain.bp_iterations.cpu(), plain.bp_iterations)
+
+
+def test_tensor_parallel_bp_on_the_card_matches_cpu(dev):
+    from ldpc_tpu_torch.ops.pcm import compile_pcm as compile_
+    from ldpc_tpu_torch.parallel import Mesh, make_tp_bp_decoder
+
+    code, H, syn = _surface5_syndromes(B=256, p=0.05)
+    graph = compile_(code.hx)
+    llr = channel_llr(np.full(graph.n, 0.05))
+    outs = [make_tp_bp_decoder(graph, Mesh(d, ("code",)), max_iter=20)(syn, llr)
+            for d in (MESH2, ["cpu"] * 2)]
+    card, cpu = outs
+    assert torch.equal(card.converged.cpu(), cpu.converged)
+    assert torch.equal(card.iterations.cpu(), cpu.iterations)
+    conv = cpu.converged
+    assert torch.equal(card.decoding.cpu()[conv], cpu.decoding[conv])
+    torch.testing.assert_close(card.llr_posterior.cpu(), cpu.llr_posterior, rtol=2e-4,
+                               atol=2e-4)
