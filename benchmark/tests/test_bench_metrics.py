@@ -1,0 +1,42 @@
+"""Each per-layer metric's reader on a made-up slice: what it reads, and
+nothing where its slice holds nothing to read."""
+
+from pathlib import Path
+from types import SimpleNamespace
+
+from benchmark import harness
+
+METRICS = Path(__file__).resolve().parents[1] / "metrics"
+
+
+def _reader(name):
+    return harness.load_module(METRICS / f"{name}.py").read
+
+
+def _ctx(**kw):
+    events = [{"name": "bp_warp_kernel<float>", "cat": "kernel", "ts": 0.0, "dur": 300.0},
+              {"name": "Memcpy DtoH (Device -> Pageable)", "cat": "gpu_memcpy", "ts": 400.0,
+               "dur": 100.0}]
+    base = dict(device_events=events, busy_s=400e-6, slice_calls=2, slice_s=4e-3,
+                window_call_s=1e-3, peak_bytes=2**30, syncs_per_call=3.0)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+def test_idle_share_takes_the_window_wall():
+    # 400 us busy over 2 calls of the window's 1 ms, not the slice's 4 ms
+    assert abs(_reader("device.idle_share")(_ctx()) - 0.8) < 1e-12
+    assert _reader("device.idle_share")(_ctx(device_events=[])) is None
+
+
+def test_copy_ms_peak_and_syncs():
+    assert abs(_reader("decoders.copy_ms")(_ctx()) - 0.05) < 1e-12
+    assert _reader("decoders.copy_ms")(_ctx(device_events=[])) is None
+    assert _reader("device.peak_mem_gib")(_ctx()) == 1.0
+    assert _reader("device.peak_mem_gib")(_ctx(peak_bytes=0)) is None
+    assert _reader("decoders.host_syncs")(_ctx()) == 3.0
+
+
+def test_rooflines_find_nothing_without_their_kernels():
+    for name in ("kernels.bp_roofline", "kernels.osdcs_roofline"):
+        assert _reader(name)(_ctx(device_events=[])) is None
