@@ -19,6 +19,7 @@ from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.helpers import convert_to_binary_sparse
 from ldpc_tpu_torch.ops.pcm import PcmGraph, compile_pcm
 from ldpc_tpu_torch.ops import bp as bp_ops
+from ldpc_tpu_torch.utils.profiling import count, span, sync
 
 _SYNDROME = 0
 _RECEIVED_VECTOR = 1
@@ -175,7 +176,8 @@ class BpDecoderBase:
 
     def _init_llr(self) -> torch.Tensor:
         llr = bp_ops.channel_llr(self._channel, dtype=np.float64)
-        return torch.from_numpy(llr).to(device=self._device, dtype=self._dtype)
+        with sync("prior_h2d"):
+            return torch.from_numpy(llr).to(device=self._device, dtype=self._dtype)
 
     def _run_bp_batch(self, syndromes, iters: Optional[int] = None):
         """Run batched BP on (B, m) syndromes; results stay on the device."""
@@ -219,23 +221,33 @@ class BpDecoderBase:
 
         Per-lane BP is deterministic, so the output equals one full-depth
         run followed by ``post_fn`` on its failures. Each compaction costs
-        one host sync. Returns one (B, n) uint8 device tensor per decoding
+        one host sync. With the recorder on (:mod:`ldpc_tpu_torch.utils.profiling`)
+        the stages are the spans ``bp.phase1``, ``bp.phase2``,
+        ``decoder.merge`` and ``decoder.store``, and each host sync (the
+        syndromes' copy ``sync.syndromes_h2d`` first) is a ``sync.<cause>``
+        span. Returns one (B, n) uint8 device tensor per decoding
         ``post_fn`` returned, or the BP decodings alone (a one-tuple) when
         ``post_fn`` is None or no lane needed it. Stores the batch
         properties: ``converge_batch``, ``iter_batch``, the posteriors and
         the full-depth BP decodings.
         """
-        syn = torch.from_numpy(syndromes).to(self._device)
+        with sync("syndromes_h2d"):
+            syn = torch.from_numpy(syndromes).to(self._device)
         nonzero = (syn != 0).any(dim=1)
         bp, failed = self._run_bp_two_phase(syn, ~nonzero)
         dec, llr, conv, iters = bp
         outs = (dec,)
+        post = None
         if post_fn is not None and failed.numel():
             post = post_fn(syn[failed], llr[failed])
-            outs = tuple(dec.index_put((failed,), p.to(dec.dtype)) for p in post)
-        self._store_batch(conv, iters, llr, dec)
-        keep = nonzero[:, None].to(dec.dtype)
-        return tuple(o * keep for o in outs)
+        with span("decoder.merge"):
+            if post is not None:
+                outs = tuple(dec.index_put((failed,), p.to(dec.dtype)) for p in post)
+            keep = nonzero[:, None].to(dec.dtype)
+            outs = tuple(o * keep for o in outs)
+        with span("decoder.store"):
+            self._store_batch(conv, iters, llr, dec)
+        return outs
 
     def _run_bp_two_phase(self, syn: torch.Tensor, done: torch.Tensor):
         """BP on (B, m) device syndromes in two phases: ``_CASCADE_ITERS``
@@ -246,31 +258,41 @@ class BpDecoderBase:
         in the JAX package; the others run once at full depth (a random
         serial schedule draws its permutations per run). Returns ``(BpResult
         with the merged results, the indices of the lanes full-depth BP
-        fails)``; one or two host syncs."""
+        fails)``; one or two host syncs (``sync.phase1_compact``,
+        ``sync.phase2_compact``), and the prior's copy a phase
+        (``sync.prior_h2d``)."""
         cascade = self._schedule == bp_ops.PARALLEL and self._dtype == torch.float32
         p1 = min(self._CASCADE_ITERS, self._max_iter) if cascade else self._max_iter
-        bp = self._run_bp_batch(syn, p1)
-        dec, llr = bp.decoding, bp.llr_posterior
-        conv, iters = bp.converged | done, bp.iterations
-        failed = torch.nonzero(~conv).squeeze(1)  # host sync
+        with span("bp.phase1"):
+            bp = self._run_bp_batch(syn, p1)
+            dec, llr = bp.decoding, bp.llr_posterior
+            conv, iters = bp.converged | done, bp.iterations
+            with sync("phase1_compact"):
+                failed = torch.nonzero(~conv).squeeze(1)
         if failed.numel() and p1 < self._max_iter:
-            bp2 = self._run_bp_batch(syn[failed])
-            dec = dec.index_put((failed,), bp2.decoding)
-            llr = llr.index_put((failed,), bp2.llr_posterior)
-            conv = conv.index_put((failed,), bp2.converged)
-            iters = iters.index_put((failed,), bp2.iterations)
-            failed = failed[~bp2.converged]  # host sync
+            count("lanes.phase2", failed.numel())
+            with span("bp.phase2"):
+                bp2 = self._run_bp_batch(syn[failed])
+                dec = dec.index_put((failed,), bp2.decoding)
+                llr = llr.index_put((failed,), bp2.llr_posterior)
+                conv = conv.index_put((failed,), bp2.converged)
+                iters = iters.index_put((failed,), bp2.iterations)
+                with sync("phase2_compact"):
+                    failed = failed[~bp2.converged]
         return bp_ops.BpResult(dec, llr, conv, iters), failed
 
     def _store_batch(self, conv, iters, llr, bp_dec) -> None:
         """Keep a batch's BP results for the properties (device tensors in)."""
-        self.converge_batch = _to_numpy(conv)
-        self.iter_batch = _to_numpy(iters)
+        with sync("store_converge"):
+            self.converge_batch = _to_numpy(conv)
+        with sync("store_iter"):
+            self.iter_batch = _to_numpy(iters)
         self._llr_batch = llr
         self._bp_batch = bp_dec
         self._converge = bool(self.converge_batch[0])
         self._iter = int(self.iter_batch[0])
-        self._log_prob_ratios = _to_numpy(llr[0])
+        with sync("store_llr0"):
+            self._log_prob_ratios = _to_numpy(llr[0])
 
     def _store_single_result(self, result: bp_ops.BpResult):
         self._converge = bool(result.converged[0])

@@ -20,6 +20,7 @@ from ldpc_tpu_torch.decoders.base import BpDecoderBase, _to_numpy
 from ldpc_tpu_torch.decoders.bp_decoder import SoftInfoBpDecoder
 from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.ops import osd as osd_ops
+from ldpc_tpu_torch.utils.profiling import count, span, sync
 
 _METHOD_NAMES = {
     osd_ops.OSD_0: "OSD_0",
@@ -184,6 +185,10 @@ class BpOsdDecoder(BpDecoderBase):
         ``bit_packed_syndromes`` accepts little-endian bit-packed input
         (``(B, ceil(m/8))`` uint8, stim b8 layout) and
         ``bit_packed_output`` returns ``(B, ceil(n/8))`` packed decodings.
+
+        With the recorder on (:mod:`ldpc_tpu_torch.utils.profiling`) a call
+        is one root span, ``decode_batch``, over the cascade's spans, the
+        post-processor's ``osd`` and ``decoder.d2h``.
         """
         syndromes = self._coerce_batch_syndromes(
             syndromes, bit_packed_syndromes
@@ -193,6 +198,11 @@ class BpOsdDecoder(BpDecoderBase):
                 f"The syndromes must have shape (batch, {self.m}). "
                 f"Not {syndromes.shape}."
             )
+        count("lanes.in", syndromes.shape[0])
+        with span("decode_batch", lanes=syndromes.shape[0]):
+            return self._decode_batch(syndromes, bit_packed_output)
+
+    def _decode_batch(self, syndromes: np.ndarray, bit_packed_output: bool) -> np.ndarray:
         post_fn = None
         if self._osd_method != osd_ops.OSD_OFF:
             osd_fn = self._osd_decode_fn()
@@ -204,14 +214,18 @@ class BpOsdDecoder(BpDecoderBase):
         outs = self._decode_cascade(syndromes, post_fn)
         self._osd0_batch, out = outs[0], outs[-1]
         self._osdw_batch = out
-        self._bp_decoding = _to_numpy(self._bp_batch[0])
-        if bit_packed_output:
-            packed = _to_numpy(gf2.pack_bits_u8(out))
-            row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
-            result = packed
-        else:
-            result = _to_numpy(out)
-            row0 = result[0]
+        with span("decoder.d2h"):
+            with sync("bp_row0"):
+                self._bp_decoding = _to_numpy(self._bp_batch[0])
+            if bit_packed_output:
+                with sync("output"):
+                    packed = _to_numpy(gf2.pack_bits_u8(out))
+                row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
+                result = packed
+            else:
+                with sync("output"):
+                    result = _to_numpy(out)
+                row0 = result[0]
         self._osdw_decoding = row0
         self._decoding = row0
         return result

@@ -29,6 +29,7 @@ import torch
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import gf2, gf2_cuda
 from ldpc_tpu_torch.ops.pcm import PcmGraph, graph_to_torch
+from ldpc_tpu_torch.utils.profiling import count, span
 
 OSD_OFF = -1
 OSD_0 = 0
@@ -110,7 +111,11 @@ def make_osd_decoder(
     uint8, osdw: (B, n) uint8, valid: (B,) bool)``; at order 0 the two
     decodings are the same tensor. The reliability order and the candidate
     weights are taken in ``dtype`` (float32 or float64, the BP engine's).
-    ``channel`` only weighs the candidates of higher orders.
+    ``channel`` only weighs the candidates of higher orders. With the
+    recorder on (:mod:`ldpc_tpu_torch.utils.profiling`) a call is the span
+    ``osd`` over ``osd.order``, ``osd.elim`` (K2' or K3') and an
+    ``osd.sweep`` a chunk of lanes, and counts ``lanes.osd`` and
+    ``osd.chunks``.
     """
     m, n = graph.m, graph.n
     rank = gf2.batched_rank(graph.dense)
@@ -188,26 +193,36 @@ def make_osd_decoder(
         return osd0[:, :n], osdw
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
+        count("lanes.osd", syndromes.shape[0])
+        with span("osd", lanes=syndromes.shape[0]):
+            return _decode(syndromes, llrs)
+
+    def _decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         syndromes = torch.as_tensor(syndromes, dtype=torch.uint8, device=device)
         llrs = torch.as_tensor(llrs, device=device).to(dtype)
         # least-reliable-first; stable, as the reference's qsort is on
         # distinct keys
-        order = gf2.column_order(llrs).to(torch.int32)
+        with span("osd.order"):
+            order = gf2.column_order(llrs).to(torch.int32)
         if order0:
-            x0, valid = gf2_cuda.osd0(
+            with span("osd.elim"):
+                x0, valid = gf2_cuda.osd0(
+                    tg, syndromes.contiguous(), order.contiguous(), rank
+                )
+            return x0, x0, valid
+        with span("osd.elim"):
+            words, col_of_row, used = gf2_cuda.rref_export(
                 tg, syndromes.contiguous(), order.contiguous(), rank
             )
-            return x0, x0, valid
-        words, col_of_row, used = gf2_cuda.rref_export(
-            tg, syndromes.contiguous(), order.contiguous(), rank
-        )
         s = ((words[:, :, n // 32] >> (n % 32)) & 1).bool()
         valid = ~(s & ~used).any(dim=1)
-        parts = [
-            sweep(words[i : i + chunk], col_of_row[i : i + chunk],
-                  used[i : i + chunk], llrs[i : i + chunk])
-            for i in range(0, syndromes.shape[0], chunk)
-        ]
+        parts = []
+        for c, i in enumerate(range(0, syndromes.shape[0], chunk)):
+            lanes = min(chunk, syndromes.shape[0] - i)
+            count("osd.chunks")
+            with span("osd.sweep", lanes=lanes, chunk=c):
+                parts.append(sweep(words[i : i + chunk], col_of_row[i : i + chunk],
+                                   used[i : i + chunk], llrs[i : i + chunk]))
         if not parts:
             empty = torch.zeros((0, n), dtype=torch.uint8, device=device)
             return empty, empty, valid

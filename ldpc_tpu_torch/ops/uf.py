@@ -37,6 +37,7 @@ import torch
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import gf2, gf2_cuda
 from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
+from ldpc_tpu_torch.utils.profiling import sync
 
 INF = 2**30  # no label / no key: above every check index and LLR rank
 _SWEEPS = 4  # graph sweeps between two convergence tests
@@ -46,10 +47,11 @@ GROWTH_ROUNDS = 0  # rounds run by grow_until_valid
 
 
 def _any(x: torch.Tensor) -> bool:
-    """``x.any()`` on the host: one sync, counted."""
+    """``x.any()`` on the host: one sync, counted (``sync.uf_any``)."""
     global HOST_SYNCS
     HOST_SYNCS += 1
-    return bool(x.any())
+    with sync("uf_any"):
+        return bool(x.any())
 
 
 def _pad(x: torch.Tensor, fill) -> torch.Tensor:
@@ -211,7 +213,8 @@ def grow_until_valid(
         x0[idx] = x
         bad[idx] = bad_row
         in_bit[idx] = torch.where(any_invalid[:, None], new_in, lane_in)
-        idx = idx[any_invalid]  # a host sync
+        with sync("uf_growth"):
+            idx = idx[any_invalid]
         HOST_SYNCS += 1
         GROWTH_ROUNDS += 1
     return in_bit, x0, ~bad.any(dim=1)

@@ -46,6 +46,7 @@ from ldpc_tpu_torch.monte_carlo_simulation.memory_experiment import (
 )
 from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops.pcm import compile_pcm
+from ldpc_tpu_torch.utils.profiling import sync
 
 HOST_SYNCS = 0  # host syncs of the post-processor's lane selection
 ROUNDS_AXIS = "rounds"
@@ -94,7 +95,8 @@ def _postprocess(post, syn: torch.Tensor, bp: bp_ops.BpResult) -> torch.Tensor:
     on every lane and keeping BP's decoding where BP converged, as the JAX
     package does. Selecting the lanes is one host sync."""
     global HOST_SYNCS
-    idx = torch.nonzero(~bp.converged).squeeze(1)
+    with sync("window_select"):
+        idx = torch.nonzero(~bp.converged).squeeze(1)
     HOST_SYNCS += 1
     if not idx.numel():
         return bp.decoding

@@ -15,13 +15,23 @@ PyTorch profiler:
   stage that launched it.
 - :func:`profile_decode` — one-call breakdown of a decoder's
   ``decode_batch`` path.
+- The recorder — spans and counters that the decode path keeps in memory
+  while :func:`record` has turned it on: :func:`span` (a named region on
+  the host's ``time.time_ns()`` clock), :func:`count` (a named total),
+  :func:`sync` (a host sync by cause, a span and a count), :func:`drain`
+  (take and clear what was kept) and :func:`span_table` (per span name,
+  its host, self and device-idle time a call). Off by default, and then a
+  span site costs one flag check.
 """
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -130,8 +140,6 @@ def profile_decode(
     calls, host-device transfers included). With ``log_dir`` set, the
     steady-state calls also write a trace there (:func:`trace`).
     """
-    import numpy as np
-
     timer = StageTimer()
     with timer.stage("compile"):
         timer.fence(decoder.decode_batch(syndromes))
@@ -151,3 +159,205 @@ def profile_decode(
     report["decode"] = med
     report["syndromes_per_sec"] = float(np.shape(syndromes)[0]) / med
     return report
+
+
+# ---------------------------------------------------------------------------
+# The recorder
+# ---------------------------------------------------------------------------
+#
+# ``time.time_ns()`` is the clock of the profiler's Chrome trace: an event's
+# ``ts`` plus the trace's ``baseTimeNanoseconds / 1e3`` is in the same
+# microseconds as ``start_ns / 1e3``, so the spans sit on a trace's own
+# timeline without a calibration run. On an H100 the trace's host records
+# (CUPTI's runtime calls) fall inside their spans to about 10 us; its device
+# timeline can stray from the host's by a millisecond or more.
+
+
+class Span(NamedTuple):
+    """One recorded span. ``start_ns`` and ``end_ns`` are ``time.time_ns()``
+    readings; ``parent`` is the index of the enclosing span in the same
+    recording (-1 for a root); ``call`` numbers the root spans of the
+    recording, and a span carries its root's; ``attrs`` holds small integers
+    (``lanes``, ``chunk``)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    call: int
+    attrs: Dict[str, int]
+
+
+class Recording(NamedTuple):
+    """What :func:`drain` takes: the spans in the order they opened, and
+    the counters' totals."""
+
+    spans: List[Span]
+    counters: Dict[str, int]
+
+
+class _NullSpan:
+    """The span a site gets while the recorder is off: enters and leaves."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+_on = False
+_spans: list = []  # [name, start_ns, end_ns, parent, call, attrs] a span
+_counters: Dict[str, int] = {}
+_calls = itertools.count()
+_lock = threading.Lock()
+_open = threading.local()  # .stack: indices of a thread's open spans
+
+
+def record(on: bool = True) -> None:
+    """Turn the recorder on (or off). What it kept stays until :func:`drain`."""
+    global _on
+    _on = bool(on)
+
+
+def _stack() -> list:
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("_name", "_attrs", "_rec", "_ann")
+
+    def __init__(self, name: str, attrs: Dict[str, int]):
+        self._name, self._attrs = name, attrs
+
+    def __enter__(self):
+        self._ann = annotate(self._name)
+        self._ann.__enter__()
+        stack = _stack()
+        with _lock:
+            parent = stack[-1] if stack else -1
+            call = _spans[parent][4] if parent >= 0 else next(_calls)
+            self._rec = [self._name, time.time_ns(), 0, parent, call, self._attrs]
+            stack.append(len(_spans))
+            _spans.append(self._rec)
+        return None
+
+    def __exit__(self, *exc):
+        self._rec[2] = time.time_ns()
+        stack = _stack()
+        if stack:
+            stack.pop()
+        return self._ann.__exit__(*exc)
+
+
+def span(name: str, lanes: Optional[int] = None, chunk: Optional[int] = None):
+    """A context manager that records the enclosed region as the span
+    ``name`` while the recorder is on; it also enters :func:`annotate`, so a
+    trace taken meanwhile shows the region under that name. ``lanes`` and
+    ``chunk`` are kept as its attributes. Off, it returns
+    :data:`NULL_SPAN`: no clock read, no annotation, nothing allocated."""
+    if not _on:
+        return NULL_SPAN
+    attrs = {}
+    if lanes is not None:
+        attrs["lanes"] = int(lanes)
+    if chunk is not None:
+        attrs["chunk"] = int(chunk)
+    return _Span(name, attrs)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the counter ``name`` while the recorder is on. ``k``
+    must already be on the host: a count adds no sync."""
+    if _on:
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + int(k)
+
+
+def sync(cause: str):
+    """The span ``sync.<cause>``, which also counts ``sync.<cause>``: put
+    the operation that makes the host wait for the device inside it, and
+    the span's length is that wait."""
+    if not _on:
+        return NULL_SPAN
+    name = "sync." + cause
+    count(name)
+    return _Span(name, {})
+
+
+def drain() -> Recording:
+    """Take what the recorder kept and clear it; call ids start again at 0.
+    Call it with no span open."""
+    global _calls
+    with _lock:
+        spans = [Span(*rec) for rec in _spans]
+        counters = dict(_counters)
+        _spans.clear()
+        _counters.clear()
+        _calls = itertools.count()
+    _open.stack = []
+    return Recording(spans, counters)
+
+
+def _merged(intervals) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Disjoint sorted union of ``(start, end)`` intervals: its starts, its
+    ends and the running total of its lengths (one longer, from 0)."""
+    iv = sorted(intervals)
+    starts, ends = [], []
+    for a, b in iv:
+        if ends and a <= ends[-1]:
+            ends[-1] = max(ends[-1], b)
+        else:
+            starts.append(a)
+            ends.append(b)
+    starts, ends = np.asarray(starts, np.float64), np.asarray(ends, np.float64)
+    return starts, ends, np.concatenate([[0.0], np.cumsum(ends - starts)])
+
+
+def _covered(union, a: float, b: float) -> float:
+    """How much of ``[a, b]`` the union (of :func:`_merged`) covers."""
+    starts, ends, total = union
+    i = int(np.searchsorted(ends, a, side="right"))  # first interval ending after a
+    j = int(np.searchsorted(starts, b, side="left"))  # past the last starting before b
+    if j <= i:
+        return 0.0
+    inside = total[j] - total[i]
+    inside -= max(0.0, a - starts[i])
+    inside -= max(0.0, ends[j - 1] - b)
+    return max(0.0, inside)
+
+
+def span_table(
+    spans: Sequence[Span],
+    calls: int = 1,
+    device_us: Optional[Sequence[Tuple[float, float]]] = None,
+) -> Dict[str, Dict[str, float]]:
+    """Per span name over ``calls`` calls: ``spans`` (how many), ``ms`` (host
+    wall a call), ``self_ms`` (that wall less the part its child spans
+    cover, a call) and, given the device's busy intervals ``device_us`` in
+    microseconds on the spans' clock (a profiler event's ``ts`` plus its
+    trace's ``baseTimeNanoseconds / 1e3``), ``idle_ms``: the time a call
+    inside the span in which none of them ran."""
+    children = [0] * len(spans)
+    for s in spans:
+        if s.parent >= 0:
+            children[s.parent] += s.end_ns - s.start_ns
+    busy = _merged(device_us) if device_us is not None else None
+    table: Dict[str, Dict[str, float]] = {}
+    for s, child_ns in zip(spans, children):
+        row = table.setdefault(s.name, {"spans": 0, "ms": 0.0, "self_ms": 0.0})
+        wall = (s.end_ns - s.start_ns) / 1e6
+        row["spans"] += 1
+        row["ms"] += wall / calls
+        row["self_ms"] += (wall - child_ns / 1e6) / calls
+        if busy is not None:
+            a, b = s.start_ns / 1e3, s.end_ns / 1e3
+            row["idle_ms"] = row.get("idle_ms", 0.0) + (b - a - _covered(busy, a, b)) / 1e3 / calls
+    return table

@@ -1,0 +1,426 @@
+"""The port's in-program recorder (``ldpc_tpu_torch.utils.profiling``) on
+the CPU: off, the decode path records nothing and makes no annotation; on,
+``BpOsdDecoder.decode_batch`` with OSD-CS gives one span tree a call whose
+counters agree with the batch's properties; decodings are the same either
+way; the spans share the profiler's Chrome-trace clock; the union-find and
+window sync sites count under their causes; ``span_table`` on made-up
+spans.
+"""
+
+import json
+import os
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import ldpc_tpu_torch
+from ldpc_tpu_torch.codes import rep_code, toric_code
+from ldpc_tpu_torch.ops import osd as osd_ops
+from ldpc_tpu_torch.ops import uf
+from ldpc_tpu_torch.parallel import window
+from ldpc_tpu_torch.utils import profiling as pf
+
+B = 96
+P = 0.08
+CHUNK_ELEMENTS = osd_ops._CHUNK_ELEMENTS
+
+
+@pytest.fixture(autouse=True)
+def recorder_off():
+    pf.record(False)
+    pf.drain()
+    yield
+    pf.record(False)
+    pf.drain()
+
+
+def _toric():
+    hx = toric_code(6).hx.toarray().astype(np.uint8)
+    rng = np.random.default_rng(6)
+    err = (rng.random((B, hx.shape[1])) < P).astype(np.uint8)
+    syn = (err @ hx.T % 2).astype(np.uint8)
+    syn[:3] = 0  # zero-syndrome lanes converge without OSD
+    return hx, syn
+
+
+def _decoder(hx):
+    return ldpc_tpu_torch.BpOsdDecoder(
+        hx, error_rate=P, max_iter=10, bp_method="ms", ms_scaling_factor=0.625,
+        osd_method="osd_cs", osd_order=5, device="cpu")
+
+
+def _decode(dec, syn, on: bool):
+    pf.record(on)
+    try:
+        out = dec.decode_batch(syn)
+    finally:
+        pf.record(False)
+    return out, pf.drain()
+
+
+def test_off_records_nothing_and_sites_are_null():
+    hx, syn = _toric()
+    _, rec = _decode(_decoder(hx), syn, False)
+    assert rec.spans == [] and rec.counters == {}
+    assert pf.span("decode_batch", lanes=3) is pf.NULL_SPAN
+    assert pf.sync("output") is pf.NULL_SPAN
+    with pf.span("x"):
+        pf.count("y", 5)
+    assert pf.drain() == pf.Recording([], {})
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_annotations_only_while_on(on, monkeypatch):
+    """Off, the decode path makes no ``record_function`` or NVTX call; on,
+    every span enters one."""
+    calls = []
+
+    class Stub:
+        def __init__(self, name, *args, **kwargs):
+            calls.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Stub)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Stub)
+    monkeypatch.setattr(torch.cuda.nvtx, "range", Stub)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda name: calls.append(name))
+    hx, syn = _toric()
+    _, rec = _decode(_decoder(hx), syn, on)
+    assert calls == ([s.name for s in rec.spans] if on else [])
+
+
+# the OSD sweep in one chunk (the default) and in chunks of a few lanes
+@pytest.mark.parametrize("chunk_elements", [CHUNK_ELEMENTS, 1 << 14])
+def test_span_tree_of_a_call(chunk_elements, monkeypatch):
+    monkeypatch.setattr(osd_ops, "_CHUNK_ELEMENTS", chunk_elements)
+    hx, syn = _toric()
+    dec = _decoder(hx)
+    calls = 2
+    pf.record(True)
+    for _ in range(calls):
+        dec.decode_batch(syn)
+    pf.record(False)
+    spans, counters = pf.drain()
+
+    roots = [s for s in spans if s.parent < 0]
+    assert [r.name for r in roots] == ["decode_batch"] * calls
+    assert [r.call for r in roots] == list(range(calls))
+    assert all(r.attrs == {"lanes": B} for r in roots)
+    for s in spans:
+        assert s.end_ns >= s.start_ns
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, (p, s)
+            assert s.call == p.call
+
+    def children(name):
+        return [s.name for s in spans
+                if s.parent >= 0 and spans[s.parent].name == name and s.call == 0]
+
+    assert children("decode_batch") == ["sync.syndromes_h2d", "bp.phase1", "bp.phase2", "osd",
+                                        "decoder.merge", "decoder.store", "decoder.d2h"]
+    sweeps = [s for s in spans if s.name == "osd.sweep"]
+    chunks = counters["osd.chunks"]
+    assert children("osd") == ["osd.order", "osd.elim"] + ["osd.sweep"] * (chunks // calls)
+    assert len(sweeps) == chunks
+    assert (chunks > calls) == (chunk_elements < CHUNK_ELEMENTS)
+    assert [s.attrs["chunk"] for s in sweeps] == list(range(chunks // calls)) * calls
+
+    failed = int((~dec.converge_batch).sum())
+    assert failed > 0 and dec.converge_batch[:3].all()
+    assert counters["lanes.in"] == calls * B
+    assert counters["lanes.osd"] == calls * failed
+    assert sum(s.attrs["lanes"] for s in sweeps) == calls * failed
+    assert [s.attrs["lanes"] for s in spans if s.name == "osd"] == [failed] * calls
+    assert counters["lanes.phase2"] >= counters["lanes.osd"]
+    # each sync cause: a span and a count
+    syncs = {k: v for k, v in counters.items() if k.startswith("sync.")}
+    assert syncs == {"sync.syndromes_h2d": calls, "sync.prior_h2d": 2 * calls,
+                     "sync.phase1_compact": calls, "sync.phase2_compact": calls,
+                     "sync.store_converge": calls, "sync.store_iter": calls,
+                     "sync.store_llr0": calls, "sync.bp_row0": calls, "sync.output": calls}
+    for name, n in syncs.items():
+        assert sum(s.name == name for s in spans) == n
+
+
+@pytest.mark.parametrize("bit_packed_output", [False, True])
+def test_decodings_equal_with_recorder_on_and_off(bit_packed_output):
+    hx, syn = _toric()
+    dec = _decoder(hx)
+    got = {}
+    for on in (False, True, False):
+        pf.record(on)
+        out = dec.decode_batch(syn, bit_packed_output=bit_packed_output)
+        pf.record(False)
+        got.setdefault(on, []).append((out, dec.osd0_decoding_batch, dec.converge_batch.copy(),
+                                       dec.iter_batch.copy(), dec.log_prob_ratios.copy()))
+    pf.drain()
+    for a, b in zip(got[False][0], got[True][0]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for a, b in zip(got[False][0], got[False][1]):
+        assert np.array_equal(a, b)
+
+
+def test_drain_empties_the_recorder():
+    pf.record(True)
+    with pf.span("a", lanes=2):
+        with pf.sync("b"):
+            pass
+    with pf.span("c"):
+        pass
+    pf.count("d", 3)
+    first = pf.drain()
+    assert [(s.name, s.parent, s.call) for s in first.spans] == [
+        ("a", -1, 0), ("sync.b", 0, 0), ("c", -1, 1)]
+    assert first.counters == {"sync.b": 1, "d": 3}
+    assert pf.drain() == pf.Recording([], {})
+    with pf.span("e"):
+        pass
+    assert [(s.name, s.parent, s.call) for s in pf.drain().spans] == [("e", -1, 0)]
+
+
+def test_threads_keep_their_own_trees():
+    """Threads that record at once lose no count and no span, and each
+    span's parent is its own thread's."""
+    threads, spans_each = 12, 200
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(t):
+            for _ in range(spans_each):
+                with pf.span(f"t{t}", chunk=t):
+                    with pf.sync(f"t{t}"):
+                        pf.count("n")
+
+        pf.record(True)
+        pool = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in pool)
+    finally:
+        pf.record(False)
+        sys.setswitchinterval(old)
+    spans, counters = pf.drain()
+    assert counters["n"] == threads * spans_each
+    assert len(spans) == 2 * threads * spans_each
+    assert len({s.call for s in spans if s.parent < 0}) == threads * spans_each
+    for s in spans:
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert s.name == "sync." + p.name and s.call == p.call
+
+
+def test_spans_share_the_trace_clock(tmp_path):
+    """A span's ``time.time_ns()`` stamps and a profiler event's ``ts +
+    baseTimeNanoseconds / 1e3`` are one clock: the span holds the event."""
+    x = torch.randn(256, 256)
+    pf.record(True)
+    with pf.trace(str(tmp_path)):
+        with pf.span("matmul"):
+            y = x @ x
+    pf.record(False)
+    (s,) = pf.drain().spans
+    assert y.shape == (256, 256)
+    (path,) = [f.path for f in os.scandir(tmp_path)]
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace["baseTimeNanoseconds"] / 1e3
+    mm = [e for e in trace["traceEvents"]
+          if e.get("ph") == "X" and e.get("name") in ("aten::mm", "aten::matmul")]
+    assert mm
+    for e in mm:
+        a = e["ts"] + base_us
+        assert s.start_ns / 1e3 <= a and a + e["dur"] <= s.end_ns / 1e3, (s, e, base_us)
+    # the span's annotation is in the trace too
+    assert any(e.get("name") == "matmul" for e in trace["traceEvents"])
+
+
+def _uf_decode():
+    H = rep_code(9)
+    rng = np.random.default_rng(3)
+    syn = (rng.random((16, H.shape[0])) < 0.3).astype(np.uint8)
+    ldpc_tpu_torch.UnionFindDecoder(H, uf_method=False, device="cpu").decode_batch(syn)
+    lsd = ldpc_tpu_torch.BpLsdDecoder(H, error_rate=0.1, max_iter=2, lsd_order=0,
+                                      device="cpu")
+    lsd.decode_batch(syn)
+
+
+def _window_decode():
+    H = rep_code(5)
+    rng = np.random.default_rng(4)
+    syn = (rng.random((8, H.shape[0], 8)) < 0.2).astype(np.uint8)
+    window.make_window_decoder(H, 4, 0.05, 0.02, device="cpu")(syn)
+
+
+@pytest.mark.parametrize("module,causes,run", [
+    (uf, ("sync.uf_any", "sync.uf_growth"), _uf_decode),
+    (window, ("sync.window_select",), _window_decode),
+], ids=["uf", "window"])
+def test_module_sync_sites_count_under_their_causes(module, causes, run):
+    before = module.HOST_SYNCS
+    growth = getattr(module, "GROWTH_ROUNDS", 0)
+    pf.record(True)
+    run()
+    pf.record(False)
+    spans, counters = pf.drain()
+    made = {c: counters.get(c, 0) for c in causes}
+    assert sum(made.values()) == module.HOST_SYNCS - before > 0
+    assert all(v > 0 for v in made.values()), made
+    if module is uf:
+        assert made["sync.uf_growth"] == uf.GROWTH_ROUNDS - growth
+    for c in causes:
+        assert sum(s.name == c for s in spans) == made[c]
+
+
+def test_span_table_on_made_up_spans():
+    S = pf.Span
+    spans = [S("call", 0, 10_000_000, -1, 0, {}),  # 10 ms
+             S("stage", 1_000_000, 5_000_000, 0, 0, {}),  # 4 ms
+             S("sync.x", 2_000_000, 3_000_000, 1, 0, {}),  # 1 ms
+             S("call", 20_000_000, 30_000_000, -1, 1, {})]
+    # device busy (us): 0-2 ms and 4-12 ms, then 25-26 ms
+    busy = [(0.0, 2000.0), (1500.0, 1800.0), (4000.0, 12000.0), (25000.0, 26000.0)]
+    t = pf.span_table(spans, calls=2, device_us=busy)
+    assert t["call"]["spans"] == 2 and t["call"]["ms"] == pytest.approx(10.0)
+    assert t["call"]["self_ms"] == pytest.approx((10 - 4 + 10) / 2)
+    # idle in the calls: 2-4 ms of the first, 9 of the second's 10
+    assert t["call"]["idle_ms"] == pytest.approx((2 + 9) / 2)
+    assert t["stage"]["self_ms"] == pytest.approx(1.5)
+    assert t["stage"]["idle_ms"] == pytest.approx(1.0)  # 2-4 ms
+    assert t["sync.x"]["idle_ms"] == pytest.approx(0.5)
+    assert "idle_ms" not in pf.span_table(spans)["call"]
+
+
+def _profile_spans():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "profile_spans.py"
+    spec = importlib.util.spec_from_file_location("profile_spans", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _made_up_slice(stray_us):
+    """Two calls of 10 ms, 2 ms apart, in a 25 ms slice, and their device
+    events in microseconds from the trace's base; ``stray_us`` moves the
+    second call's device events (each by its own amount, by kernel name)
+    off the host timeline, as a stray device clock does."""
+    base_ns = 1_790_000_000_000_000_000
+    S, spans, evs = pf.Span, [], []
+    for c in range(2):
+        o = 1000 + 12000 * c  # the call's start, us after the base
+        root = len(spans)
+
+        def at(name, a, b, parent, attrs=None):
+            spans.append(S(name, base_ns + (o + a) * 1000, base_ns + (o + b) * 1000, parent, c,
+                           attrs or {}))
+            return len(spans) - 1
+
+        at("decode_batch", 0, 10000, -1, {"lanes": 8})
+        at("sync.x", 500, 1000, root)
+        osd = at("osd", 2000, 9000, root, {"lanes": 4})
+        at("osd.elim", 2100, 2900, osd)
+        at("osd.sweep", 3000, 8000, osd, {"lanes": 4, "chunk": 0})
+        for k, (name, cat, a, dur, launch) in enumerate([
+                ("bp_warp_kernel", "kernel", 100, 2400, 50),
+                ("gf2_warp_export_kernel<false, 16>", "kernel", 3000, 2000, 2200),
+                ("Memcpy DtoH", "gpu_memcpy", 9500, 400, 9400)]):
+            corr = 10 * c + k
+            move = stray_us.get(name, 0) if c == 1 else 0
+            evs.append({"ph": "X", "cat": cat, "name": name, "ts": o + a + move, "dur": dur,
+                        "args": {"correlation": corr}})
+            evs.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                        "ts": o + launch, "dur": 5, "args": {"correlation": corr}})
+    trace = {"baseTimeNanoseconds": base_ns, "traceEvents": evs}
+    rec = pf.Recording(spans, {"sync.x": 2, "osd.chunks": 2})
+    return rec, trace, (base_ns, base_ns + 25_000_000)
+
+
+def us(x):  # microseconds since 1970 in float64: steps of 0.25 us
+    return pytest.approx(x, abs=0.5)
+
+
+ALL = ("bp_warp_kernel", "gf2_warp_export_kernel<false, 16>", "Memcpy DtoH")
+
+
+@pytest.mark.parametrize("stray,sweep_idle,anchor", [
+    # the device timeline on the host's: nothing moves
+    ({}, 0.6, {"launch_to_start_min_us": us(50), "end_past_call_max_us": us(-100),
+               "calls_moved": 0, "shift_us": [0.0, 0.0]}),
+    # 3 ms late: the copy its last sync waited for goes back to the call's end
+    (dict.fromkeys(ALL, 3000), 0.6,
+     {"launch_to_start_min_us": us(50), "end_past_call_max_us": us(2900), "calls_moved": 1,
+      "shift_us": [us(-2900), 0.0]}),
+    # 2 ms early: the kernel that started soonest after its launch goes to it
+    (dict.fromkeys(ALL, -2000), (3000 + 3050) / 10000,
+     {"launch_to_start_min_us": us(-1950), "end_past_call_max_us": us(-100), "calls_moved": 1,
+      "shift_us": [0.0, us(1950)]}),
+], ids=["on_clock", "late", "early"])
+def test_span_readings_on_a_made_up_slice(stray, sweep_idle, anchor):
+    """``tools/profile_spans.py``'s readings, with the second call's device
+    timeline on the host's clock, late or early."""
+    tool = _profile_spans()
+    rec, trace, slice_ns = _made_up_slice(stray)
+    r = tool.readings(rec, trace, 2, slice_ns)
+    assert r["post.span_ms"] == pytest.approx(7.0)
+    assert r["post.sweep_idle_share"] == pytest.approx(sweep_idle)
+    assert r["decoders.sync_wait_ms"] == pytest.approx(0.5)
+    assert r["decoders.program_syncs"] == 1.0
+    # idle: 25,000 us less 2 x 4,800 busy; 2 x 5,200 of it inside the calls
+    assert r["device.idle_between_calls_share"] == pytest.approx((15400 - 10400) / 15400)
+    assert r["program"]["counters"] == {"osd.chunks": 1.0, "sync.x": 1.0}
+    assert r["program"]["spans"]["osd"]["self_ms"] == pytest.approx(7.0 - 0.8 - 5.0)
+    assert r["anchor"] == {"device_events": 6, "calls": 2, "calls_without_shift": 0, **anchor}
+
+
+def test_span_readings_with_nothing_to_read():
+    """No device events, no spans, or a call whose device timeline no
+    shift puts back (a kernel before its launch and a copy after the
+    call's end): the readings that need them are None."""
+    tool = _profile_spans()
+    rec, trace, slice_ns = _made_up_slice({})
+    idle = ("post.sweep_idle_share", "device.idle_between_calls_share")
+    bare = tool.readings(rec, None, 2, slice_ns)
+    assert all(bare[k] is None for k in idle)
+    assert bare["post.span_ms"] == pytest.approx(7.0)
+    assert bare["anchor"] == {"device_events": 0, "calls": 2}
+    empty = tool.readings(pf.Recording([], {}), trace, 2, slice_ns)
+    assert all(empty[k] is None for k in ("post.span_ms", "post.sweep_idle_share",
+                                          "decoders.sync_wait_ms", "decoders.program_syncs",
+                                          "device.idle_between_calls_share"))
+    rec, trace, slice_ns = _made_up_slice({"bp_warp_kernel": -2000, "Memcpy DtoH": 3000})
+    torn = tool.readings(rec, trace, 2, slice_ns)
+    assert all(torn[k] is None for k in idle)
+    assert torn["anchor"]["calls_without_shift"] == 1
+    assert torn["decoders.sync_wait_ms"] == pytest.approx(0.5)
+
+
+def test_profile_spans_runs_on_the_cpu(tmp_path, capsys):
+    """The tool end to end at a small batch on the CPU: the program's
+    spans and counters and the readings that need no device events."""
+    tool = _profile_spans()
+    out = tmp_path / "spans.json"
+    assert tool.main(["--device", "cpu", "--batch", "8", "--calls", "2", "--seed", str(2**31 + 5),
+                      "--out", str(out)]) == 0
+    r = json.loads(out.read_text())
+    first, second = capsys.readouterr().out.splitlines()
+    assert json.loads(second) == r["program"]
+    assert r["calls"] == 2 and r["batch"] == 8 and r["card"] == "cpu"
+    assert r["program"]["spans"]["decode_batch"]["spans"] == 2
+    assert r["program"]["counters"]["lanes.in"] == 8
+    assert r["decoders.program_syncs"] == 10.0
+    assert r["post.span_ms"] > 0 and r["decoders.sync_wait_ms"] > 0
+    assert r["post.sweep_idle_share"] is None and r["device.idle_between_calls_share"] is None
+    assert not pf._on
