@@ -18,7 +18,11 @@ on a matrix in device memory, each forced) and timed in each: K2', K3' and
 K5' at their main-path calls (K2' also at a Monte-Carlo bucket, with the
 columns its lanes walk), K4' summed over every call of the LSD-0 path and of
 the standalone UnionFind path (65,536 lanes), K3'-K5' on surface d=17 and
-toric d=20 too. The ``large_code`` phase takes toric d=31, whose lane does
+toric d=20 too. The OSD-w candidate sweep kernel (``osd_sweep_time``) is
+held against the plain sweep and timed at the benchmark's toric d=20 call
+(4,096 lanes at p=0.05, OSD-CS-5 in float32 and float64, OSD-E-5), at
+surface d=13 and at toric d=31 (its device variant); ``osd_sweep_phases()``
+runs it alone after ``_build.library()``. The ``large_code`` phase takes toric d=31, whose lane does
 not fit a block's shared memory: K2'-K5' by default (the device variant)
 against their plain versions, then ``decode_batch`` of BP+OSD-0,
 BP+OSD-CS-5, BP+LSD-0 and UnionFind on the card against the CPU path. K9'
@@ -92,7 +96,7 @@ from ldpc_tpu_torch.monte_carlo_simulation import (
 from ldpc_tpu_torch.monte_carlo_simulation.simulation_utils import (
     error_channel_setup, get_sigma_from_syndr_er)
 from ldpc_tpu_torch.ops import (
-    _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, mbp, mbp_cuda, osd, uf)
+    _build, bp_cuda, bp_fold, flip, gf2, gf2_cuda, lsd, mbp, mbp_cuda, osd, osd_cuda, uf)
 from ldpc_tpu_torch.ops.bp import (
     MINIMUM_SUM, PRODUCT_SUM, BpResult, channel_llr, serial_order_table)
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
@@ -120,6 +124,11 @@ LARGE_DISTANCE = 31  # toric code of the large_code phase (m=961, n=1922)
 LARGE_ERROR_RATE = 0.03  # ... at which BP leaves lanes to the post-processors
 LARGE_ROWS = 400  # syndromes its decoders take
 LARGE_CPU_ROWS = 32  # ... of which the CPU path decodes the first
+# The OSD-w sweep's timing: the benchmark's toric call (benchmark/configs/
+# toric20_bsc.json): 4,096 syndromes at p=0.05, 10 iterations of K1', OSD-CS-5
+SWEEP_LANES = 4096
+SWEEP_ERROR_RATE = 0.05
+SWEEP_ITERS = 10
 MC_BATCH = 16384
 MC_ROUNDS = 8
 MC_CALLS = 3
@@ -681,6 +690,112 @@ def elim_fields(t) -> dict:
         f"{k}_ms": v for k, v in t["variants_ms"].items()}
 
 
+def sweep_workload(code, rows=SWEEP_LANES, p=SWEEP_ERROR_RATE, dtype=torch.float32, seed=18):
+    """The OSD-w sweep's inputs at ``code``: K3's export of ``rows``
+    syndromes of bit flips at ``p`` after SWEEP_ITERS iterations of K1' and
+    the weights log(1/p), as ``make_osd_decoder`` hands them to the sweep:
+    ``((words, col_of_row, used, llrs, weights_pad), k)``."""
+    graph = compile_pcm(code.hx)
+    tgx = graph_to_torch(graph, "cuda")
+    errors = (np.random.default_rng(seed).random((rows, graph.n)) < p).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8)).cuda()
+    llr0 = torch.from_numpy(channel_llr(np.full(graph.n, p))).cuda()
+    llrs = bp_cuda.bp_parallel(tgx, syn, llr0, MINIMUM_SUM, SWEEP_ITERS, MS_FACTOR)
+    llrs = llrs.llr_posterior.to(dtype)
+    rank = gf2.batched_rank(graph.dense)
+    export = gf2_cuda.rref_export(tgx, syn, gf2.column_order(llrs).to(torch.int32), rank)
+    weights = torch.from_numpy(np.append(np.log(1.0 / np.full(graph.n, p)), 0.0))
+    return (*export, llrs, weights.to("cuda", dtype)), graph.n - rank
+
+
+def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
+    """Device ms a call of the kernels whose name holds ``name``, from a
+    device-only profile of ``calls`` calls of ``fn`` after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3 / calls
+
+
+def time_osd_sweep(label, args, k, method=osd.COMBINATION_SWEEP, order=5, plain_graph=True):
+    """The sweep kernel at one call's shape, held first against the plain
+    sweep as the card ran it before the kernel (in the decoder's chunks of
+    lanes; raises unless every lane is byte-identical), then timed:
+    ``kernel_ms`` the kernel alone (a device-only profile), ``ms`` the
+    wrapper's call (its argsort and the kernel, :func:`device_ms`),
+    ``call_ms`` the eager call, and the plain sweep's device time (a CUDA
+    graph of one call, ``plain_graph``) and eager time. Bound: the export,
+    the pivot columns, the used rows and each lane's k non-pivot columns
+    (int64) read once, the two decodings written once, or one operation a
+    row step (B x candidates x m) at the dtype's rate."""
+    words, col_of_row, used, llrs, weights_pad = args
+    B, m, _ = words.shape
+    n = weights_pad.shape[0] - 1
+    pats = torch.from_numpy(osd.pattern_table(method, min(order, k)).astype(bool)).cuda()
+    singles = method == osd.COMBINATION_SWEEP
+    chunk = max(1, osd._CHUNK_ELEMENTS // (m * (n + pats.shape[0] + 1)))
+
+    def kernel():
+        return osd_cuda.sweep_cuda(*args, pats, k, singles)
+
+    def plain():
+        parts = [osd.sweep_reference(*(a[i : i + chunk] for a in args[:4]), weights_pad, pats,
+                                     k, singles) for i in range(0, B, chunk)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    ker, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    differing = int(sum((a != b).any(dim=1) for a, b in zip(ker, ref)).bool().sum())
+    if differing:
+        raise AssertionError(f"{label}: the sweep kernel differs from the plain sweep on "
+                             f"{differing} of {B} lanes")
+    moved_lanes = int((ref[0] != ref[1]).any(dim=1).sum())
+    candidates = 1 + (k if singles else 0) + pats.shape[0]
+    f64 = weights_pad.dtype == torch.float64
+    bound_ms, bound_by = bound(nbytes(words, col_of_row, used, *ker) + 8 * B * k,
+                               float(B) * candidates * m, F64_OPS_PER_S if f64 else OPS_PER_S)
+    kernel_ms = kernel_device_ms(kernel, "osd_sweep_kernel")
+    fields = dict(lanes=B, candidates=candidates, dtype=str(weights_pad.dtype),
+                  variant=osd_cuda.sweep_variant(m, n, weights_pad.dtype),
+                  differing_lanes=differing, lanes_off_osd0=moved_lanes, kernel_ms=kernel_ms,
+                  ms=device_ms(kernel), call_ms=cuda_ms(kernel, 5), bound_ms=bound_ms,
+                  bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
+    phase(label, **fields)
+    fields["plain_ms"] = cuda_ms(plain, 2)
+    if plain_graph:
+        fields["plain_device_ms"] = device_ms(plain, calls=1, replays=2)
+    phase(f"{label}_plain", plain_ms=fields["plain_ms"],
+          plain_device_ms=fields.get("plain_device_ms"))
+    return fields
+
+
+def osd_sweep_phases():
+    """The sweep kernel against the plain sweep, timed: the benchmark's
+    toric d=20 call (OSD-CS-5 in float32 and float64, OSD-E-5), the d=13
+    surface code at the same rate, and toric d=31 (the device variant)."""
+    tor20 = toric_code(20, compute_logicals=False)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        args, k = sweep_workload(tor20, dtype=dtype)
+        out[f"toric20_cs5_{str(dtype)[6:]}"] = time_osd_sweep(
+            f"osd_sweep_time[toric20,cs5,{str(dtype)[6:]}]", args, k)
+    args, k = sweep_workload(tor20)
+    out["toric20_e5"] = time_osd_sweep("osd_sweep_time[toric20,e5]", args, k, osd.EXHAUSTIVE)
+    args, k = sweep_workload(surface_code(DISTANCE))
+    out["surface13_cs5"] = time_osd_sweep("osd_sweep_time[surface13,cs5]", args, k)
+    args, k = sweep_workload(toric_code(LARGE_DISTANCE, compute_logicals=False), rows=LARGE_ROWS)
+    out["toric31_cs5"] = time_osd_sweep("osd_sweep_time[toric31,cs5]", args, k,
+                                        plain_graph=False)
+    return out
+
+
 def time_k2(name, args, variants=ELIM_VARIANTS, **extra):
     """K2' at one call's shape: every variant held against the plain version
     and timed (:func:`time_elim`), beside the columns its lanes walk before
@@ -804,6 +919,7 @@ def reset_counters() -> None:
     bp_fold.LAUNCHES.update(dict.fromkeys(bp_fold.LAUNCHES, 0))
     for by_state in bp_fold.STATE_LAUNCHES.values():
         by_state.update(shared=0, device=0)
+    osd_cuda.LAUNCHES.update(dict.fromkeys(osd_cuda.LAUNCHES, 0))
 
 
 def read_counters() -> dict:
@@ -822,6 +938,8 @@ def read_counters() -> dict:
            for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()
            for variant, count in by_variant.items()},
         "flip": flip.FLIP_LAUNCHES,
+        "osd_sweep": sum(osd_cuda.LAUNCHES.values()),
+        **{f"osd_sweep_{variant}": count for variant, count in osd_cuda.LAUNCHES.items()},
         **bp_fold.LAUNCHES,
         **{f"{kernel}_{state}_state": count
            for kernel, by_state in bp_fold.STATE_LAUNCHES.items()
@@ -2277,6 +2395,8 @@ def main() -> int:
     # variant stops paying (the per-lane budgets in csrc/gf2_elim.cu)
     for cname, size_code in (("surface17", surface_code(17)), ("toric20", tor)):
         time_sizes(cname, size_code)
+    # the OSD-w sweep kernel against the plain sweep, at the benchmark's call
+    sweep_numbers = osd_sweep_phases()["toric20_cs5_float32"]
 
     # ---- 4c. a code above a block's shared memory: toric d=31 ------------------
     section("4c_toric31")
@@ -2774,6 +2894,11 @@ def main() -> int:
         entry("masked_export", "gf2_elim.cu", "ldpc_tpu/ops/gf2_pallas.py:445",
               path["lsd_cs5"], elim_err["masked_export"],
               elim_numbers["masked_export"], elim_variants("masked_export")),
+        entry("osd_sweep", "osd_sweep.cu", "none: XLA einsums, ldpc_tpu/ops/osd.py:302-337",
+              path["osd_cs5"], 0, {k: sweep_numbers[k] for k in
+                                   ("kernel_ms", "ms", "plain_ms", "bound_ms", "bound_by")},
+              {v: f"osd_sweep_{v}" for v in osd_cuda.VARIANTS})
+        | {"main_path": "BpOsdDecoder(osd_method=osd_cs).decode_batch, toric d=20 4,096 lanes"},
         entry("flip", "flip.cu", "ldpc_tpu/ops/flip.py:22", path["flip"], flip_err,
               flip_numbers, {"warp_per_lane_scan": "flip"}),
         entry("bp_serial", "bp_fold.cu", "ldpc_tpu/ops/bp.py:496", path["osd0_serial"],

@@ -100,6 +100,10 @@ _SIGNATURES = {
     #  iters, stream)
     "ldpc_flip": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P,
                   _P],
+    # (words, col_of_row, used, order, weights, pat_masks, m, n, Wp, k, W, Wq,
+    #  P, singles, f64, B, variant, osd0, osdw, stream)
+    "ldpc_osd_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -15,19 +15,22 @@ order (:mod:`ldpc_tpu_torch.ops.gf2_cuda`).
   the reference's enumeration order (baseline, singles by reliability,
   patterns) wins (osd.hpp:163-180).
 
-The sweep gathers R's columns by index instead of the JAX package's one-hot
-contractions, works through the lanes in chunks so that the unpacked R
-stays small, and sums each score over the rows in row order with one
-addition per row in the decoder's dtype (float32, or float64 after the
-fold-exact BP): the same additions on every device, so a tie is broken the
-same way on the CPU and on the card.
+The sweep sums each score over the rows in row order with one addition per
+row in the decoder's dtype (float32, or float64 after the fold-exact BP):
+the same additions on every device, so a tie is broken the same way on the
+CPU and on the card. On the CPU it runs :func:`sweep_reference`, which
+gathers R's columns by index instead of the JAX package's one-hot
+contractions and works through the lanes in chunks so that the unpacked R
+stays small; on the card one launch of ``csrc/osd_sweep.cu``
+(:mod:`ldpc_tpu_torch.ops.osd_cuda`) sweeps every lane from the packed
+export.
 """
 
 import numpy as np
 import torch
 
 from ldpc_tpu_torch.device import resolve_device
-from ldpc_tpu_torch.ops import gf2, gf2_cuda
+from ldpc_tpu_torch.ops import gf2, gf2_cuda, osd_cuda
 from ldpc_tpu_torch.ops.pcm import PcmGraph, graph_to_torch
 from ldpc_tpu_torch.utils.profiling import count, span
 
@@ -97,6 +100,74 @@ def _first_min(score: torch.Tensor):
     return low, first
 
 
+def sweep_reference(words, col_of_row, used, llrs, weights_pad, pats, k, use_singles):
+    """Plain PyTorch OSD-0 and OSD-w of a batch of lanes from K3's export:
+    ``words`` (B, m, Wp) int32, ``col_of_row`` (B, m) int32, ``used`` (B,
+    m) bool, ``llrs`` (B, n) and ``weights_pad`` (n + 1) in the dtype of
+    the weights (``weights_pad[n]`` = 0), ``pats`` the (P, W) bool pattern
+    table over the first W non-pivot columns, ``k`` the non-pivot columns of
+    a lane, ``use_singles`` for OSD-CS. Returns ``(osd0, osdw)``, each (B,
+    n) uint8. :func:`ldpc_tpu_torch.ops.osd_cuda.sweep_cuda` is the kernel
+    held to it."""
+    device = words.device
+    B, m = words.shape[:2]
+    n = weights_pad.shape[0] - 1
+    P, W = pats.shape
+    lanes = torch.arange(B, device=device)[:, None]
+    bits = gf2.unpack_u32(words, n + 1).bool()  # (B, m, n+1)
+    s = bits[:, :, n]
+    Rt = bits[:, :, :n].transpose(1, 2)  # (B, n, m): R's columns
+    target = torch.where(used, col_of_row.long(), n)
+    osd0 = torch.zeros((B, n + 1), dtype=torch.uint8, device=device)
+    osd0.scatter_(1, target, (s & used).to(torch.uint8))
+    ispiv = torch.zeros((B, n + 1), dtype=torch.bool, device=device)
+    ispiv.scatter_(1, target, used)
+    wrow = weights_pad[target]  # (B, m); unused rows weigh 0
+
+    best = weigh_rows(s[:, None, :], wrow)[:, 0]  # the baseline
+    kind = torch.zeros(B, dtype=torch.int64, device=device)  # 0 base, 1 single, 2 pattern
+    # non-pivot columns, least reliable first (ties: column order)
+    npkey = torch.where(ispiv[:, :n], torch.inf, llrs)
+    np_cols = torch.argsort(npkey, dim=1, stable=True)[:, :k]  # (B, k)
+    R_np = Rt[lanes, np_cols]  # (B, k, m)
+    single = torch.zeros(B, dtype=torch.int64, device=device)
+    if use_singles:
+        score1 = weigh_rows(s[:, None, :] ^ R_np, wrow) + weights_pad[np_cols]
+        min1, j1 = _first_min(score1)
+        take1 = min1 < best
+        best = torch.where(take1, min1, best)
+        kind = torch.where(take1, 1, kind)
+        single = np_cols.gather(1, j1[:, None]).squeeze(1)
+    p_star = torch.zeros(B, dtype=torch.int64, device=device)
+    if P:
+        Y = s[:, None, :].expand(B, P, m).clone()
+        for w in range(W):
+            Y ^= pats[None, :, w, None] & R_np[:, w, None, :]
+        wt_W = weights_pad[np_cols[:, :W]]  # (B, W)
+        score_p = weigh_rows(Y, wrow)
+        for w in range(W):
+            score_p = score_p + torch.where(pats[None, :, w], wt_W[:, w, None], 0.0)
+        minp, p_star = _first_min(score_p)
+        takep = minp < best
+        kind = torch.where(takep, 2, kind)
+
+    # the winner: y = T s ^ R's flipped columns; flipped columns are 1
+    y = s.clone()
+    flip = torch.zeros((B, n + 1), dtype=torch.bool, device=device)
+    is1 = kind == 1
+    y ^= is1[:, None] & Rt[lanes[:, 0], single]
+    flip.scatter_(1, torch.where(is1, single, n)[:, None], True)
+    if P:
+        won = pats[p_star] & (kind == 2)[:, None]  # (B, W)
+        for w in range(W):
+            y ^= won[:, w, None] & R_np[:, w, :]
+            flip.scatter_(1, torch.where(won[:, w], np_cols[:, w], n)[:, None], True)
+    osdw = torch.zeros((B, n + 1), dtype=torch.uint8, device=device)
+    osdw.scatter_(1, target, (y & used).to(torch.uint8))
+    osdw = osdw[:, :n] | flip[:, :n].to(torch.uint8)
+    return osd0[:, :n], osdw
+
+
 def make_osd_decoder(
     graph: PcmGraph,
     channel: np.ndarray,
@@ -114,8 +185,8 @@ def make_osd_decoder(
     ``channel`` only weighs the candidates of higher orders. With the
     recorder on (:mod:`ldpc_tpu_torch.utils.profiling`) a call is the span
     ``osd`` over ``osd.order``, ``osd.elim`` (K2' or K3') and an
-    ``osd.sweep`` a chunk of lanes, and counts ``lanes.osd`` and
-    ``osd.chunks``.
+    ``osd.sweep`` a chunk of lanes (on the card one, the kernel's launch),
+    and counts ``lanes.osd`` and ``osd.chunks``.
     """
     m, n = graph.m, graph.n
     rank = gf2.batched_rank(graph.dense)
@@ -134,63 +205,6 @@ def make_osd_decoder(
         device=device, dtype=dtype
     )
     chunk = max(1, _CHUNK_ELEMENTS // (m * (n + P + 1)))
-
-    def sweep(words, col_of_row, used, llrs):
-        """OSD-0 and OSD-w of one chunk of lanes from K3's export."""
-        B = words.shape[0]
-        lanes = torch.arange(B, device=device)[:, None]
-        bits = gf2.unpack_u32(words, n + 1).bool()  # (B, m, n+1)
-        s = bits[:, :, n]
-        Rt = bits[:, :, :n].transpose(1, 2)  # (B, n, m): R's columns
-        target = torch.where(used, col_of_row.long(), n)
-        osd0 = torch.zeros((B, n + 1), dtype=torch.uint8, device=device)
-        osd0.scatter_(1, target, (s & used).to(torch.uint8))
-        ispiv = torch.zeros((B, n + 1), dtype=torch.bool, device=device)
-        ispiv.scatter_(1, target, used)
-        wrow = weights_pad[target]  # (B, m); unused rows weigh 0
-
-        best = weigh_rows(s[:, None, :], wrow)[:, 0]  # the baseline
-        kind = torch.zeros(B, dtype=torch.int64, device=device)  # 0 base, 1 single, 2 pattern
-        # non-pivot columns, least reliable first (ties: column order)
-        npkey = torch.where(ispiv[:, :n], torch.inf, llrs)
-        np_cols = torch.argsort(npkey, dim=1, stable=True)[:, :k]  # (B, k)
-        R_np = Rt[lanes, np_cols]  # (B, k, m)
-        single = torch.zeros(B, dtype=torch.int64, device=device)
-        if use_singles:
-            score1 = weigh_rows(s[:, None, :] ^ R_np, wrow) + weights_pad[np_cols]
-            min1, j1 = _first_min(score1)
-            take1 = min1 < best
-            best = torch.where(take1, min1, best)
-            kind = torch.where(take1, 1, kind)
-            single = np_cols.gather(1, j1[:, None]).squeeze(1)
-        p_star = torch.zeros(B, dtype=torch.int64, device=device)
-        if P:
-            Y = s[:, None, :].expand(B, P, m).clone()
-            for w in range(W):
-                Y ^= pats[None, :, w, None] & R_np[:, w, None, :]
-            wt_W = weights_pad[np_cols[:, :W]]  # (B, W)
-            score_p = weigh_rows(Y, wrow)
-            for w in range(W):
-                score_p = score_p + torch.where(pats[None, :, w], wt_W[:, w, None], 0.0)
-            minp, p_star = _first_min(score_p)
-            takep = minp < best
-            kind = torch.where(takep, 2, kind)
-
-        # the winner: y = T s ^ R's flipped columns; flipped columns are 1
-        y = s.clone()
-        flip = torch.zeros((B, n + 1), dtype=torch.bool, device=device)
-        is1 = kind == 1
-        y ^= is1[:, None] & Rt[lanes[:, 0], single]
-        flip.scatter_(1, torch.where(is1, single, n)[:, None], True)
-        if P:
-            won = pats[p_star] & (kind == 2)[:, None]  # (B, W)
-            for w in range(W):
-                y ^= won[:, w, None] & R_np[:, w, :]
-                flip.scatter_(1, torch.where(won[:, w], np_cols[:, w], n)[:, None], True)
-        osdw = torch.zeros((B, n + 1), dtype=torch.uint8, device=device)
-        osdw.scatter_(1, target, (y & used).to(torch.uint8))
-        osdw = osdw[:, :n] | flip[:, :n].to(torch.uint8)
-        return osd0[:, :n], osdw
 
     def decode(syndromes: torch.Tensor, llrs: torch.Tensor):
         count("lanes.osd", syndromes.shape[0])
@@ -216,13 +230,22 @@ def make_osd_decoder(
             )
         s = ((words[:, :, n // 32] >> (n % 32)) & 1).bool()
         valid = ~(s & ~used).any(dim=1)
+        B = syndromes.shape[0]
+        if device.type == "cuda" and B:
+            # one launch over every lane: nothing is unpacked, so nothing to chunk
+            count("osd.chunks")
+            with span("osd.sweep", lanes=B, chunk=0):
+                osd0, osdw = osd_cuda.sweep_cuda(
+                    words, col_of_row, used, llrs, weights_pad, pats, k, use_singles)
+            return osd0, osdw, valid
         parts = []
-        for c, i in enumerate(range(0, syndromes.shape[0], chunk)):
-            lanes = min(chunk, syndromes.shape[0] - i)
+        for c, i in enumerate(range(0, B, chunk)):
+            lanes = min(chunk, B - i)
             count("osd.chunks")
             with span("osd.sweep", lanes=lanes, chunk=c):
-                parts.append(sweep(words[i : i + chunk], col_of_row[i : i + chunk],
-                                   used[i : i + chunk], llrs[i : i + chunk]))
+                parts.append(sweep_reference(
+                    words[i : i + chunk], col_of_row[i : i + chunk], used[i : i + chunk],
+                    llrs[i : i + chunk], weights_pad, pats, k, use_singles))
         if not parts:
             empty = torch.zeros((0, n), dtype=torch.uint8, device=device)
             return empty, empty, valid

@@ -3,7 +3,8 @@ single-scan instance), K2'-K5' (csrc/gf2_elim.cu, each in its warp, block
 and device variants, forced by the wrappers' ``variant`` keyword), the
 flip sweep (csrc/flip.cu), the fold engines K6'-K8' (csrc/bp_fold.cu,
 csrc/bp_exact.cu, each with its lane state in shared or device memory,
-forced by ``state``) and MBP over GF(4), K9' (csrc/mbp.cu),
+forced by ``state``), MBP over GF(4), K9' (csrc/mbp.cu) and the OSD-w
+candidate sweep (csrc/osd_sweep.cu, in its shared and device variants),
 held against their plain PyTorch versions on the card; K1' with a (B, n)
 prior, a row a lane, in both state variants and both instances; the
 window decoder and a QSS call on the card against the CPU path; the
@@ -27,7 +28,8 @@ import torch
 
 from ldpc_tpu_torch.codes import bivariate_bicycle_code, surface_code, toric_code
 import ldpc_tpu_torch
-from ldpc_tpu_torch.ops import bp_cuda, bp_fold, flip, gf2, gf2_cuda, mbp, mbp_cuda
+from ldpc_tpu_torch.ops import (bp_cuda, bp_fold, flip, gf2, gf2_cuda, mbp, mbp_cuda, osd,
+                                osd_cuda)
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr, serial_order_table
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
 
@@ -551,6 +553,147 @@ def test_k4_forest_solve_order_matches_plain_version(codes):
     x, bad = _assert_k4_k5(tg, s, order, cnt)
     assert not bool(bad.any())
     assert ((x.cpu().numpy() @ graph.dense.T) % 2 == s.cpu().numpy()).all()
+
+
+SWEEP_P = 0.05  # the benchmark's toric rate: BP leaves nearly every lane to OSD
+SWEEP_METHODS = {"cs": osd.COMBINATION_SWEEP, "e": osd.EXHAUSTIVE}
+
+
+def _sweep_inputs(graph, tg, lanes, dtype, case="bp", seed=5):
+    """K3's export of ``lanes`` syndromes and the sweep's other arguments,
+    ``((words, col_of_row, used, llrs, weights_pad), k)``. ``case``: "bp"
+    (bit flips at SWEEP_P, BP posteriors, a uniform channel: many
+    candidates weigh the same multiple of log(1/p)); "equal_llrs" (every
+    LLR 0, so both orders are column order and ties abound); "zero_probs"
+    (every third column at probability 0, weight +inf); "unreachable"
+    (uniform random syndromes: a toric lane outside H's image keeps a
+    syndrome 1 on its unused row)."""
+    dev = tg.packed.device
+    rng = np.random.default_rng(seed)
+    if case == "unreachable":
+        syn_np = rng.integers(0, 2, (lanes, graph.m)).astype(np.uint8)
+    else:
+        errors = (rng.random((lanes, graph.n)) < SWEEP_P).astype(np.uint8)
+        syn_np = (errors @ graph.dense.T % 2).astype(np.uint8)
+    syn = torch.from_numpy(syn_np).to(dev)
+    llr0 = torch.from_numpy(channel_llr(np.full(graph.n, SWEEP_P))).to(dev)
+    llrs = bp_cuda.bp_parallel_cuda(tg, syn, llr0, MINIMUM_SUM, 10, 0.625).llr_posterior
+    if case == "equal_llrs":
+        llrs = torch.zeros_like(llrs)
+    llrs = llrs.to(dtype)
+    channel = np.full(graph.n, SWEEP_P)
+    if case == "zero_probs":
+        channel[::3] = 0.0
+    with np.errstate(divide="ignore"):
+        weights = np.append(np.log(1.0 / channel), 0.0)
+    rank = gf2.batched_rank(graph.dense)
+    order = gf2.column_order(llrs).to(torch.int32).contiguous()
+    export = gf2_cuda.rref_export(tg, syn, order, rank)
+    return (*export, llrs, torch.from_numpy(weights).to(dev, dtype)), graph.n - rank
+
+
+def _sweep(args, k, method, order=5, variant=None):
+    """One launch of the sweep kernel against the plain sweep on the same
+    tensors: byte-identical decodings, and one launch counted, in the
+    variant asked for or else the one sweep_variant picks."""
+    words, weights_pad = args[0], args[4]
+    W = min(order, k)
+    pats = torch.from_numpy(osd.pattern_table(method, W).astype(bool)).to(words.device)
+    singles = method == osd.COMBINATION_SWEEP
+    counted = variant or osd_cuda.sweep_variant(
+        words.shape[1], weights_pad.shape[0] - 1, weights_pad.dtype)
+    before = dict(osd_cuda.LAUNCHES)
+    ker = osd_cuda.sweep_cuda(*args, pats, k, singles, variant=variant)
+    assert osd_cuda.LAUNCHES[counted] == before[counted] + 1
+    assert sum(osd_cuda.LAUNCHES.values()) == sum(before.values()) + 1
+    ref = osd.sweep_reference(*args, pats, k, singles)
+    torch.cuda.synchronize()
+    for a, b in zip(ker, ref):
+        assert a.dtype == b.dtype == torch.uint8 and a.shape == b.shape
+        assert torch.equal(a, b)
+    return ker
+
+
+@pytest.mark.parametrize("variant", [None, "device"])
+@pytest.mark.parametrize("method", ["cs", "e"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["surface13", "toric20"])
+def test_osd_sweep_matches_plain_version(codes, name, dtype, method, variant):
+    """OSD-CS and OSD-E of order 5 on 1,001 lanes in both dtypes, in the
+    variant sweep_variant picks (shared memory at both codes) and in the
+    device variant forced; the sweep moves some lanes off OSD-0."""
+    graph, tg, _, _ = codes[name]
+    assert osd_cuda.sweep_variant(graph.m, graph.n, dtype) == "shared"
+    args, k = _sweep_inputs(graph, tg, 1001, dtype)
+    osd0, osdw = _sweep(args, k, SWEEP_METHODS[method], variant=variant)
+    assert bool((osd0 != osdw).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [1, 31, 1001])
+@pytest.mark.parametrize("case", ["equal_llrs", "zero_probs", "unreachable"])
+def test_osd_sweep_ties_and_edges(codes, case, lanes, dtype):
+    """Toric d=20, OSD-CS-5 and OSD-E-5: ties settled by the first-minimum
+    rule, +inf weights, lanes K3' cannot solve; batches of 1, 31, 1,001."""
+    graph, tg, _, _ = codes["toric20"]
+    args, k = _sweep_inputs(graph, tg, lanes, dtype, case)
+    for method in SWEEP_METHODS.values():
+        _sweep(args, k, method)
+    if case == "unreachable" and lanes > 1:
+        words, used, n = args[0], args[2], graph.n
+        s = ((words[:, :, n // 32] >> (n % 32)) & 1).bool()
+        assert bool((s & ~used).any())
+
+
+@pytest.mark.parametrize("variant", [None, "device"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method,order", [("cs", 40), ("e", 10)])
+def test_osd_sweep_wide_tables(codes, method, order, dtype, variant):
+    """Toric d=20 on 31 lanes: OSD-CS-40 (780 pairs over 40 slots, so slots
+    past the first 32, and 1,182 candidates, so threads stride) and OSD-E-10
+    (1,024 candidates, a thread each)."""
+    graph, tg, _, _ = codes["toric20"]
+    args, k = _sweep_inputs(graph, tg, 31, dtype)
+    _sweep(args, k, SWEEP_METHODS[method], order, variant)
+
+
+def test_osd_sweep_toric31_takes_the_device_variant(dev):
+    """Toric d=31 (m = 961, 234 KB of rows a lane): above a block's shared
+    memory, so the device variant by default; OSD-CS-5 in float32."""
+    graph = compile_pcm(toric_code(31, compute_logicals=False).hx)
+    assert osd_cuda.sweep_variant(graph.m, graph.n, torch.float32) == "device"
+    args, k = _sweep_inputs(graph, graph_to_torch(graph, dev), 64, torch.float32)
+    _sweep(args, k, osd.COMBINATION_SWEEP)
+
+
+def test_osd_decoder_sweeps_in_one_launch(codes):
+    """make_osd_decoder on the card: one osd.sweep span and osd.chunks = 1 a
+    call, the kernel's one launch over every lane; both decodings and the
+    validity equal the CPU path's (the plain sweep in chunks)."""
+    from ldpc_tpu_torch.utils import profiling as pf
+
+    graph, tg, _, _ = codes["toric20"]
+    rng = np.random.default_rng(6)
+    errors = (rng.random((256, graph.n)) < SWEEP_P).astype(np.uint8)
+    syn = torch.from_numpy((errors @ graph.dense.T % 2).astype(np.uint8))
+    channel = np.full(graph.n, SWEEP_P)
+    llr0 = torch.from_numpy(channel_llr(channel)).cuda()
+    llrs = bp_cuda.bp_parallel_cuda(tg, syn.cuda(), llr0, MINIMUM_SUM, 10, 0.625)
+    llrs = llrs.llr_posterior.cpu()
+    card = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, "cuda")
+    before = sum(osd_cuda.LAUNCHES.values())
+    pf.record(True)
+    try:
+        got = card(syn.cuda(), llrs.cuda())
+    finally:
+        pf.record(False)
+    rec = pf.drain()
+    assert sum(osd_cuda.LAUNCHES.values()) == before + 1
+    assert rec.counters["osd.chunks"] == 1
+    assert [s.name for s in rec.spans].count("osd.sweep") == 1
+    want = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, "cpu")(syn, llrs)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def _assert_flip_equal(tg, syn, max_iter, pfreq, seed=7):

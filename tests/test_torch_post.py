@@ -268,6 +268,64 @@ def test_osdw_chunks_are_independent():
             assert torch.equal(a[0], w[b])
 
 
+# (code, distance, its (m, n), where the card's sweep keeps a lane in float32
+# and in float64): shared memory up to toric d=30 (230,400 bytes a lane in
+# float64, under the 231,424 of SMEM_BUDGET), device memory from toric d=31
+SWEEP_CODES = [
+    ("surface", 13, (156, 313), "shared", "shared"),
+    ("surface", 17, (272, 545), "shared", "shared"),
+    ("gross", 12, (72, 144), "shared", "shared"),
+    ("toric", 20, (400, 800), "shared", "shared"),
+    ("toric", 30, (900, 1800), "shared", "shared"),
+    ("toric", 31, (961, 1922), "device", "device"),
+    ("toric", 60, (3600, 7200), "device", "device"),
+]
+
+
+@pytest.mark.parametrize("family,d,shape,f32,f64", SWEEP_CODES)
+def test_sweep_variant_of_the_repo_codes(family, d, shape, f32, f64):
+    """``osd_cuda.sweep_variant`` is a function of (m, n, dtype) alone: the
+    codes' shapes as the port builds them, and the variant each takes."""
+    from ldpc_tpu_torch.codes import bivariate_bicycle_code, surface_code, toric_code
+    from ldpc_tpu_torch.ops import osd_cuda
+
+    if family == "gross":
+        hx = bivariate_bicycle_code(12, 6, [(3, 0), (0, 1), (0, 2)], [(0, 3), (1, 0), (2, 0)]).hx
+    elif family == "surface":
+        hx = surface_code(d).hx
+    else:
+        hx = toric_code(d, compute_logicals=False).hx
+    assert hx.shape == shape
+    m, n = shape
+    for dtype, want in ((torch.float32, f32), (torch.float64, f64)):
+        assert osd_cuda.sweep_variant(m, n, dtype) == want
+        fits = osd_cuda.lane_bytes(m, n, dtype) <= osd_cuda.SMEM_BUDGET
+        assert fits == (want == "shared")
+    # the rows' two terms, a value of the dtype each
+    assert osd_cuda.lane_bytes(m, n, torch.float64) - osd_cuda.lane_bytes(m, n, torch.float32) == 8 * m
+
+
+def test_sweep_kernel_refuses_cpu_tensors():
+    """On the CPU the decoder sweeps with the plain version; the kernel's
+    wrapper refuses CPU tensors and counts no launch."""
+    from ldpc_tpu_torch.ops import osd_cuda
+
+    graph, syn, llrs = _workload(surface_code(3).hx, 4, 0.1)
+    tg = graph_to_torch(graph, "cpu")
+    rank = tgf2.batched_rank(graph.dense)
+    order = torch.argsort(torch.from_numpy(llrs), dim=1, stable=True).to(torch.int32)
+    words, col_of_row, used = gf2_cuda.rref_export(tg, torch.from_numpy(syn), order, rank)
+    weights_pad = torch.zeros(graph.n + 1)
+    pats = torch.from_numpy(tosd.pattern_table(tosd.COMBINATION_SWEEP, 2).astype(bool))
+    args = (words, col_of_row, used, torch.from_numpy(llrs), weights_pad, pats, graph.n - rank, True)
+    before = dict(osd_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        osd_cuda.sweep_cuda(*args)
+    assert osd_cuda.LAUNCHES == before
+    osd0, osdw = tosd.sweep_reference(*args)
+    assert osd0.shape == osdw.shape == (4, graph.n)
+
+
 @pytest.fixture(scope="module")
 def d13():
     hx = surface_code(13).hx
