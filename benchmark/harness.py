@@ -23,8 +23,13 @@ A run:
    profile (CUPTI; the per-layer metrics, with the window's mean call wall
    for the idle share, ``busy_s``, the device operations of the
    breakdown, and the slice's own rate beside the window's), ``gap_calls`` more under a host and device profile (only to
-   name the idle gaps of the breakdown), and the host syncs of
-   ``sync_calls`` more;
+   name the idle gaps of the breakdown), the host syncs of
+   ``sync_calls`` more, and last ``span_calls`` more with the program's
+   recorder on (``program.record``) under a device-only profile: its spans
+   and counters, with that slice's device events moved onto the spans'
+   clock (``yardstick/spans.py``), for the per-layer metrics that read them
+   and the result's ``program`` key (the span table and the counters a
+   call);
 4. reads the device's peak memory, drops the program's state and judges
    the kept calls against the plain reference (``judge.py``).
 """
@@ -41,7 +46,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchmark import judge
+from benchmark import judge, program
+from benchmark.yardstick import spans as sp
 from benchmark.yardstick import trace as tr
 from benchmark.yardstick.syncs import count_syncs
 
@@ -158,9 +164,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
     out = {"correct": correct, "attempted": shots, "failed": driver.failed(numbers)}
     if trace:
         slice_calls = traced.pop("calls")
+        recorded = traced.pop("recording")
         ctx = SimpleNamespace(**traced, peak_bytes=peak, sizes=driver.sizes(),
                               window_call_s=window_s / len(walls),
-                              work=_lazy(lambda: driver.work(slice_calls)))
+                              work=_lazy(lambda: driver.work(slice_calls)), **recorded)
         metrics = {}
         for m in cell.metrics("per_layer"):
             reader = load_module(root / "benchmark" / "metrics" / f"{m['name']}.py")
@@ -182,6 +189,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
     if trace:
         out["window"]["slice"] = {"calls": traced["slice_calls"], "seconds": traced["slice_s"],
                                   "shots_per_s": traced["slice_shots"] / traced["slice_s"]}
+        n = recorded["span_calls"]
+        out["program"] = {"spans": recorded["span_table"],
+                          "counters": {k: v / n for k, v in sorted(recorded["counters"].items())},
+                          "anchor": recorded["span_anchor"]}
     out["checks"] = checks
     return out
 
@@ -209,7 +220,7 @@ def _trace(driver, t: dict, i: int, device) -> dict:
     (the per-layer metrics' slice), ``gap_calls`` more under a host and
     device profile (the idle gaps' names alone: recording every host
     operator slows the calls), then the host syncs of ``sync_calls`` more
-    (outside both)."""
+    (outside both), then the span slice (:func:`_span_slice`)."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
@@ -238,11 +249,47 @@ def _trace(driver, t: dict, i: int, device) -> dict:
     syncs = None
     if cuda:  # torch counts syncs of CUDA devices only
         syncs = count_syncs(lambda: [driver.call(i + j) for j in range(t["sync_calls"])])
+    i += t["sync_calls"]
     return {"calls": calls, "device_events": device_events,
             "gap_device_events": gap_device_events, "gap_host_events": gap_host_events,
             "slice_s": slice_s, "slice_calls": t["trace_calls"], "slice_shots": shots,
             "busy_s": tr.busy_us([(e["ts"], e["ts"] + e["dur"]) for e in device_events]) / 1e6,
-            "syncs_per_call": None if syncs is None else syncs / t["sync_calls"]}
+            "syncs_per_call": None if syncs is None else syncs / t["sync_calls"],
+            "recording": _span_slice(driver, t["span_calls"], i, device)}
+
+
+def _span_slice(driver, calls: int, i: int, device) -> dict:
+    """``calls`` calls with the program's recorder on, under a device-only
+    profile, read by :func:`recorded`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        program.record(True)
+        try:
+            ns0 = time.time_ns()
+            for j in range(calls):
+                driver.call(i + j)
+            _sync(device)
+            ns1 = time.time_ns()
+        finally:
+            program.record(False)
+    spans, counters = program.drain()
+    return recorded(spans, counters, calls, (ns0, ns1), tr.chrome_trace(prof))
+
+
+def recorded(spans, counters: dict, calls: int, slice_ns: tuple, trace: dict) -> dict:
+    """What the span slice gives the per-layer metrics: the program's
+    ``spans`` and ``counters`` over ``calls`` calls, the slice's bounds
+    ``slice_ns`` on their clock, its device events from the chrome
+    ``trace`` moved onto that clock (busy intervals in microseconds, None
+    where no call's shift holds), the report of the shifts, and the span
+    table."""
+    busy, anchor = sp.device_busy(spans, trace)
+    return {"spans": spans, "counters": counters, "span_calls": calls,
+            "span_slice_ns": slice_ns, "span_device_us": busy, "span_anchor": anchor,
+            "span_table": sp.span_table(spans, calls, busy)}
 
 
 def _device(device, chips: int, peak: int) -> dict:

@@ -1,5 +1,7 @@
-"""The system under test, built from a configuration: the only module of
-the benchmark that imports ``ldpc_tpu_torch``."""
+"""The system under test, built from a configuration. The files of this
+package are the only ones of the benchmark that import ``ldpc_tpu_torch``:
+this one builds ``BpOsdDecoder`` and reaches the program's recorder; a
+configuration whose entry is another adds ``program/<entry>.py`` beside it."""
 
 import numpy as np
 
@@ -22,3 +24,18 @@ def bposd_decoder(cfg: dict, hx: np.ndarray, device):
         schedule=d["schedule"], osd_method=d["osd_method"], osd_order=d["osd_order"],
         dtype=d["dtype"], device=device)
 
+
+def record(on: bool) -> None:
+    """Turn the program's recorder of spans and counters on (or off)."""
+    from ldpc_tpu_torch.utils import profiling
+
+    profiling.record(on)
+
+
+def drain():
+    """What the recorder kept, ``(spans, counters)``, and clear it: each
+    span has ``name``, ``start_ns`` and ``end_ns`` (``time.time_ns()``) and
+    ``parent`` (the index of its enclosing span, -1 for a root)."""
+    from ldpc_tpu_torch.utils import profiling
+
+    return profiling.drain()

@@ -44,6 +44,7 @@ def test_cell_correct_on_cpu(cell, trace):
     assert list(out)[-1] == "checks"
     if trace:
         assert out["window"]["slice"]["calls"] == _traffic(cell)["test"]["trace_calls"]
+        assert list(out)[-2] == "program"
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in sorted(_faults(c))])

@@ -38,5 +38,17 @@ def test_copy_ms_peak_and_syncs():
 
 
 def test_rooflines_find_nothing_without_their_kernels():
-    for name in ("kernels.bp_roofline", "kernels.osdcs_roofline"):
+    for name in ("kernels.bp_roofline", "kernels.osdcs_roofline", "kernels.sweep_roofline"):
         assert _reader(name)(_ctx(device_events=[])) is None
+
+
+def test_sweep_roofline_takes_the_reference_lanes():
+    # 4,096 toric d=20 OSD lanes of rank 399: 198,279,168 bytes, 59.1878 us at 3.35 TB/s
+    name = "void (anonymous namespace)::osd_sweep_kernel<float, true>(float const*)"
+    events = [{"name": name, "cat": "kernel", "ts": 0.0, "dur": 300.0},
+              {"name": name, "cat": "kernel", "ts": 900.0, "dur": 591.8781134328358 - 300.0},
+              {"name": "gf2_warp_export_kernel<false, 16>", "cat": "kernel", "ts": 400.0,
+               "dur": 1000.0}]
+    ctx = _ctx(device_events=events, sizes={"m": 400, "n": 800},
+               work=lambda: {"osd": {"lanes": 4096, "pivots": 4096 * 399, "last_steps": 0}})
+    assert abs(_reader("kernels.sweep_roofline")(ctx) - 10.0) < 1e-9

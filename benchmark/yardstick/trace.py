@@ -29,16 +29,23 @@ def busy_us(intervals):
     return total
 
 
-def events(prof):
-    """``(device events, host events)`` of the profiled slice, from its
-    chrome trace (written to a temporary file and removed)."""
+def chrome_trace(prof) -> dict:
+    """The profiled slice's chrome trace (written to a temporary file and
+    removed): ``traceEvents`` and, where the profiler writes it,
+    ``baseTimeNanoseconds``, which puts an event's ``ts`` on the clock of
+    ``time.time_ns()`` (``yardstick/spans.py``)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    evs = trace["traceEvents"] if isinstance(trace, dict) else trace
-    xs = [e for e in evs if e.get("ph") == "X"]
+    return trace if isinstance(trace, dict) else {"traceEvents": trace}
+
+
+def events(prof):
+    """``(device events, host events)`` of the profiled slice, from its
+    chrome trace."""
+    xs = [e for e in chrome_trace(prof)["traceEvents"] if e.get("ph") == "X"]
     return ([e for e in xs if e.get("cat") in DEVICE_CATS],
             [e for e in xs if e.get("cat") in HOST_CATS])
 

@@ -51,3 +51,13 @@ def export_bytes(m: int, n: int, lanes: int, steps: int, launches: int) -> float
 def row_words(n: int) -> int:
     """Words of a full packed row of [H | s]."""
     return -(-(n + 1) // WORD_BITS)
+
+
+def sweep_bytes(m: int, n: int, lanes: int, pivots: int) -> float:
+    """OSD-w candidate sweep: each lane's reduced [H | s] (int32 words),
+    pivot columns (int32) and used rows (uint8) read, its k = n - rank
+    non-pivot columns (int64) read, and its two decodings (OSD-0 and the
+    best candidate, uint8) written, each once; k summed over the lanes is
+    ``lanes * n - pivots``."""
+    per_lane = 4 * m * row_words(n) + 4 * m + m + 2 * n
+    return float(lanes) * per_lane + 8.0 * (float(lanes) * n - pivots)
