@@ -15,6 +15,15 @@ decoders run on ``device`` (the CUDA device unless the caller passes
 ``device="cpu"``); when the DEM's windows are time-translation invariant
 the middle windows run on the device through
 :func:`ldpc_tpu_torch.ckt_noise.device_scan.make_device_owd`.
+
+With the recorder of :mod:`ldpc_tpu_torch.utils.profiling` on, a
+``decode_batch`` call is the root span ``owd.decode_batch`` (counter
+``owd.shots``) over an ``owd.window`` a host-loop window (counter
+``owd.windows.host``; a boundary window's ``BpOsdDecoder`` nests its own
+``decode_batch`` span in it), the device windows' ``owd.h2d``,
+``owd.scan`` (see ``device_scan``), ``owd.d2h`` and ``owd.bookkeeping``,
+and ``owd.predict``; each host sync of the OWD's own code is a
+``sync.owd_<cause>`` span.
 """
 
 from typing import Tuple
@@ -27,6 +36,7 @@ from ldpc_tpu_torch.ckt_noise.dem_matrices import (
     detector_error_model_to_check_matrices,
 )
 from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.utils.profiling import count, span, sync
 
 
 class BaseOverlappingWindowDecoder:
@@ -183,25 +193,37 @@ class BaseOverlappingWindowDecoder:
         *,
         bit_packed_shots: bool = False,
         bit_packed_predictions: bool = False,
-    ) -> np.ndarray:
+        return_corrections: bool = False,
+    ):
         """Decode (num_shots, num_detectors) shots into observable
         predictions (reference: base_overlapping_window_decoder.py:141-176),
-        batched per window."""
+        batched per window.
+
+        With ``return_corrections`` the call returns ``(predictions,
+        corrections)``: the (num_shots, num_mechanisms) total correction of
+        :meth:`_corr_multiple_rounds_batch`, uint8, or with
+        ``bit_packed_predictions`` bit-packed little-endian along axis 1
+        (``ceil(num_mechanisms / 8)`` bytes a shot) as the predictions are."""
         shots = np.asarray(shots)
-        if bit_packed_shots:
-            shots = np.unpackbits(shots, axis=1, bitorder="little")[
-                :, : self.num_detectors
-            ]
-        corrs = self._corr_multiple_rounds_batch(
-            shots.astype(np.uint8).copy()
-        )
-        predictions = (
-            (corrs @ np.asarray(self.logical_observables_matrix.todense()).T)
-            % 2
-        ).astype(bool)
-        if bit_packed_predictions:
-            predictions = np.packbits(predictions, axis=1, bitorder="little")
-        return predictions
+        count("owd.shots", shots.shape[0])
+        with span("owd.decode_batch", lanes=shots.shape[0]):
+            if bit_packed_shots:
+                shots = np.unpackbits(shots, axis=1, bitorder="little")[
+                    :, : self.num_detectors
+                ]
+            corrs = self._corr_multiple_rounds_batch(
+                shots.astype(np.uint8).copy()
+            )
+            with span("owd.predict"):
+                predictions = (
+                    (corrs @ np.asarray(self.logical_observables_matrix.todense()).T)
+                    % 2
+                ).astype(bool)
+                if bit_packed_predictions:
+                    predictions = np.packbits(predictions, axis=1, bitorder="little")
+                    if return_corrections:
+                        corrs = np.packbits(corrs, axis=1, bitorder="little")
+        return (predictions, corrs) if return_corrections else predictions
 
     def _corr_multiple_rounds_batch(self, shots: np.ndarray) -> np.ndarray:
         """All shots of each window decode in one batched call
@@ -224,45 +246,48 @@ class BaseOverlappingWindowDecoder:
                 # the device windows read the UNADJUSTED detector history
                 # and recompute each window's committed-syndrome adjustment
                 # from the running correction
-                total_corr = (
-                    fn(
-                        torch.from_numpy(pristine).to(self.device),
-                        torch.from_numpy(total_corr).to(self.device),
-                    )
-                    .cpu()
-                    .numpy()
-                    .astype(np.uint8)
-                )
+                with span("owd.h2d"):
+                    with sync("owd_shots_h2d"):
+                        shots_dev = torch.from_numpy(pristine).to(self.device)
+                    with sync("owd_corr_h2d"):
+                        corr_dev = torch.from_numpy(total_corr).to(self.device)
+                corr_dev = fn(shots_dev, corr_dev)
+                with span("owd.d2h"):
+                    with sync("owd_corr_d2h"):
+                        total_corr = corr_dev.cpu().numpy().astype(np.uint8)
                 # host bookkeeping for the remaining windows: scanned
                 # commits pin their columns, and the resumed window's
                 # rows are reconstructed from pristine shots + the full
                 # running correction (exactly the value the host loop's
                 # telescoping passes would have left there)
-                for w in range(uw.w_lo, uw.w_hi):
-                    ci, _, _, _ = current_round_inds(
+                with span("owd.bookkeeping"):
+                    for w in range(uw.w_lo, uw.w_hi):
+                        ci, _, _, _ = current_round_inds(
+                            dcm=self.dcm,
+                            decoding=w,
+                            window=self.window,
+                            commit=self.commit,
+                            num_checks=self.num_checks,
+                        )
+                        weights[ci] = self._min_weight
+                    _, _, _, si = current_round_inds(
                         dcm=self.dcm,
-                        decoding=w,
+                        decoding=uw.w_hi - 1,
                         window=self.window,
                         commit=self.commit,
                         num_checks=self.num_checks,
                     )
-                    weights[ci] = self._min_weight
-                _, _, _, si = current_round_inds(
-                    dcm=self.dcm,
-                    decoding=uw.w_hi - 1,
-                    window=self.window,
-                    commit=self.commit,
-                    num_checks=self.num_checks,
-                )
-                rdcm = self.dcm[si, :]
-                shots[:, si] = pristine[:, si] ^ (
-                    (total_corr @ rdcm.T) % 2
-                ).astype(shots.dtype)
+                    rdcm = self.dcm[si, :]
+                    shots[:, si] = pristine[:, si] ^ (
+                        (total_corr @ rdcm.T) % 2
+                    ).astype(shots.dtype)
                 decoding = uw.w_hi
                 continue
-            self._host_decode_window(
-                decoding, shots, total_corr, weights
-            )
+            count("owd.windows.host")
+            with span("owd.window"):
+                self._host_decode_window(
+                    decoding, shots, total_corr, weights
+                )
             decoding += 1
         return total_corr
 

@@ -18,6 +18,12 @@ launches over device tensors, as ``parallel/window.py`` does, each window
 lsd_overlapping_window.py:11). Irregular DEMs (boundary windows that differ
 structurally) return None from :func:`analyze_uniform_windows` and keep the
 host loop.
+
+With the recorder of :mod:`ldpc_tpu_torch.utils.profiling` on, a decode is
+the span ``owd.scan`` (counter ``owd.windows.device``) over an
+``owd.scan.window`` a window; each window's lane selection is the host sync
+``sync.owd_select``, after which the lanes OSD-0 takes count as
+``owd.lanes.osd0``.
 """
 
 from typing import NamedTuple, Optional
@@ -27,6 +33,7 @@ import torch
 from scipy.sparse import csr_matrix
 
 from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.utils.profiling import count, span
 
 
 class UniformWindows(NamedTuple):
@@ -222,6 +229,7 @@ def make_device_owd(
         _osd = osd_ops.make_osd_decoder(graph, probs_mid, osd_ops.OSD_0, 0, device)
 
         def post(syn, llr):
+            count("owd.lanes.osd0", syn.shape[0])
             return _osd(syn, llr)[0]
 
     else:
@@ -240,25 +248,28 @@ def make_device_owd(
     def decode(shots: torch.Tensor, total_in: torch.Tensor) -> torch.Tensor:
         """Decode windows [w_lo, w_hi) given the host-committed state so
         far; returns the updated global correction."""
-        shots = torch.as_tensor(shots, device=device).to(torch.uint8)
-        total_in = torch.as_tensor(total_in, device=device).to(torch.uint8)
-        B = shots.shape[0]
-        # a window's width of zero columns past the end, as the JAX scan pads
-        total = torch.cat(
-            [total_in, torch.zeros((B, uw.wdec), dtype=torch.uint8, device=device)], dim=1
-        )
-        for k in range(uw.w_hi - uw.w_lo):
-            start = (k + uw.w_lo) * uw.stride_rows
-            s_win = shots[:, start : start + uw.R]
-            lo = uw.lo0 + k * uw.col_stride
-            if uw.lookback:
-                lb = torch.nn.functional.pad(total[:, lo : lo + uw.lookback], (0, 1))
-                adj = lb[:, lb_table].sum(dim=2, dtype=torch.int32) & 1
-                s_win = s_win ^ adj.to(torch.uint8)
-            s_win = s_win.contiguous()
-            bp = bp_fn(s_win, llr_mid)
-            dec = window._postprocess(post, s_win, bp)
-            total[:, lo : lo + uw.commit_span] ^= dec[:, : uw.commit_span]
-        return total[:, : uw.num_cols]
+        count("owd.windows.device", uw.w_hi - uw.w_lo)
+        with span("owd.scan", lanes=shots.shape[0]):
+            shots = torch.as_tensor(shots, device=device).to(torch.uint8)
+            total_in = torch.as_tensor(total_in, device=device).to(torch.uint8)
+            B = shots.shape[0]
+            # a window's width of zero columns past the end, as the JAX scan pads
+            total = torch.cat(
+                [total_in, torch.zeros((B, uw.wdec), dtype=torch.uint8, device=device)], dim=1
+            )
+            for k in range(uw.w_hi - uw.w_lo):
+                with span("owd.scan.window"):
+                    start = (k + uw.w_lo) * uw.stride_rows
+                    s_win = shots[:, start : start + uw.R]
+                    lo = uw.lo0 + k * uw.col_stride
+                    if uw.lookback:
+                        lb = torch.nn.functional.pad(total[:, lo : lo + uw.lookback], (0, 1))
+                        adj = lb[:, lb_table].sum(dim=2, dtype=torch.int32) & 1
+                        s_win = s_win ^ adj.to(torch.uint8)
+                    s_win = s_win.contiguous()
+                    bp = bp_fn(s_win, llr_mid)
+                    dec = window._postprocess(post, s_win, bp, cause="owd_select")
+                    total[:, lo : lo + uw.commit_span] ^= dec[:, : uw.commit_span]
+            return total[:, : uw.num_cols]
 
     return decode

@@ -87,15 +87,16 @@ class _WindowCore(NamedTuple):
     device: torch.device
 
 
-def _postprocess(post, syn: torch.Tensor, bp: bp_ops.BpResult) -> torch.Tensor:
+def _postprocess(post, syn: torch.Tensor, bp: bp_ops.BpResult,
+                 cause: str = "window_select") -> torch.Tensor:
     """BP's decoding where BP converged, the post-processor's elsewhere.
 
     The post-processor runs on the unconverged lanes only: a lane's result
     does not depend on the other lanes, so every output equals running it
     on every lane and keeping BP's decoding where BP converged, as the JAX
-    package does. Selecting the lanes is one host sync."""
+    package does. Selecting the lanes is one host sync, ``sync.<cause>``."""
     global HOST_SYNCS
-    with sync("window_select"):
+    with sync(cause):
         idx = torch.nonzero(~bp.converged).squeeze(1)
     HOST_SYNCS += 1
     if not idx.numel():

@@ -361,9 +361,9 @@ def test_window_bp_and_osd_with_infinite_priors_match_jax(monkeypatch):
     seen = []
     original = twindow._postprocess
 
-    def record(post, syn, bp):
+    def record(post, syn, bp, **kwargs):
         seen.append((syn.clone(), bp))
-        return original(post, syn, bp)
+        return original(post, syn, bp, **kwargs)
 
     monkeypatch.setattr(twindow, "_postprocess", record)
     t.decode_batch(shots)

@@ -3,8 +3,9 @@ the CPU: off, the decode path records nothing and makes no annotation; on,
 ``BpOsdDecoder.decode_batch`` with OSD-CS gives one span tree a call whose
 counters agree with the batch's properties; decodings are the same either
 way; the spans share the profiler's Chrome-trace clock; the union-find and
-window sync sites count under their causes; ``span_table`` on made-up
-spans.
+window sync sites count under their causes; the overlapping-window
+decoder's span tree and counters, and its sync sites reached alike with
+the recorder on and off; ``span_table`` on made-up spans.
 """
 
 import json
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import ldpc_tpu_torch
+from ldpc_tpu_torch.ckt_noise import base_overlapping_window_decoder as owd_base
 from ldpc_tpu_torch.codes import rep_code, toric_code
 from ldpc_tpu_torch.ops import osd as osd_ops
 from ldpc_tpu_torch.ops import uf
@@ -424,3 +426,101 @@ def test_profile_spans_runs_on_the_cpu(tmp_path, capsys):
     assert r["post.span_ms"] > 0 and r["decoders.sync_wait_ms"] > 0
     assert r["post.sweep_idle_share"] is None and r["device.idle_between_calls_share"] is None
     assert not pf._on
+
+
+# ---------------------------------------------------------------------------
+# The overlapping-window decoder's spans and counters (d=5, 10 rounds:
+# windows 0 and 3 in the host loop, 1 and 2 on the device; see
+# tests/test_torch_owd_phenom.py)
+
+OWD_B = 96  # test_torch_owd_phenom.B
+
+
+def _owd(calls: int, on: bool, path: str = "device"):
+    """``calls`` calls of the small OWD experiment with the recorder on or
+    off: the outputs, the recording, the sync sites reached and the
+    reference's work."""
+    from test_torch_owd_phenom import _decoder, _experiment, _quiet, _reference
+
+    dem, model, shots = _experiment()
+    assert shots.shape[0] == OWD_B
+    dec = _decoder(model, path)
+    dec.decode_batch(shots.copy())  # builds the boundary windows' decoders
+    sites = []
+    plain = pf.sync
+
+    def counted(cause):
+        sites.append(cause)
+        return plain(cause)
+
+    outs = []
+    pf.record(on)
+    try:
+        for mod in (owd_base, window):
+            mod.sync = counted
+        for _ in range(calls):
+            outs.append(_quiet(dec.decode_batch, shots.copy(), return_corrections=True))
+    finally:
+        pf.record(False)
+        owd_base.sync = window.sync = plain
+    return outs, pf.drain(), sites, _reference(dem, shots)[1]
+
+
+def test_owd_span_tree_of_a_call():
+    calls = 2
+    _, (spans, counters), _, work = _owd(calls, True)
+    roots = [s for s in spans if s.parent < 0]
+    assert [r.name for r in roots] == ["owd.decode_batch"] * calls
+    assert all(r.attrs == {"lanes": OWD_B} for r in roots)
+    for s in spans:
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns and s.call == p.call
+
+    def children(name, call=0):
+        return [s.name for s in spans
+                if s.parent >= 0 and spans[s.parent].name == name and s.call == call]
+
+    assert children("owd.decode_batch") == [
+        "owd.window", "owd.h2d", "owd.scan", "owd.d2h", "owd.bookkeeping", "owd.window",
+        "owd.predict"]
+    assert children("owd.window") == ["decode_batch"] * 2
+    assert children("owd.scan") == ["owd.scan.window"] * 2
+    assert children("owd.h2d") == ["sync.owd_shots_h2d", "sync.owd_corr_h2d"]
+    assert children("owd.d2h") == ["sync.owd_corr_d2h"]
+    # each device window's lane selection, then OSD-0 on its unconverged lanes
+    assert children("owd.scan.window") == sum(
+        (["sync.owd_select"] + ["osd"] * (work[w]["osd_lanes"] > 0) for w in (1, 2)), [])
+    osd0 = work[1]["osd_lanes"] + work[2]["osd_lanes"]
+    assert counters["owd.lanes.osd0"] == calls * osd0 > 0
+    assert counters["owd.shots"] == calls * OWD_B
+    assert counters["owd.windows.host"] == 2 * calls
+    assert counters["owd.windows.device"] == 2 * calls
+    assert counters["lanes.in"] == 2 * calls * OWD_B  # the boundary windows' BpOsdDecoder
+    for cause, n in (("owd_shots_h2d", 1), ("owd_corr_h2d", 1), ("owd_corr_d2h", 1),
+                     ("owd_select", 2)):
+        assert counters["sync." + cause] == n * calls
+        assert sum(s.name == "sync." + cause for s in spans) == n * calls
+
+
+def test_owd_host_loop_spans():
+    _, (spans, counters), _, _ = _owd(1, True, "host")
+    assert [s.name for s in spans if s.parent == 0] == ["owd.window"] * 4 + ["owd.predict"]
+    assert counters["owd.windows.host"] == 4 and "owd.windows.device" not in counters
+    assert not any(s.name.startswith(("owd.scan", "owd.h2d", "sync.owd")) for s in spans)
+
+
+def test_owd_recorder_off_records_nothing_and_syncs_alike():
+    """Off, the OWD's sites are the shared null span and nothing is kept; on
+    or off, the call reaches the same host syncs and returns the same
+    arrays."""
+    off, rec_off, sites_off, _ = _owd(1, False)
+    on, rec_on, sites_on, _ = _owd(1, True)
+    assert rec_off == pf.Recording([], {})
+    assert sites_off == sites_on and sites_on.count("owd_select") == 2
+    assert sum(v for k, v in rec_on.counters.items() if k.startswith("sync.owd")) == sum(
+        c.startswith("owd") for c in sites_on)
+    for a, b in zip(off[0], on[0]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert pf.span("owd.scan", lanes=3) is pf.NULL_SPAN
+    assert pf.sync("owd_select") is pf.NULL_SPAN
