@@ -8,25 +8,35 @@ committed correction's syndrome propagates forward, and committed
 error mechanisms are re-weighted to certainty for later windows.
 
 Batched: ``decode_batch`` feeds every shot of a window to the underlying
-decoder in ONE ``decode_batch`` call — the reference loops shot-by-shot in
-Python (base_overlapping_window_decoder.py:210-218). Windows stay
-sequential (their syndrome propagation is causal), shots don't. The
-decoders run on ``device`` (the CUDA device unless the caller passes
-``device="cpu"``); when the DEM's windows are time-translation invariant
-the middle windows run on the device through
-:func:`ldpc_tpu_torch.ckt_noise.device_scan.make_device_owd`.
+decoder in ONE call — the reference loops shot-by-shot in Python
+(base_overlapping_window_decoder.py:210-218). Windows stay sequential
+(their syndrome propagation is causal), shots don't. The decoders run on
+``device`` (the CUDA device unless the caller passes ``device="cpu"``).
+When the window decoders take device syndromes (``_decode_batch_device``,
+as ``BpOsdDecoder`` and ``BpLsdDecoder`` do), a call keeps its state there
+from input to output: the shots go up once (packed, if they came packed),
+every window reads and updates the resident shots and running correction,
+and only the predictions and corrections come back (packed, if asked).
+When the DEM's windows are time-translation invariant the middle windows
+of that call run through
+:func:`ldpc_tpu_torch.ckt_noise.device_scan.make_device_owd`. Other window
+decoders (PyMatching's) keep a plain numpy loop over the windows.
 
 With the recorder of :mod:`ldpc_tpu_torch.utils.profiling` on, a
 ``decode_batch`` call is the root span ``owd.decode_batch`` (counter
-``owd.shots``) over an ``owd.window`` a host-loop window (counter
-``owd.windows.host``; a boundary window's ``BpOsdDecoder`` nests its own
-``decode_batch`` span in it), the device windows' ``owd.h2d``,
-``owd.scan`` (see ``device_scan``), ``owd.d2h`` and ``owd.bookkeeping``,
-and ``owd.predict``; each host sync of the OWD's own code is a
-``sync.owd_<cause>`` span.
+``owd.shots``) over ``owd.h2d`` (the shots' upload), an ``owd.window`` a
+loop window (counter ``owd.windows.host``; a boundary window's
+``BpOsdDecoder`` nests its own ``decode_batch`` span in it), the device
+windows' ``owd.scan`` (see ``device_scan``) and ``owd.bookkeeping`` (the
+resumed window's rows), ``owd.predict`` and ``owd.d2h`` (the results'
+copies: packed results cross in one). The counter
+``owd.windows.resident`` counts the windows decoded on the resident state
+and ``owd.d2h_bytes`` the bytes its results bring back.
+The numpy loop has only ``owd.window`` and ``owd.predict``. Each host sync
+of the OWD's own code is a ``sync.owd_<cause>`` span.
 """
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ from ldpc_tpu_torch.ckt_noise.dem_matrices import (
     detector_error_model_to_check_matrices,
 )
 from ldpc_tpu_torch.device import resolve_device
+from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.utils.profiling import count, span, sync
 
 
@@ -118,8 +129,8 @@ class BaseOverlappingWindowDecoder:
 
     def _maybe_device_scan(self):
         """Build the middle windows' device decoder when the DCM is
-        time-translation invariant (ckt_noise/device_scan.py); None keeps
-        the pure host loop."""
+        time-translation invariant (ckt_noise/device_scan.py); None
+        decodes every window one by one."""
         if hasattr(self, "_device_scan"):
             return self._device_scan
         self._device_scan = None
@@ -173,6 +184,44 @@ class BaseOverlappingWindowDecoder:
             )
         return self._device_scan
 
+    # -- window plans -------------------------------------------------------
+    def _plan(self, decoding: int) -> "_Window":
+        """Window ``decoding``'s index ranges and detector rows, computed
+        once (:func:`current_round_inds`)."""
+        plans = self.__dict__.setdefault("_plans", {})
+        if decoding not in plans:
+            commit_inds, dec_inds, _, synd_dec_inds = current_round_inds(
+                dcm=self.dcm,
+                decoding=decoding,
+                window=self.window,
+                commit=self.commit,
+                num_checks=self.num_checks,
+            )
+            plans[decoding] = _Window(
+                commit_inds, dec_inds, synd_dec_inds, self.dcm[synd_dec_inds, :]
+            )
+        return plans[decoding]
+
+    def _rows_table(self, key, rows) -> torch.Tensor:
+        """``rows``' columns as a padded gather table on the device
+        (:func:`device_scan.row_columns`), built once under ``key``. The
+        pad is the index one past the last column, a zero column of the
+        resident correction."""
+        from ldpc_tpu_torch.ckt_noise.device_scan import row_columns
+
+        tables = self.__dict__.setdefault("_tables", {})
+        if key not in tables:
+            table = row_columns(rows, self.dcm.shape[1])
+            tables[key] = torch.from_numpy(table).to(self.device)
+        return tables[key]
+
+    def _resident(self) -> bool:
+        """Whether a call keeps its state on the device: the window
+        decoders take device syndromes (``_decode_batch_device``). Window
+        0's decoder is built here as the first window would build it."""
+        decoder = self._get_decoder(0, self._plan(0).round_dcm, self._get_weights())
+        return hasattr(decoder, "_decode_batch_device")
+
     # -- decoding ----------------------------------------------------------
     def decode(self, syndrome: np.ndarray) -> np.ndarray:
         """Decode one shot of detector data into observable predictions
@@ -203,17 +252,24 @@ class BaseOverlappingWindowDecoder:
         corrections)``: the (num_shots, num_mechanisms) total correction of
         :meth:`_corr_multiple_rounds_batch`, uint8, or with
         ``bit_packed_predictions`` bit-packed little-endian along axis 1
-        (``ceil(num_mechanisms / 8)`` bytes a shot) as the predictions are."""
+        (``ceil(num_mechanisms / 8)`` bytes a shot) as the predictions are.
+
+        When the window decoders take device syndromes the whole call runs
+        on the device: only the shots go up (packed, if they came packed)
+        and only the results come down (packed, if asked)."""
         shots = np.asarray(shots)
         count("owd.shots", shots.shape[0])
         with span("owd.decode_batch", lanes=shots.shape[0]):
+            if self._resident():
+                total = self._resident_corrections(self._upload(shots, bit_packed_shots))
+                return self._download(
+                    total, bit_packed_predictions, return_corrections
+                )
             if bit_packed_shots:
                 shots = np.unpackbits(shots, axis=1, bitorder="little")[
                     :, : self.num_detectors
                 ]
-            corrs = self._corr_multiple_rounds_batch(
-                shots.astype(np.uint8).copy()
-            )
+            corrs = self._host_corrections(shots.astype(np.uint8).copy())
             with span("owd.predict"):
                 predictions = (
                     (corrs @ np.asarray(self.logical_observables_matrix.todense()).T)
@@ -228,16 +284,42 @@ class BaseOverlappingWindowDecoder:
     def _corr_multiple_rounds_batch(self, shots: np.ndarray) -> np.ndarray:
         """All shots of each window decode in one batched call
         (cf. the reference's per-shot loop,
-        base_overlapping_window_decoder.py:178-225). When the DCM is
-        time-translation invariant, the middle windows run on the device
-        (ckt_noise/device_scan.py: the shots and the running correction go
-        there once, and the correction comes back once) and only the two
-        boundary windows take the host path."""
-        num_shots = shots.shape[0]
-        total_corr = np.zeros((num_shots, self.dcm.shape[1]), dtype=np.uint8)
+        base_overlapping_window_decoder.py:178-225); returns the
+        (num_shots, num_mechanisms) uint8 total correction."""
+        if self._resident():
+            total = self._resident_corrections(self._upload(shots, False))
+            return self._download(total, False, True)[1]
+        return self._host_corrections(shots)
+
+    # -- the resident path ---------------------------------------------------
+    def _upload(self, shots: np.ndarray, bit_packed: bool) -> torch.Tensor:
+        """The (B, num_detectors) uint8 shots on the device; packed shots
+        go up packed and are unpacked there."""
+        shots = np.asarray(shots)
+        if shots.dtype not in (np.uint8, np.bool_):
+            shots = shots.astype(np.uint8)
+        with span("owd.h2d"):
+            with sync("owd_shots_h2d"):
+                dev = torch.from_numpy(np.ascontiguousarray(shots))
+                dev = dev.to(self.device, copy=True)  # never the caller's memory
+            if bit_packed:
+                return gf2.unpack_bits_u8_device(dev, self.num_detectors)
+            return dev.to(torch.uint8)
+
+    def _resident_corrections(self, shots: torch.Tensor) -> torch.Tensor:
+        """Every window of the call on device tensors, with the host loop's
+        arithmetic: returns the (B, num_mechanisms + 1) uint8 total
+        correction, its last column zero (the gather tables' pad). The
+        middle windows go to ``make_device_owd`` when the DCM is
+        time-translation invariant; the others decode through their
+        decoder's ``_decode_batch_device``. Mutates ``shots``."""
+        num_cols = self.dcm.shape[1]
+        total = torch.zeros(
+            (shots.shape[0], num_cols + 1), dtype=torch.uint8, device=shots.device
+        )
         weights = self._get_weights().copy()
         scan = self._maybe_device_scan()
-        pristine = shots.copy() if scan is not None else None
+        pristine = shots.clone() if scan is not None else None
 
         decoding = 0
         while decoding < self.decodings:
@@ -246,61 +328,96 @@ class BaseOverlappingWindowDecoder:
                 # the device windows read the UNADJUSTED detector history
                 # and recompute each window's committed-syndrome adjustment
                 # from the running correction
-                with span("owd.h2d"):
-                    with sync("owd_shots_h2d"):
-                        shots_dev = torch.from_numpy(pristine).to(self.device)
-                    with sync("owd_corr_h2d"):
-                        corr_dev = torch.from_numpy(total_corr).to(self.device)
-                corr_dev = fn(shots_dev, corr_dev)
-                with span("owd.d2h"):
-                    with sync("owd_corr_d2h"):
-                        total_corr = corr_dev.cpu().numpy().astype(np.uint8)
-                # host bookkeeping for the remaining windows: scanned
-                # commits pin their columns, and the resumed window's
-                # rows are reconstructed from pristine shots + the full
-                # running correction (exactly the value the host loop's
-                # telescoping passes would have left there)
+                total[:, :num_cols] = fn(pristine, total[:, :num_cols])
+                count("owd.windows.resident", uw.w_hi - uw.w_lo)
+                # scanned commits pin their columns, and the resumed
+                # window's rows are reconstructed from pristine shots + the
+                # full running correction (exactly the value the host
+                # loop's telescoping passes would have left there)
                 with span("owd.bookkeeping"):
                     for w in range(uw.w_lo, uw.w_hi):
-                        ci, _, _, _ = current_round_inds(
-                            dcm=self.dcm,
-                            decoding=w,
-                            window=self.window,
-                            commit=self.commit,
-                            num_checks=self.num_checks,
-                        )
-                        weights[ci] = self._min_weight
-                    _, _, _, si = current_round_inds(
-                        dcm=self.dcm,
-                        decoding=uw.w_hi - 1,
-                        window=self.window,
-                        commit=self.commit,
-                        num_checks=self.num_checks,
+                        weights[self._plan(w).commit_inds] = self._min_weight
+                    plan = self._plan(uw.w_hi - 1)
+                    si = plan.synd_dec_inds
+                    shots[:, si] = pristine[:, si] ^ _parity(
+                        total, self._rows_table(("rows", uw.w_hi - 1), plan.round_dcm)
                     )
-                    rdcm = self.dcm[si, :]
-                    shots[:, si] = pristine[:, si] ^ (
-                        (total_corr @ rdcm.T) % 2
-                    ).astype(shots.dtype)
                 decoding = uw.w_hi
                 continue
             count("owd.windows.host")
+            count("owd.windows.resident")
             with span("owd.window"):
-                self._host_decode_window(
-                    decoding, shots, total_corr, weights
-                )
+                self._resident_window(decoding, shots, total, weights)
             decoding += 1
+        return total
+
+    def _resident_window(self, decoding, shots, total, weights):
+        """One window of the loop on device tensors (mutates its tensor
+        arguments and ``weights``): the host loop's ``+=`` commits and its
+        XOR of the syndrome rows with the running correction's parity."""
+        plan = self._plan(decoding)
+        decoder = self._get_decoder(decoding, plan.round_dcm, weights)
+        rows = plan.synd_dec_inds
+        corr = decoder._decode_batch_device(shots[:, rows].contiguous())
+        if decoding != self.decodings - 1:
+            total[:, plan.commit_inds] += corr[:, plan.commit_inds]
+            shots[:, rows] ^= _parity(
+                total, self._rows_table(("rows", decoding), plan.round_dcm)
+            )
+            weights[plan.commit_inds] = self._min_weight
+        else:
+            total[:, plan.dec_inds] += corr[:, plan.dec_inds]
+
+    def _download(self, total, bit_packed: bool, return_corrections: bool):
+        """The predictions (the parity of the total correction on each
+        observable's columns) and, when asked, the corrections, packed on
+        the device when asked, then copied to the host: packed, both in one
+        copy, split on the host into contiguous arrays. Packing takes
+        nonzero as 1, as ``np.packbits`` does; unpacked corrections keep
+        their values."""
+        with span("owd.predict"):
+            obs = self._rows_table("observables", self.logical_observables_matrix)
+            predictions = _parity(total, obs).to(torch.bool)
+            corrs = total[:, :-1]
+            if bit_packed:
+                predictions = gf2.pack_bits_u8(predictions)
+                if return_corrections:
+                    both = torch.cat([predictions, gf2.pack_bits_u8(corrs != 0)], dim=1)
+            elif return_corrections:
+                corrs = corrs.contiguous()
+        with span("owd.d2h"):
+            if bit_packed and return_corrections:
+                with sync("owd_results_d2h"):
+                    both = both.cpu().numpy()
+                width = predictions.shape[1]
+                predictions = np.ascontiguousarray(both[:, :width])
+                corrs = np.ascontiguousarray(both[:, width:])
+            else:
+                with sync("owd_predictions_d2h"):
+                    predictions = predictions.cpu().numpy()
+                if return_corrections:
+                    with sync("owd_corr_d2h"):
+                        corrs = corrs.cpu().numpy()
+        count("owd.d2h_bytes", predictions.nbytes + (corrs.nbytes if return_corrections else 0))
+        return (predictions, corrs) if return_corrections else predictions
+
+    # -- the host loop ---------------------------------------------------------
+    def _host_corrections(self, shots: np.ndarray) -> np.ndarray:
+        """The windows one after another as numpy arrays, for window
+        decoders that take host syndromes only (mutates ``shots``)."""
+        total_corr = np.zeros((shots.shape[0], self.dcm.shape[1]), dtype=np.uint8)
+        weights = self._get_weights().copy()
+        for decoding in range(self.decodings):
+            count("owd.windows.host")
+            with span("owd.window"):
+                self._host_decode_window(decoding, shots, total_corr, weights)
         return total_corr
 
     def _host_decode_window(self, decoding, shots, total_corr, weights):
         """One window of the host loop (mutates its array arguments)."""
-        commit_inds, dec_inds, _, synd_dec_inds = current_round_inds(
-            dcm=self.dcm,
-            decoding=decoding,
-            window=self.window,
-            commit=self.commit,
-            num_checks=self.num_checks,
-        )
-        round_dcm = self.dcm[synd_dec_inds, :]
+        plan = self._plan(decoding)
+        commit_inds, dec_inds = plan.commit_inds, plan.dec_inds
+        synd_dec_inds, round_dcm = plan.synd_dec_inds, plan.round_dcm
         decoder = self._get_decoder(decoding, round_dcm, weights)
 
         window_shots = shots[:, synd_dec_inds].astype(np.uint8)
@@ -319,6 +436,21 @@ class BaseOverlappingWindowDecoder:
             weights[commit_inds] = self._min_weight
         else:
             total_corr[:, dec_inds] += corr[:, dec_inds]
+
+
+class _Window(NamedTuple):
+    """A window's column ranges, detector rows and their check matrix."""
+
+    commit_inds: slice
+    dec_inds: slice
+    synd_dec_inds: slice
+    round_dcm: csr_matrix
+
+
+def _parity(total: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B, R) uint8: each table row's parity of ``total``'s values on its
+    columns, an exact integer sum & 1 (``(total @ rows.T) % 2``)."""
+    return (total[:, table].sum(dim=2, dtype=torch.int32) & 1).to(torch.uint8)
 
 
 def current_round_inds(

@@ -159,18 +159,29 @@ def analyze_uniform_windows(
     )
 
 
+def row_columns(H, pad: int) -> np.ndarray:
+    """Each row's columns of the GF(2) matrix ``H`` (dense or sparse; an
+    even entry counts as 0), as an (R, k) int64 table padded with ``pad``,
+    the index of a column that holds zeros: a row's parity against x is
+    the sum of x on its entries, an exact integer sum, & 1."""
+    H = csr_matrix(H).astype(np.int64)
+    H.sum_duplicates()
+    H.data %= 2
+    H.eliminate_zeros()
+    counts = np.diff(H.indptr)
+    k = max(int(counts.max(initial=0)), 1)
+    table = np.full((H.shape[0], k), pad, np.int64)
+    rows = np.repeat(np.arange(H.shape[0]), counts)
+    table[rows, np.arange(H.nnz) - np.repeat(H.indptr[:-1], counts)] = H.indices
+    return table
+
+
 def lookback_rows(H_win: np.ndarray, lookback: int) -> np.ndarray:
     """Each window row's look-back columns, as an (R, k) int64 table padded
     with ``lookback`` (a zero column appended to the look-back block): the
     committed-syndrome adjustment of a row is the parity of the running
-    correction on its entries, an exact integer sum."""
-    block = np.asarray(H_win[:, :lookback], np.uint8)
-    k = max(int(block.sum(axis=1).max(initial=0)), 1)
-    table = np.full((block.shape[0], k), lookback, np.int64)
-    for r in range(block.shape[0]):
-        cols = np.flatnonzero(block[r])
-        table[r, : cols.size] = cols
-    return table
+    correction on its entries."""
+    return row_columns(np.asarray(H_win, np.uint8)[:, :lookback], lookback)
 
 
 def make_device_owd(

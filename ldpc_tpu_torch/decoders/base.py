@@ -233,6 +233,11 @@ class BpDecoderBase:
         """
         with sync("syndromes_h2d"):
             syn = torch.from_numpy(syndromes).to(self._device)
+        return self._decode_cascade_device(syn, post_fn)
+
+    def _decode_cascade_device(self, syn: torch.Tensor, post_fn=None) -> tuple:
+        """:meth:`_decode_cascade` on (B, m) uint8 syndromes already on the
+        decoder's device: no copy of the batch in, device tensors out."""
         nonzero = (syn != 0).any(dim=1)
         bp, failed = self._run_bp_two_phase(syn, ~nonzero)
         dec, llr, conv, iters = bp

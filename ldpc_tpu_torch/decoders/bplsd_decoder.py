@@ -31,6 +31,7 @@ from ldpc_tpu_torch.decoders.lsd_stats import compute_lsd_statistics
 from ldpc_tpu_torch.ops import gf2
 from ldpc_tpu_torch.ops import lsd as lsd_ops
 from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.utils.profiling import sync
 
 
 class BpLsdDecoder(BpDecoderBase):
@@ -209,21 +210,10 @@ class BpLsdDecoder(BpDecoderBase):
         syndromes = self._coerce_batch_syndromes(
             syndromes, bit_packed_syndromes
         )
-        if syndromes.shape[1] != self.m:
-            raise ValueError(
-                f"The syndromes must have shape (batch, {self.m}). "
-                f"Not {syndromes.shape}."
-            )
         t0 = time.perf_counter()
-        lsd_fn = self._lsd_decode_fn()
-
-        def post_fn(syn_f, llr_f):
-            return (lsd_fn(syn_f, llr_f)[0],)
-
-        if self.always_run_lsd:
-            out = self._decode_always(syndromes, post_fn)
-        else:
-            out = self._decode_cascade(syndromes, post_fn)[0]
+        with sync("syndromes_h2d"):
+            syn = torch.from_numpy(syndromes).to(self._device)
+        out = self._decode_batch_device(syn)
         self._bp_decoding = _to_numpy(self._bp_batch[0])
         result = _to_numpy(gf2.pack_bits_u8(out) if bit_packed_output else out)
         self._decoding = _to_numpy(out[0])
@@ -258,9 +248,28 @@ class BpLsdDecoder(BpDecoderBase):
         self._statistics.lsd_method = max(self._lsd_method, -1) + 1
         return result
 
-    def _decode_always(self, syndromes: np.ndarray, post_fn) -> torch.Tensor:
-        """One full-depth BP run, then ``post_fn`` on every nonzero lane."""
-        syn = torch.from_numpy(syndromes).to(self._device)
+    def _decode_batch_device(self, syndromes: torch.Tensor) -> torch.Tensor:
+        """``decode_batch`` on (B, m) uint8 syndromes on the decoder's
+        device: the (B, n) uint8 decodings stay there; of the batch only the
+        stored flags and iteration counts come to the host. The single-row
+        properties and the statistics are not updated."""
+        if syndromes.shape[1] != self.m:
+            raise ValueError(
+                f"The syndromes must have shape (batch, {self.m}). "
+                f"Not {tuple(syndromes.shape)}."
+            )
+        lsd_fn = self._lsd_decode_fn()
+
+        def post_fn(syn_f, llr_f):
+            return (lsd_fn(syn_f, llr_f)[0],)
+
+        if self.always_run_lsd:
+            return self._decode_always(syndromes, post_fn)
+        return self._decode_cascade_device(syndromes, post_fn)[0]
+
+    def _decode_always(self, syn: torch.Tensor, post_fn) -> torch.Tensor:
+        """One full-depth BP run on (B, m) device syndromes, then
+        ``post_fn`` on every nonzero lane."""
         nonzero = (syn != 0).any(dim=1)
         bp = self._run_bp_batch(syn)
         out = bp.decoding * nonzero[:, None].to(bp.decoding.dtype)

@@ -193,42 +193,57 @@ class BpOsdDecoder(BpDecoderBase):
         syndromes = self._coerce_batch_syndromes(
             syndromes, bit_packed_syndromes
         )
+        return self._decode_batch(syndromes, bit_packed_output)
+
+    def _decode_batch_device(self, syndromes: torch.Tensor) -> torch.Tensor:
+        """``decode_batch`` on (B, m) uint8 syndromes on the decoder's
+        device: the (B, n) uint8 decodings stay there; of the batch only the
+        stored flags and iteration counts come to the host. The single-row
+        properties (``decoding``, ``bp_decoding``) are not updated."""
+        return self._decode_batch(syndromes, None)
+
+    def _decode_batch(self, syndromes, bit_packed_output: Optional[bool]):
+        """Both entries' call: a numpy batch is copied to the device first
+        (``_decode_cascade``), a device batch is decoded where it is; with
+        ``bit_packed_output`` None the device decodings are returned."""
         if syndromes.shape[1] != self.m:
             raise ValueError(
                 f"The syndromes must have shape (batch, {self.m}). "
-                f"Not {syndromes.shape}."
+                f"Not {tuple(syndromes.shape)}."
             )
         count("lanes.in", syndromes.shape[0])
         with span("decode_batch", lanes=syndromes.shape[0]):
-            return self._decode_batch(syndromes, bit_packed_output)
+            post_fn = None
+            if self._osd_method != osd_ops.OSD_OFF:
+                osd_fn = self._osd_decode_fn()
 
-    def _decode_batch(self, syndromes: np.ndarray, bit_packed_output: bool) -> np.ndarray:
-        post_fn = None
-        if self._osd_method != osd_ops.OSD_OFF:
-            osd_fn = self._osd_decode_fn()
+                def post_fn(syn_f, llr_f):
+                    osd0, osdw, _ = osd_fn(syn_f, llr_f)
+                    return osd0, osdw
 
-            def post_fn(syn_f, llr_f):
-                osd0, osdw, _ = osd_fn(syn_f, llr_f)
-                return osd0, osdw
-
-        outs = self._decode_cascade(syndromes, post_fn)
-        self._osd0_batch, out = outs[0], outs[-1]
-        self._osdw_batch = out
-        with span("decoder.d2h"):
-            with sync("bp_row0"):
-                self._bp_decoding = _to_numpy(self._bp_batch[0])
-            if bit_packed_output:
-                with sync("output"):
-                    packed = _to_numpy(gf2.pack_bits_u8(out))
-                row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
-                result = packed
+            if isinstance(syndromes, torch.Tensor):
+                outs = self._decode_cascade_device(syndromes, post_fn)
             else:
-                with sync("output"):
-                    result = _to_numpy(out)
-                row0 = result[0]
-        self._osdw_decoding = row0
-        self._decoding = row0
-        return result
+                outs = self._decode_cascade(syndromes, post_fn)
+            self._osd0_batch, out = outs[0], outs[-1]
+            self._osdw_batch = out
+            if bit_packed_output is None:
+                return out
+            with span("decoder.d2h"):
+                with sync("bp_row0"):
+                    self._bp_decoding = _to_numpy(self._bp_batch[0])
+                if bit_packed_output:
+                    with sync("output"):
+                        packed = _to_numpy(gf2.pack_bits_u8(out))
+                    row0 = gf2.unpack_bits_u8(packed[:1], self.n)[0]
+                    result = packed
+                else:
+                    with sync("output"):
+                        result = _to_numpy(out)
+                    row0 = result[0]
+            self._osdw_decoding = row0
+            self._decoding = row0
+            return result
 
     # ------------------------------------------------------------------
     # result properties

@@ -416,13 +416,13 @@ def test_boundary_windows_take_infinite_priors_without_nan(monkeypatch):
     j = J.BpOsdOverlappingWindowDecoder(dem, **kwargs)
     t = T.BpOsdOverlappingWindowDecoder(dem, device="cpu", **kwargs)
     given = {}
-    decode_batch = BpOsdDecoder.decode_batch
+    decode_batch = BpOsdDecoder._decode_batch_device
 
-    def record(self, syndromes, **kw):
-        given[id(self)] = np.asarray(syndromes).copy()
-        return decode_batch(self, syndromes, **kw)
+    def record(self, syndromes):
+        given[id(self)] = syndromes.cpu().numpy().copy()
+        return decode_batch(self, syndromes)
 
-    monkeypatch.setattr(BpOsdDecoder, "decode_batch", record)
+    monkeypatch.setattr(BpOsdDecoder, "_decode_batch_device", record)
     ct = t._corr_multiple_rounds_batch(shots.copy())
     assert np.array_equal(ct, j._corr_multiple_rounds_batch(shots.copy()))
     last = kwargs["decodings"] - 1

@@ -2,7 +2,9 @@
 package's on the CPU (the DEM and its shots: tests/test_torch_ckt_noise.py):
 the corrections of ``_corr_multiple_rounds_batch`` and the predictions of
 ``decode_batch`` (packed and unpacked), lane for lane, for both BP families
-through the device windows and through the forced host loop.
+through the device windows and through the forced host loop; the resident
+call's returned corrections and its counters; and a window decoder without
+the device entry, which keeps the numpy loop.
 """
 
 import numpy as np
@@ -13,6 +15,7 @@ import jax.numpy as jnp
 
 import ldpc_tpu.ckt_noise as J
 import ldpc_tpu_torch.ckt_noise as T
+from ldpc_tpu_torch.utils import profiling as pf
 from test_torch_ckt_noise import _surface_shots
 
 torch.set_num_threads(1)
@@ -68,3 +71,74 @@ def test_owd_matches_jax(family, path):
     packed = np.packbits(shots, axis=1, bitorder="little")
     out = t.decode_batch(packed, bit_packed_shots=True, bit_packed_predictions=True)
     assert np.array_equal(out, np.packbits(want, axis=1, bitorder="little"))
+
+
+def _port(family, path, dem, kwargs, cls=None):
+    t = (cls or FAMILIES[family][1])(dem, device="cpu", **kwargs)
+    if path == "host":
+        t._device_scan = None
+    return t
+
+
+def _recorded(fn, *args, **kwargs):
+    """``fn``'s result and the counters it recorded."""
+    pf.drain()
+    pf.record(True)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        pf.record(False)
+    return out, pf.drain().counters
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+@pytest.mark.parametrize("path", ["device", "host"])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_resident_call_returns_jax_corrections(family, path, packed):
+    """A call on the resident state returns the JAX package's corrections,
+    values and dtype, or ``np.packbits`` of them, and their predictions;
+    every window decodes on the resident state, and only the returned
+    arrays cross back to the host."""
+    dem, kwargs, shots, _, mats = _surface_shots()
+    t = _port(family, path, dem, kwargs)
+    cj = _jax_corrections(family, shots, kwargs, dem)[path]
+    want = (cj @ np.asarray(mats.observables_matrix.todense()).T % 2).astype(bool)
+    x = np.packbits(shots, axis=1, bitorder="little") if packed else shots
+    (pred, corr), counters = _recorded(
+        t.decode_batch, x.copy(), bit_packed_shots=packed, bit_packed_predictions=packed,
+        return_corrections=True)
+    if packed:
+        cj, want = (np.packbits(a, axis=1, bitorder="little") for a in (cj, want))
+    assert corr.dtype == cj.dtype and np.array_equal(corr, cj)
+    assert pred.dtype == want.dtype and np.array_equal(pred, want)
+    assert counters["owd.windows.resident"] == kwargs["decodings"]
+    assert counters["owd.d2h_bytes"] == pred.nbytes + corr.nbytes
+
+
+class _NumpyOnly:
+    """A window decoder that offers only a numpy ``decode_batch``."""
+
+    def __init__(self, decoder):
+        self._decoder = decoder
+
+    def decode_batch(self, syndromes):
+        return self._decoder.decode_batch(syndromes)
+
+
+class _NumpyOnlyOwd(T.BpOsdOverlappingWindowDecoder):
+    def _init_decoder(self, round_dcm, weights):
+        return _NumpyOnly(super()._init_decoder(round_dcm, weights))
+
+
+def test_window_decoder_without_device_entry_keeps_numpy_loop():
+    """Window decoders without ``_decode_batch_device`` keep the numpy
+    loop over every window: the same corrections as the JAX package's host
+    loop and no window on the resident state."""
+    dem, kwargs, shots, _, _ = _surface_shots()
+    t = _port("bposd", "device", dem, kwargs, _NumpyOnlyOwd)
+    ct, counters = _recorded(t._corr_multiple_rounds_batch, shots.copy())
+    cj = _jax_corrections("bposd", shots, kwargs, dem)["host"]
+    assert ct.dtype == cj.dtype and np.array_equal(ct, cj)
+    assert counters.get("owd.windows.resident", 0) == 0 and "owd.d2h_bytes" not in counters
+    assert counters["owd.windows.host"] == kwargs["decodings"]
+    assert "owd.windows.device" not in counters

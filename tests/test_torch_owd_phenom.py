@@ -11,7 +11,10 @@ benchmark's plain reference on a small phenomenological memory experiment
 - ``decode_batch(..., return_corrections=True)`` returns the corrections of
   ``_corr_multiple_rounds_batch``, bit-packed little-endian with
   ``bit_packed_predictions``, and the default return is unchanged for both
-  BP families.
+  BP families;
+- the resident path's arithmetic equals the numpy loop's on the same
+  window decodings (a stand-in window decoder that echoes its syndromes),
+  2s included.
 
 The small experiment: the unrotated d=5 surface code over 10 rounds at
 p = q = 0.02, windows of 4 rounds committing 2, so 4 decodings and the
@@ -140,3 +143,52 @@ def test_default_return_is_the_predictions(family):
     packed = dec.decode_batch(np.packbits(shots, axis=1, bitorder="little"),
                               bit_packed_shots=True, bit_packed_predictions=True)
     assert np.array_equal(packed, np.packbits(want, axis=1, bitorder="little"))
+
+
+class _EchoDecoder:
+    """A window decoder whose decoding of a column is its syndrome bit at
+    the column's index modulo m: a function of the syndromes it is given,
+    so a syndrome update that differs shows; where two windows both set a
+    column, the host loop's ``+=`` leaves a 2."""
+
+    def __init__(self, round_dcm):
+        self.cols = np.arange(round_dcm.shape[1]) % round_dcm.shape[0]
+
+    def decode_batch(self, syndromes):
+        return np.asarray(syndromes, np.uint8)[:, self.cols]
+
+
+class _ResidentEchoDecoder(_EchoDecoder):
+    def _decode_batch_device(self, syndromes):
+        return syndromes[:, torch.from_numpy(self.cols).to(syndromes.device)]
+
+
+class _EchoOwd(T.BpOsdOverlappingWindowDecoder):
+    window_decoder = _EchoDecoder
+
+    def _init_decoder(self, round_dcm, weights):
+        return self.window_decoder(round_dcm)
+
+
+class _ResidentEchoOwd(_EchoOwd):
+    window_decoder = _ResidentEchoDecoder
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_resident_arithmetic_equals_the_numpy_loop(packed):
+    """The resident path's commits (``+=``), syndrome updates and
+    predictions equal the numpy loop's on the same window decodings, every
+    window through the loop, 2s included: unpacked corrections keep them,
+    packing takes them as 1."""
+    _, model, shots = _experiment()
+    outs = []
+    for cls in (_EchoOwd, _ResidentEchoOwd):
+        dec = _decoder(model, "host", cls)
+        x = np.packbits(shots, axis=1, bitorder="little") if packed else shots
+        outs.append(_quiet(dec.decode_batch, x.copy(), bit_packed_shots=packed,
+                           bit_packed_predictions=packed, return_corrections=True))
+    (p_np, c_np), (p_dev, c_dev) = outs
+    assert p_dev.dtype == p_np.dtype and np.array_equal(p_dev, p_np)
+    assert c_dev.dtype == c_np.dtype and np.array_equal(c_dev, c_np)
+    if not packed:
+        assert (c_np == 2).any() and c_np.max() == 2

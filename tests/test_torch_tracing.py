@@ -482,12 +482,12 @@ def test_owd_span_tree_of_a_call():
                 if s.parent >= 0 and spans[s.parent].name == name and s.call == call]
 
     assert children("owd.decode_batch") == [
-        "owd.window", "owd.h2d", "owd.scan", "owd.d2h", "owd.bookkeeping", "owd.window",
-        "owd.predict"]
+        "owd.h2d", "owd.window", "owd.scan", "owd.bookkeeping", "owd.window", "owd.predict",
+        "owd.d2h"]
     assert children("owd.window") == ["decode_batch"] * 2
     assert children("owd.scan") == ["owd.scan.window"] * 2
-    assert children("owd.h2d") == ["sync.owd_shots_h2d", "sync.owd_corr_h2d"]
-    assert children("owd.d2h") == ["sync.owd_corr_d2h"]
+    assert children("owd.h2d") == ["sync.owd_shots_h2d"]
+    assert children("owd.d2h") == ["sync.owd_predictions_d2h", "sync.owd_corr_d2h"]
     # each device window's lane selection, then OSD-0 on its unconverged lanes
     assert children("owd.scan.window") == sum(
         (["sync.owd_select"] + ["osd"] * (work[w]["osd_lanes"] > 0) for w in (1, 2)), [])
@@ -497,7 +497,8 @@ def test_owd_span_tree_of_a_call():
     assert counters["owd.windows.host"] == 2 * calls
     assert counters["owd.windows.device"] == 2 * calls
     assert counters["lanes.in"] == 2 * calls * OWD_B  # the boundary windows' BpOsdDecoder
-    for cause, n in (("owd_shots_h2d", 1), ("owd_corr_h2d", 1), ("owd_corr_d2h", 1),
+    assert counters["owd.windows.resident"] == 4 * calls
+    for cause, n in (("owd_shots_h2d", 1), ("owd_predictions_d2h", 1), ("owd_corr_d2h", 1),
                      ("owd_select", 2)):
         assert counters["sync." + cause] == n * calls
         assert sum(s.name == "sync." + cause for s in spans) == n * calls
@@ -505,9 +506,36 @@ def test_owd_span_tree_of_a_call():
 
 def test_owd_host_loop_spans():
     _, (spans, counters), _, _ = _owd(1, True, "host")
-    assert [s.name for s in spans if s.parent == 0] == ["owd.window"] * 4 + ["owd.predict"]
-    assert counters["owd.windows.host"] == 4 and "owd.windows.device" not in counters
-    assert not any(s.name.startswith(("owd.scan", "owd.h2d", "sync.owd")) for s in spans)
+    assert [s.name for s in spans if s.parent == 0] == (
+        ["owd.h2d"] + ["owd.window"] * 4 + ["owd.predict", "owd.d2h"])
+    assert counters["owd.windows.host"] == counters["owd.windows.resident"] == 4
+    assert "owd.windows.device" not in counters
+    assert not any(s.name.startswith(("owd.scan", "owd.bookkeeping", "sync.owd_select"))
+                   for s in spans)
+
+
+def test_owd_packed_results_come_back_in_one_copy():
+    """Packed predictions and corrections cross in one copy
+    (``sync.owd_results_d2h``), and ``owd.d2h_bytes`` counts both."""
+    from test_torch_owd_phenom import _decoder, _experiment, _quiet
+
+    _, model, shots = _experiment()
+    dec = _decoder(model, "device")
+    packed = np.packbits(shots, axis=1, bitorder="little")
+    kw = dict(bit_packed_shots=True, bit_packed_predictions=True, return_corrections=True)
+    dec.decode_batch(packed.copy(), **kw)  # builds the boundary windows' decoders
+    pf.drain()
+    pf.record(True)
+    try:
+        pred, corr = _quiet(dec.decode_batch, packed.copy(), **kw)
+    finally:
+        pf.record(False)
+    spans, counters = pf.drain()
+    d2h = [i for i, s in enumerate(spans) if s.name == "owd.d2h"]
+    assert len(d2h) == 1
+    assert [s.name for s in spans if s.parent == d2h[0]] == ["sync.owd_results_d2h"]
+    assert counters["owd.d2h_bytes"] == pred.nbytes + corr.nbytes == OWD_B * (1 + corr.shape[1])
+    assert pred.flags.c_contiguous and corr.flags.c_contiguous
 
 
 def test_owd_recorder_off_records_nothing_and_syncs_alike():
