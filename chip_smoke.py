@@ -104,6 +104,7 @@ from ldpc_tpu_torch.monte_carlo_simulation.memory_experiment import build_multir
 from ldpc_tpu_torch import parallel
 from ldpc_tpu_torch.parallel import distributed, make_window_decoder, window
 from ldpc_tpu_torch.utils import profile_decode
+from ldpc_tpu_torch.utils import profiling as pf
 
 DISTANCE = 13
 ERROR_RATE = 0.01
@@ -480,6 +481,8 @@ def compare_bp(name, tg, syn, llr0, method, alpha, max_iter=MAX_ITER, states=(No
 # K2'-K5' variants compared and timed: a warp per lane, a block per lane,
 # and the block body on a matrix in device memory
 ELIM_VARIANTS = gf2_cuda.VARIANTS
+ELIM_KERNELS = ("osd0", "rref_export", "masked_solve", "masked_export")
+FOLD_KERNELS = ("bp_serial", "bp_soft_info", "bp_parallel_exact")
 
 
 def run_variant(kname, variant, *args):
@@ -488,10 +491,10 @@ def run_variant(kname, variant, *args):
     variant runs the batch in chunks."""
     tgx = args[0]
     counted = variant or gf2_cuda.elim_variant(kname, tgx.m, tgx.n)
-    before = gf2_cuda.VARIANT_LAUNCHES[kname][counted]
+    reset_counters()
     out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
     torch.cuda.synchronize()
-    moved = gf2_cuda.VARIANT_LAUNCHES[kname][counted] - before
+    moved = read_counters()[f"{kname}_{counted}"]
     if moved < 1 or (moved > 1 and counted != "device"):
         raise AssertionError(f"{kname}: the {counted} variant's counter moved by {moved}")
     return out
@@ -903,51 +906,41 @@ def captured_calls(module, name, run):
     return calls
 
 
+# the keys this script prints its counters under, each with the recorder's
+# counter it reads (ldpc_tpu_torch.utils.profiling lists them)
+COUNTER_KEYS = {
+    "bp_parallel": "launch.bp_parallel", "bp_shared_state": "launch.bp_parallel.shared",
+    "bp_device_state": "launch.bp_parallel.device",
+    "bp_parallel_float64": "launch.bp_parallel.float64",
+    "bp_parallel_per_lane": "launch.bp_parallel.lane_prior",
+    "mbp": "launch.mbp", "mbp_float32": "launch.mbp.float32", "mbp_float64": "launch.mbp.float64",
+    **{k: "launch." + k for k in ELIM_KERNELS},
+    **{f"{k}_{v}": f"launch.{k}.{v}" for k in ELIM_KERNELS for v in gf2_cuda.VARIANTS},
+    "flip": "launch.flip", "osd_sweep": "launch.osd_sweep",
+    **{f"osd_sweep_{v}": "launch.osd_sweep." + v for v in osd_cuda.VARIANTS},
+    **{k: "launch." + k for k in FOLD_KERNELS},
+    **{f"{k}_{v}_state": f"launch.{k}.{v}" for k in FOLD_KERNELS for v in ("shared", "device")},
+}
+
+
 def reset_counters() -> None:
-    bp_cuda.LAUNCHES = 0
-    bp_cuda.STATE_LAUNCHES.update(shared=0, device=0)
-    bp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
-    bp_cuda.PER_LANE_PRIOR_LAUNCHES = 0
-    window.HOST_SYNCS = 0
-    mbp_cuda.LAUNCHES = 0
-    mbp_cuda.DTYPE_LAUNCHES.update(float32=0, float64=0)
-    for by_variant in gf2_cuda.VARIANT_LAUNCHES.values():
-        by_variant.update(dict.fromkeys(by_variant, 0))
-    flip.FLIP_LAUNCHES = 0
-    uf.HOST_SYNCS = 0
-    uf.GROWTH_ROUNDS = 0
-    bp_fold.LAUNCHES.update(dict.fromkeys(bp_fold.LAUNCHES, 0))
-    for by_state in bp_fold.STATE_LAUNCHES.values():
-        by_state.update(shared=0, device=0)
-    osd_cuda.LAUNCHES.update(dict.fromkeys(osd_cuda.LAUNCHES, 0))
+    """Count from here: the recorder on, with nothing kept."""
+    pf.drain()
+    pf.record(True)
 
 
 def read_counters() -> dict:
-    return {
-        "bp_parallel": bp_cuda.LAUNCHES,
-        "bp_shared_state": bp_cuda.STATE_LAUNCHES["shared"],
-        "bp_device_state": bp_cuda.STATE_LAUNCHES["device"],
-        "bp_parallel_float64": bp_cuda.DTYPE_LAUNCHES["float64"],
-        "bp_parallel_per_lane": bp_cuda.PER_LANE_PRIOR_LAUNCHES,
-        "mbp": mbp_cuda.LAUNCHES,
-        "mbp_float32": mbp_cuda.DTYPE_LAUNCHES["float32"],
-        "mbp_float64": mbp_cuda.DTYPE_LAUNCHES["float64"],
-        **{kernel: sum(by_variant.values())
-           for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()},
-        **{f"{kernel}_{variant}": count
-           for kernel, by_variant in gf2_cuda.VARIANT_LAUNCHES.items()
-           for variant, count in by_variant.items()},
-        "flip": flip.FLIP_LAUNCHES,
-        "osd_sweep": sum(osd_cuda.LAUNCHES.values()),
-        **{f"osd_sweep_{variant}": count for variant, count in osd_cuda.LAUNCHES.items()},
-        **bp_fold.LAUNCHES,
-        **{f"{kernel}_{state}_state": count
-           for kernel, by_state in bp_fold.STATE_LAUNCHES.items()
-           for state, count in by_state.items()},
-        "host_syncs": uf.HOST_SYNCS,
-        "growth_rounds": uf.GROWTH_ROUNDS,
-        "window_host_syncs": window.HOST_SYNCS,
-    }
+    """The recorder off, and what it counted since :func:`reset_counters`
+    under this script's keys; the host syncs of union-find's loops and of
+    the windows' lane selection, and union-find's growth rounds, from their
+    ``sync.*`` counters."""
+    pf.record(False)
+    got = pf.drain().counters
+    out = {key: got.get(name, 0) for key, name in COUNTER_KEYS.items()}
+    out["host_syncs"] = got.get("sync.uf_any", 0) + got.get("sync.uf_growth", 0)
+    out["growth_rounds"] = got.get("sync.uf_growth", 0)
+    out["window_host_syncs"] = got.get("sync.window_select", 0) + got.get("sync.owd_select", 0)
+    return out
 
 
 ROW_CHECKS = ("all", "valid", "converged", "soft")
@@ -1056,7 +1049,6 @@ def time_flip(name, tg, graph, syn, max_iter, pfreq, **extra):
     return numbers, err
 
 
-FOLD_KERNELS = ("bp_serial", "bp_soft_info", "bp_parallel_exact")
 ORDER_NAMES = {bp_fold.ORDER_FIXED: "serial", bp_fold.ORDER_TABLE: "random",
                bp_fold.ORDER_RELATIVE: "serial_relative"}
 
@@ -1175,10 +1167,10 @@ def compare_fold(kernel, config, args, states=("shared", "device")):
     for state in states:
         counted = state or bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, llr0.dtype,
                                                  relative)
-        before = bp_fold.STATE_LAUNCHES[kernel][counted]
+        reset_counters()
         ker = cuda(*args, state=state)
         torch.cuda.synchronize()
-        if bp_fold.STATE_LAUNCHES[kernel][counted] != before + 1:
+        if read_counters()[f"{kernel}_{counted}_state"] != 1:
             raise AssertionError(f"{kernel}: the {counted} state's counter did not move")
         nlanes, err = hold_fold(kernel, ker, ref, method, config)
         res = split(ker)[0]
@@ -2402,7 +2394,7 @@ def main() -> int:
     section("4c_toric31")
     # K2'-K5' by default, which must be the device variant, against their
     # plain versions; then the decoders that reach them, against the CPU path
-    for kname in gf2_cuda.VARIANT_LAUNCHES:
+    for kname in ELIM_KERNELS:
         if gf2_cuda.elim_variant(kname, graph31.m, graph31.n) != "device":
             raise AssertionError(f"toric d=31 should take {kname}'s device variant")
     H31 = np.asarray(tor31.hx.todense(), np.uint8)
@@ -2576,10 +2568,10 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        before = mbp_cuda.LAUNCHES
+        reset_counters()
         ker = mbp_cuda.mbp_cuda(*args)
         torch.cuda.synchronize()
-        launches = mbp_cuda.LAUNCHES - before
+        launches = read_counters()["mbp"]
         nlanes, err = hold_mbp(ker, ref, "mbp_time")
         lane_iterations = int(ker[3].sum())
         moved = nbytes(mbp_syn_d, *params[torch.float64], g4.chk_bits, g4.chk_val, g4.var_chks,
@@ -2644,10 +2636,10 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    before = bp_cuda.DTYPE_LAUNCHES["float64"]
+    reset_counters()
     ker = single_scan_64()
     torch.cuda.synchronize()
-    launches = bp_cuda.DTYPE_LAUNCHES["float64"] - before
+    launches = read_counters()["bp_parallel_float64"]
     nlanes, err = hold_fold("bp_parallel", ker, ref, MINIMUM_SUM, "single_scan_f64_time")
     ss_err = max(ss_err, err)
     lane_iterations = int(ker.iterations.sum())

@@ -8,10 +8,10 @@
   (``make_single_scan_decoder``): min-sum keeps the fixed factor even at 0.
 - :func:`bp_parallel_cuda` launches ``csrc/bp_parallel.cu`` on a CUDA
   tensor: float32 (both methods) or float64 (min-sum, single-scan's
-  instance). It counts the launch in :data:`LAUNCHES`, by where the lanes'
-  state lived in :data:`STATE_LAUNCHES`, by dtype in
-  :data:`DTYPE_LAUNCHES` and, when the prior is ``(B, n)``, in
-  :data:`PER_LANE_PRIOR_LAUNCHES`.
+  instance). It counts the launch under ``launch.bp_parallel``, by where
+  the lanes' state lived, by dtype and, when the prior is ``(B, n)``, under
+  ``launch.bp_parallel.lane_prior`` (the recorder's table:
+  ``ldpc_tpu_torch.utils.profiling``).
 - :func:`bp_parallel` picks by the tensors' device: the CPU runs the plain
   version, a CUDA device runs the kernel, anything else raises.
 """
@@ -23,14 +23,7 @@ import torch
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, BpResult
 from ldpc_tpu_torch.ops.pcm import TorchGraph
-
-LAUNCHES = 0  # kernel launches made by bp_parallel_cuda
-# ... of them by where the lanes' state lived (see state_variant)
-STATE_LAUNCHES = {"shared": 0, "device": 0}
-# ... of them by the scalar type of the messages
-DTYPE_LAUNCHES = {"float32": 0, "float64": 0}
-# ... of them with a (B, n) prior, a row a lane
-PER_LANE_PRIOR_LAUNCHES = 0
+from ldpc_tpu_torch.utils.profiling import count
 
 _BIG = 1e30  # magnitude of absent slots in the min-sum reduction
 _MAX_DC = 32  # largest row degree the kernel is instantiated for
@@ -172,7 +165,6 @@ def bp_parallel_cuda(
     ``state`` forces where a lane's state lives (``"shared"`` or
     ``"device"``; tests only); by default :func:`state_variant` chooses by
     footprint."""
-    global LAUNCHES, PER_LANE_PRIOR_LAUNCHES
     dev = syndromes.device
     m, n, dc, dv = tg.m, tg.n, tg.dc, tg.dv
     _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
@@ -206,7 +198,7 @@ def bp_parallel_cuda(
     _require(dc <= _MAX_DC, f"row degree {dc} exceeds {_MAX_DC}")
     _require(max_iter >= 0, "max_iter must be >= 0")
     state = state_variant(m, n, dc, dt) if state is None else state
-    _require(state in STATE_LAUNCHES, f"state must be one of {tuple(STATE_LAUNCHES)}")
+    _require(state in ("shared", "device"), "state must be 'shared' or 'device'")
     shared = state == "shared"
     # the device-memory variant's c2v scratch, lane-major (B, m*dc)
     c2v = torch.empty((0 if shared else B, m * dc), dtype=dt, device=dev)
@@ -228,10 +220,11 @@ def bp_parallel_cuda(
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "bp_parallel")
-        LAUNCHES += 1
-        STATE_LAUNCHES[state] += 1
-        DTYPE_LAUNCHES[str(dt).removeprefix("torch.")] += 1
-        PER_LANE_PRIOR_LAUNCHES += int(per_lane)
+        count("launch.bp_parallel")
+        count("launch.bp_parallel." + state)
+        count("launch.bp_parallel." + str(dt).removeprefix("torch."))
+        if per_lane:
+            count("launch.bp_parallel.lane_prior")
     return BpResult(decoding=dec, llr_posterior=llr, converged=conv, iterations=iters)
 
 

@@ -15,8 +15,9 @@ kernel):
 
 For each: ``*_reference`` is the plain PyTorch version, the reference's
 steps in its order, vectorised over the batch; ``*_cuda`` launches the
-kernel on CUDA tensors and counts the launch in :data:`LAUNCHES` and, by
-where the lanes' state lived, in :data:`STATE_LAUNCHES`; the name without a
+kernel on CUDA tensors and counts the launch under ``launch.<kernel>`` and,
+by where the lanes' state lived, ``launch.<kernel>.<state>`` (the
+recorder's table: ``ldpc_tpu_torch.utils.profiling``); the name without a
 suffix picks by the tensors' device: the CPU runs the plain version, a CUDA
 device the kernel, anything else raises.
 
@@ -46,11 +47,7 @@ import torch
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, BpResult
 from ldpc_tpu_torch.ops.pcm import TorchGraph
-
-# kernel launches made by the *_cuda wrappers, and by where the lanes' state
-# lived (see state_variant)
-LAUNCHES = {"bp_serial": 0, "bp_soft_info": 0, "bp_parallel_exact": 0}
-STATE_LAUNCHES = {k: {"shared": 0, "device": 0} for k in LAUNCHES}
+from ldpc_tpu_torch.utils.profiling import count
 
 # K6's schedules: a given (n,) order, an (iterations, n) table of
 # permutations (random serial), or the lane's posteriors ranked most
@@ -531,8 +528,8 @@ def _outputs(B, n, dtype, dev):
 
 
 def _count(kernel, state):
-    LAUNCHES[kernel] += 1
-    STATE_LAUNCHES[kernel][state] += 1
+    count("launch." + kernel)
+    count(f"launch.{kernel}.{state}")
 
 
 def _check_levels(kernel, levels, rows_ok, n, dev):

@@ -11,8 +11,8 @@ when its syndrome weight reaches 0, tested after every bit
 iterations.
 
 The sweep is sequential per lane, so it runs as one kernel
-(``csrc/flip.cu``, :func:`flip_cuda`, launches counted in
-:data:`FLIP_LAUNCHES`) in which a warp scans a lane's bits 32 at a time
+(``csrc/flip.cu``, :func:`flip_cuda`, launches counted under
+``launch.flip``) in which a warp scans a lane's bits 32 at a time
 and applies the first flip it finds;
 :func:`flip_reference` is its plain PyTorch version, vectorised over the
 lanes one bit at a time, :func:`flip_scan_reference` the plain model of the
@@ -38,8 +38,7 @@ import torch
 from ldpc_tpu_torch.device import resolve_device
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.pcm import PcmGraph, TorchGraph, graph_to_torch
-
-FLIP_LAUNCHES = 0  # kernel launches made by flip_cuda
+from ldpc_tpu_torch.utils.profiling import count
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block can opt in to
 
@@ -194,7 +193,6 @@ def flip_cuda(
 ) -> FlipResult:
     """Launch the flip sweep (``csrc/flip.cu``) on CUDA tensors: one warp per
     lane, 8 lanes a block."""
-    global FLIP_LAUNCHES
     dev = syndromes.device
     m, n = tg.m, tg.n
     _require(dev.type == "cuda", f"syndromes must be on a CUDA device, not {dev}")
@@ -228,7 +226,7 @@ def flip_cuda(
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "flip")
-        FLIP_LAUNCHES += 1
+        count("launch.flip")
     return dec, conv, iters
 
 

@@ -38,8 +38,9 @@ is unused), used (B, m) bool)``; ``Wp = ceil((n+1)/32)`` and the reduced
 syndrome is bit ``n`` of each row.
 
 For each kernel, ``*_reference`` is the plain PyTorch version, ``*_cuda``
-launches the kernel on CUDA tensors and counts every launch in
-:data:`VARIANT_LAUNCHES` by variant, and the bare name picks by the
+launches the kernel on CUDA tensors and counts every launch under
+``launch.<kernel>`` and ``launch.<kernel>.<variant>`` (the recorder's table:
+``ldpc_tpu_torch.utils.profiling``), and the bare name picks by the
 tensors' device: the CPU runs the plain version, a CUDA device runs the
 kernel, anything else raises.
 """
@@ -50,15 +51,9 @@ import torch
 
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.pcm import TorchGraph
+from ldpc_tpu_torch.utils import profiling
 
 VARIANTS = ("warp", "block", "device")  # in the order of the library's variant ids
-# kernel launches made by osd0_cuda, rref_export_cuda, masked_solve_cuda and
-# masked_export_cuda, by variant (see elim_variant); a kernel's launches are
-# the sum over its variants
-VARIANT_LAUNCHES = {
-    kernel: dict.fromkeys(VARIANTS, 0)
-    for kernel in ("osd0", "rref_export", "masked_solve", "masked_export")
-}
 
 _MAX_ROWS = 32 * 1024  # 1024 threads owning at most 32 rows each
 # the most scratch a K2' or K4' launch of the device variant is given; larger
@@ -66,12 +61,6 @@ _MAX_ROWS = 32 * 1024  # 1024 threads owning at most 32 rows each
 SCRATCH_BYTES = 256 * 2**20
 
 Export = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def __getattr__(name: str) -> int:
-    if name == "LAUNCHES":  # kernel launches made by osd0_cuda, every variant
-        return sum(VARIANT_LAUNCHES["osd0"].values())
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _eliminate(tg, syndromes, order, limit, rank, fast_exit):
@@ -466,6 +455,11 @@ def _chunks(tg: TorchGraph, B: int, variant: str, dev):
     return scratch, [(a, min(a + chunk, B)) for a in range(0, B, chunk)]
 
 
+def _count(kernel: str, variant: str) -> None:
+    profiling.count("launch." + kernel)
+    profiling.count(f"launch.{kernel}.{variant}")
+
+
 def osd0_cuda(
     tg: TorchGraph, syndromes: torch.Tensor, order: torch.Tensor, rank: int,
     variant: Optional[str] = None,
@@ -490,7 +484,7 @@ def osd0_cuda(
                 _stream(dev),
             )
         _build.check(lib, rc, "osd0")
-        VARIANT_LAUNCHES["osd0"][variant] += 1
+        _count("osd0", variant)
     return x0, valid
 
 
@@ -513,7 +507,7 @@ def rref_export_cuda(
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "rref_export")
-        VARIANT_LAUNCHES["rref_export"][variant] += 1
+        _count("rref_export", variant)
     return out
 
 
@@ -542,7 +536,7 @@ def masked_solve_cuda(
                 None if scratch is None else scratch.data_ptr(), _stream(dev),
             )
         _build.check(lib, rc, "masked_solve")
-        VARIANT_LAUNCHES["masked_solve"][variant] += 1
+        _count("masked_solve", variant)
     return x0, bad_row
 
 
@@ -566,7 +560,7 @@ def masked_export_cuda(
                 *(t.data_ptr() for t in out), _stream(dev),
             )
         _build.check(lib, rc, "masked_export")
-        VARIANT_LAUNCHES["masked_export"][variant] += 1
+        _count("masked_export", variant)
     return out
 
 

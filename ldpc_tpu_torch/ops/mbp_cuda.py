@@ -4,7 +4,7 @@
 - :func:`ldpc_tpu_torch.ops.mbp.mbp_reference` is the plain PyTorch
   version.
 - :func:`mbp_cuda` launches ``csrc/mbp.cu`` on CUDA tensors and counts the
-  launch in :data:`LAUNCHES`, and by dtype in :data:`DTYPE_LAUNCHES`; its
+  launch under ``launch.mbp``, and by dtype under ``launch.mbp.<dtype>``; its
   persistent warps claim lanes from a counter the wrapper zeroes, and its
   scratch has a row a warp of the grid that :func:`launch_shape` reports:
   each warp's cache, and its slice where the slices do not fit shared
@@ -20,10 +20,7 @@ import torch
 
 from ldpc_tpu_torch.ops import _build
 from ldpc_tpu_torch.ops.mbp import MINIMUM_SUM, PRODUCT_SUM, Gf4Torch, mbp_reference
-
-LAUNCHES = 0  # kernel launches made by mbp_cuda
-# ... of them by the scalar type
-DTYPE_LAUNCHES = {"float32": 0, "float64": 0}
+from ldpc_tpu_torch.utils.profiling import count
 
 
 def _require(cond: bool, what: str) -> None:
@@ -81,7 +78,6 @@ def mbp_cuda(
     type. Returns
     ``(decoding (B, n) uint8, llrs (B, 3, n), converged (B,) bool,
     iterations (B,) int32)``."""
-    global LAUNCHES
     dev = syndromes.device
     m, n, dc, dv = g.m, g.n, g.dc, g.dv
     dt = chan.dtype
@@ -134,8 +130,8 @@ def mbp_cuda(
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(lib, rc, "mbp")
-        LAUNCHES += 1
-        DTYPE_LAUNCHES[str(dt).removeprefix("torch.")] += 1
+        count("launch.mbp")
+        count("launch.mbp." + str(dt).removeprefix("torch."))
     return dec, llr, conv, iters
 
 

@@ -5,9 +5,10 @@ kernel).
 - :func:`ldpc_tpu_torch.ops.osd.sweep_reference` is the plain PyTorch
   version, which the decoder runs on the CPU, in chunks of lanes.
 - :func:`sweep_cuda` takes the same arguments on CUDA tensors and sweeps
-  every lane in one launch, counted in :data:`LAUNCHES` by variant
-  (:func:`sweep_variant`). It returns ``(osd0, osdw)``, each (B, n) uint8,
-  equal byte for byte to the plain version's on the same device.
+  every lane in one launch, counted under ``launch.osd_sweep`` and, by
+  variant (:func:`sweep_variant`), ``launch.osd_sweep.<variant>``. It
+  returns ``(osd0, osdw)``, each (B, n) uint8, equal byte for byte to the
+  plain version's on the same device.
 """
 
 from typing import Optional, Tuple
@@ -15,9 +16,9 @@ from typing import Optional, Tuple
 import torch
 
 from ldpc_tpu_torch.ops import _build, gf2
+from ldpc_tpu_torch.utils.profiling import count
 
 VARIANTS = ("shared", "device")  # in the order of the library's variant ids
-LAUNCHES = dict.fromkeys(VARIANTS, 0)  # kernel launches made by sweep_cuda, by variant
 
 # Shared memory one H100 block can opt in to, less the kernel's static
 # shared memory (the block reduction's 32 values and indices) with room
@@ -116,5 +117,6 @@ def sweep_cuda(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "osd_sweep")
-    LAUNCHES[variant] += 1
+    count("launch.osd_sweep")
+    count("launch.osd_sweep." + variant)
     return osd0, osdw

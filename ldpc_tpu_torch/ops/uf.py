@@ -18,8 +18,8 @@ Graph sweeps are index gathers on the ELL arrays (``chk_bits``,
 ``var_chks``); keys and labels are int64, so no float bound on the code
 size applies. Fixpoint loops (label propagation, floodfills) test for
 convergence every ``_SWEEPS`` sweeps, since each test is a host sync and
-extra sweeps at a fixpoint change nothing. :data:`HOST_SYNCS` and
-:data:`GROWTH_ROUNDS` count the syncs and growth rounds for measurement.
+extra sweeps at a fixpoint change nothing. The recorder counts those syncs
+under ``sync.uf_any`` and the growth rounds' under ``sync.uf_growth``.
 
 :func:`make_uf_decoder` (inversion mode) reads its decoding from the last
 round's K4' solve; :func:`make_peel_decoder` (peeling mode) solves the grown
@@ -42,14 +42,9 @@ from ldpc_tpu_torch.utils.profiling import sync
 INF = 2**30  # no label / no key: above every check index and LLR rank
 _SWEEPS = 4  # graph sweeps between two convergence tests
 
-HOST_SYNCS = 0  # host syncs made by this module's loops
-GROWTH_ROUNDS = 0  # rounds run by grow_until_valid
-
 
 def _any(x: torch.Tensor) -> bool:
     """``x.any()`` on the host: one sync, counted (``sync.uf_any``)."""
-    global HOST_SYNCS
-    HOST_SYNCS += 1
     with sync("uf_any"):
         return bool(x.any())
 
@@ -195,7 +190,6 @@ def grow_until_valid(
     only. Returns ``(in_bit (B, n) bool, x0 (B, n) uint8 in original
     coordinates, valid (B,) bool)``.
     """
-    global GROWTH_ROUNDS, HOST_SYNCS
     B, n = llrs.shape
     dev = llrs.device
     rank = llr_rank(llrs)
@@ -215,8 +209,6 @@ def grow_until_valid(
         in_bit[idx] = torch.where(any_invalid[:, None], new_in, lane_in)
         with sync("uf_growth"):
             idx = idx[any_invalid]
-        HOST_SYNCS += 1
-        GROWTH_ROUNDS += 1
     return in_bit, x0, ~bad.any(dim=1)
 
 

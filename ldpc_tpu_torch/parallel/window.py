@@ -48,7 +48,6 @@ from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops.pcm import compile_pcm
 from ldpc_tpu_torch.utils.profiling import sync
 
-HOST_SYNCS = 0  # host syncs of the post-processor's lane selection
 ROUNDS_AXIS = "rounds"
 
 
@@ -95,10 +94,8 @@ def _postprocess(post, syn: torch.Tensor, bp: bp_ops.BpResult,
     does not depend on the other lanes, so every output equals running it
     on every lane and keeping BP's decoding where BP converged, as the JAX
     package does. Selecting the lanes is one host sync, ``sync.<cause>``."""
-    global HOST_SYNCS
     with sync(cause):
         idx = torch.nonzero(~bp.converged).squeeze(1)
-    HOST_SYNCS += 1
     if not idx.numel():
         return bp.decoding
     x = post(syn[idx], bp.llr_posterior[idx])

@@ -18,10 +18,33 @@ PyTorch profiler:
 - The recorder — spans and counters that the decode path keeps in memory
   while :func:`record` has turned it on: :func:`span` (a named region on
   the host's ``time.time_ns()`` clock), :func:`count` (a named total),
-  :func:`sync` (a host sync by cause, a span and a count), :func:`drain`
-  (take and clear what was kept) and :func:`span_table` (per span name,
-  its host, self and device-idle time a call). Off by default, and then a
-  span site costs one flag check.
+  :func:`sync` (a host sync by cause, a span and a count) and
+  :func:`drain` (take and clear what was kept). Off by default, and then a
+  span or count site costs one flag check.
+
+The recorder is the port's one counter: besides the decoders' ``lanes.*``,
+``osd.*``, ``owd.*`` and ``sync.<cause>`` counts, each hand-written
+kernel's wrapper (``ops.<module>.<kernel>_cuda``; the OSD-w sweep's is
+``osd_cuda.sweep_cuda``) counts every launch once under ``launch.<kernel>``
+and once under ``launch.<kernel>.<split>`` for each of its splits. K2′ and
+K4′ in their device variant launch once a chunk of lanes.
+
+=================  =====  ========  ==========================================
+kernel             kind   module    splits
+=================  =====  ========  ==========================================
+bp_parallel        K1′    bp_cuda   shared, device (state); float32, float64;
+                                    lane_prior (a ``(B, n)`` prior)
+osd0               K2′    gf2_cuda  warp, block, device (variant)
+rref_export        K3′    gf2_cuda  warp, block, device
+masked_solve       K4′    gf2_cuda  warp, block, device
+masked_export      K5′    gf2_cuda  warp, block, device
+bp_serial          K6′    bp_fold   shared, device (state)
+bp_soft_info       K7′    bp_fold   shared, device
+bp_parallel_exact  K8′    bp_fold   shared, device
+mbp                K9′    mbp_cuda  float32, float64
+osd_sweep          OSD-w  osd_cuda  shared, device (variant)
+flip               flip   flip      none
+=================  =====  ========  ==========================================
 """
 
 import contextlib
@@ -29,7 +52,7 @@ import itertools
 import os
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -275,7 +298,8 @@ def span(name: str, lanes: Optional[int] = None, chunk: Optional[int] = None):
 
 def count(name: str, k: int = 1) -> None:
     """Add ``k`` to the counter ``name`` while the recorder is on. ``k``
-    must already be on the host: a count adds no sync."""
+    must already be on the host: a count adds no sync. The module's
+    docstring lists the kernels' launch counters."""
     if _on:
         with _lock:
             _counters[name] = _counters.get(name, 0) + int(k)
@@ -305,59 +329,3 @@ def drain() -> Recording:
     _open.stack = []
     return Recording(spans, counters)
 
-
-def _merged(intervals) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Disjoint sorted union of ``(start, end)`` intervals: its starts, its
-    ends and the running total of its lengths (one longer, from 0)."""
-    iv = sorted(intervals)
-    starts, ends = [], []
-    for a, b in iv:
-        if ends and a <= ends[-1]:
-            ends[-1] = max(ends[-1], b)
-        else:
-            starts.append(a)
-            ends.append(b)
-    starts, ends = np.asarray(starts, np.float64), np.asarray(ends, np.float64)
-    return starts, ends, np.concatenate([[0.0], np.cumsum(ends - starts)])
-
-
-def _covered(union, a: float, b: float) -> float:
-    """How much of ``[a, b]`` the union (of :func:`_merged`) covers."""
-    starts, ends, total = union
-    i = int(np.searchsorted(ends, a, side="right"))  # first interval ending after a
-    j = int(np.searchsorted(starts, b, side="left"))  # past the last starting before b
-    if j <= i:
-        return 0.0
-    inside = total[j] - total[i]
-    inside -= max(0.0, a - starts[i])
-    inside -= max(0.0, ends[j - 1] - b)
-    return max(0.0, inside)
-
-
-def span_table(
-    spans: Sequence[Span],
-    calls: int = 1,
-    device_us: Optional[Sequence[Tuple[float, float]]] = None,
-) -> Dict[str, Dict[str, float]]:
-    """Per span name over ``calls`` calls: ``spans`` (how many), ``ms`` (host
-    wall a call), ``self_ms`` (that wall less the part its child spans
-    cover, a call) and, given the device's busy intervals ``device_us`` in
-    microseconds on the spans' clock (a profiler event's ``ts`` plus its
-    trace's ``baseTimeNanoseconds / 1e3``), ``idle_ms``: the time a call
-    inside the span in which none of them ran."""
-    children = [0] * len(spans)
-    for s in spans:
-        if s.parent >= 0:
-            children[s.parent] += s.end_ns - s.start_ns
-    busy = _merged(device_us) if device_us is not None else None
-    table: Dict[str, Dict[str, float]] = {}
-    for s, child_ns in zip(spans, children):
-        row = table.setdefault(s.name, {"spans": 0, "ms": 0.0, "self_ms": 0.0})
-        wall = (s.end_ns - s.start_ns) / 1e6
-        row["spans"] += 1
-        row["ms"] += wall / calls
-        row["self_ms"] += (wall - child_ns / 1e6) / calls
-        if busy is not None:
-            a, b = s.start_ns / 1e3, s.end_ns / 1e3
-            row["idle_ms"] = row.get("idle_ms", 0.0) + (b - a - _covered(busy, a, b)) / 1e3 / calls
-    return table

@@ -48,6 +48,7 @@ from ldpc_tpu.ops.pcm import compile_pcm
 from ldpc_tpu_torch.ops import bp as tbp
 from ldpc_tpu_torch.ops import bp_cuda, bp_fold
 from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.utils import profiling as pf
 
 torch.set_num_threads(1)
 
@@ -419,8 +420,6 @@ def test_fold_dispatch_runs_plain_versions_on_cpu(workloads):
     s = torch.from_numpy(syn)
     l64 = torch.from_numpy(llr)
     order = torch.arange(graph.n, dtype=torch.int32)
-    before = {k: dict(v) for k, v in bp_fold.STATE_LAUNCHES.items()}
-    launches = dict(bp_fold.LAUNCHES)
     cases = (
         (bp_fold.bp_serial, bp_fold.bp_serial_reference, bp_fold.bp_serial_cuda,
          (tg, s, l64, jbp.MINIMUM_SUM, 8, 0.625, order, bp_fold.ORDER_FIXED)),
@@ -429,19 +428,23 @@ def test_fold_dispatch_runs_plain_versions_on_cpu(workloads):
         (bp_fold.bp_parallel_exact, bp_fold.bp_parallel_exact_reference,
          bp_fold.bp_parallel_exact_cuda, (tg, s, l64, jbp.MINIMUM_SUM, 8, 0.625)),
     )
-    for dispatch, plain, cuda, args in cases:
-        a, b = dispatch(*args), plain(*args)
-        flat_a = list(a[0]) + [a[1]] if isinstance(a, tuple) and len(a) == 2 else list(a)
-        flat_b = list(b[0]) + [b[1]] if isinstance(b, tuple) and len(b) == 2 else list(b)
-        for x, y in zip(flat_a, flat_b):
-            assert torch.equal(x, y)
-        with pytest.raises(ValueError, match="CUDA"):
-            cuda(*args)
-        meta = (args[0], args[1].to("meta")) + args[2:]
-        with pytest.raises(ValueError, match="no kernel"):
-            dispatch(*meta)
-    assert bp_fold.LAUNCHES == launches
-    assert bp_fold.STATE_LAUNCHES == before
+    pf.drain()
+    pf.record(True)
+    try:
+        for dispatch, plain, cuda, args in cases:
+            a, b = dispatch(*args), plain(*args)
+            flat_a = list(a[0]) + [a[1]] if isinstance(a, tuple) and len(a) == 2 else list(a)
+            flat_b = list(b[0]) + [b[1]] if isinstance(b, tuple) and len(b) == 2 else list(b)
+            for x, y in zip(flat_a, flat_b):
+                assert torch.equal(x, y)
+            with pytest.raises(ValueError, match="CUDA"):
+                cuda(*args)
+            meta = (args[0], args[1].to("meta")) + args[2:]
+            with pytest.raises(ValueError, match="no kernel"):
+                dispatch(*meta)
+    finally:
+        pf.record(False)
+    assert pf.drain().counters == {}
     # K1' with its factor fixed: the dispatcher passes the flag through
     a = bp_cuda.bp_parallel(tg, s, l64.float(), jbp.MINIMUM_SUM, 8, 0.0, dynamic_alpha=False)
     assert (a.llr_posterior == l64.float()).all()

@@ -53,6 +53,7 @@ from ldpc_tpu_torch.ops import bp as tbp
 from ldpc_tpu_torch.ops import gf2 as tgf2
 from ldpc_tpu_torch.ops import osd as tosd
 from ldpc_tpu_torch.parallel import window as twindow
+from ldpc_tpu_torch.utils import profiling as pf
 from test_ckt_noise import (
     MockDem,
     MockInstruction,
@@ -326,9 +327,13 @@ def test_make_device_owd_matches_jax_scan(post):
     jfn = jscan.make_device_owd(uw, 0.0, max_iter=20, ms_scaling_factor=1.0, postprocess=post)
     tfn = tscan.make_device_owd(uw, 0.0, max_iter=20, ms_scaling_factor=1.0, postprocess=post,
                                 device="cpu")
-    syncs = twindow.HOST_SYNCS
-    out = tfn(torch.from_numpy(shots), torch.from_numpy(total))
-    assert twindow.HOST_SYNCS - syncs == uw.w_hi - uw.w_lo  # one a window
+    pf.drain()
+    pf.record(True)
+    try:
+        out = tfn(torch.from_numpy(shots), torch.from_numpy(total))
+    finally:
+        pf.record(False)
+    assert pf.drain().counters["sync.owd_select"] == uw.w_hi - uw.w_lo  # one a window
     assert out.dtype == torch.uint8 and out.device == torch.device("cpu")
     ref = np.asarray(jfn(jnp.asarray(shots), jnp.asarray(total)))
     assert np.array_equal(out.numpy(), ref)

@@ -13,7 +13,8 @@ memory DEM on the card against the CPU path; and the multi-device surface
 on a two-entry mesh of the card (``["cuda:0", "cuda:0"]``): the sharded
 Monte-Carlo and QSS steps against the sum of their entries' local steps,
 the pipeline, the rounds-sharded window decoder and check-sharded BP
-against the CPU path.
+against the CPU path; and the recorder's ``launch.*`` counters against a
+device trace of the same calls.
 
 Marked ``cuda``: every test skips without a CUDA device. This file imports
 no jax, so on a machine without it run it without the repository's
@@ -21,6 +22,9 @@ conftest (which configures jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 """
+
+import collections
+import contextlib
 
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ from ldpc_tpu_torch.ops import (bp_cuda, bp_fold, flip, gf2, gf2_cuda, mbp, mbp_
                                 osd_cuda)
 from ldpc_tpu_torch.ops.bp import MINIMUM_SUM, PRODUCT_SUM, channel_llr, serial_order_table
 from ldpc_tpu_torch.ops.pcm import compile_pcm, graph_to_torch
+from ldpc_tpu_torch.utils import profiling as pf
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +68,21 @@ def codes(dev):
     return out
 
 
+@contextlib.contextmanager
+def launches():
+    """The recorder's ``launch.*`` counters over the enclosed calls, in the
+    Counter it yields (filled on exit; a name never counted reads 0). Not
+    nested: it drains the recorder on entry and on exit."""
+    got = collections.Counter()
+    pf.drain()
+    pf.record(True)
+    try:
+        yield got
+    finally:
+        pf.record(False)
+        got.update({k: v for k, v in pf.drain().counters.items() if k.startswith("launch.")})
+
+
 def _assert_k1_equal(ker, ref, method):
     """Min-sum: bit-exact (same operations in the same order, no FMA
     contraction). Product-sum: posteriors within rtol 1e-4 (tanh/log of
@@ -88,12 +108,12 @@ def test_k1_matches_plain_version(codes, name, method, alpha, state):
     """Both places a lane's state can live, each against the plain version;
     the bare ``bp_parallel`` takes the variant its footprint chooses."""
     _, tg, syn, llr0 = codes[name]
-    before = bp_cuda.LAUNCHES
-    if state == bp_cuda.state_variant(tg.m, tg.n, tg.dc):
-        ker = bp_cuda.bp_parallel(tg, syn, llr0, method, 30, alpha)
-    else:
-        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, method, 30, alpha, state=state)
-    assert bp_cuda.LAUNCHES == before + 1
+    with launches() as n:
+        if state == bp_cuda.state_variant(tg.m, tg.n, tg.dc):
+            ker = bp_cuda.bp_parallel(tg, syn, llr0, method, 30, alpha)
+        else:
+            ker = bp_cuda.bp_parallel_cuda(tg, syn, llr0, method, 30, alpha, state=state)
+    assert n["launch.bp_parallel"] == n["launch.bp_parallel." + state] == 1
     ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, method, 30, alpha)
     torch.cuda.synchronize()
     _assert_k1_equal(ker, ref, method)
@@ -130,9 +150,9 @@ def test_k1_large_codes(dev, distance):
     llr0 = torch.from_numpy(channel_llr(np.full(graph.n, 0.03))).to(dev)
     state = bp_cuda.state_variant(graph.m, graph.n, graph.dc)
     assert state == ("shared" if distance == 24 else "device")
-    before = dict(bp_cuda.STATE_LAUNCHES)
-    ker = bp_cuda.bp_parallel(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
-    assert bp_cuda.STATE_LAUNCHES[state] == before[state] + 1
+    with launches() as n:
+        ker = bp_cuda.bp_parallel(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
+    assert n["launch.bp_parallel." + state] == 1
     ref = bp_cuda.bp_parallel_reference(tg, syn, llr0, MINIMUM_SUM, 30, 0.625)
     torch.cuda.synchronize()
     _assert_k1_equal(ker, ref, MINIMUM_SUM)
@@ -141,6 +161,7 @@ def test_k1_large_codes(dev, distance):
 
 # K2'-K5' variants, each forced
 ELIM_VARIANTS = ["warp", "block", "device"]
+ELIM_KERNELS = ("osd0", "rref_export", "masked_solve", "masked_export")
 
 
 def _k2(tg, syn, order, rank, variant):
@@ -149,16 +170,14 @@ def _k2(tg, syn, order, rank, variant):
     variant's counter moves (more than once only where the device variant
     runs the batch in chunks)."""
     counted = variant or gf2_cuda.elim_variant("osd0", tg.m, tg.n)
-    before = dict(gf2_cuda.VARIANT_LAUNCHES["osd0"])
-    total = gf2_cuda.LAUNCHES
-    if variant is None:
-        x_k, v_k = gf2_cuda.osd0(tg, syn, order, rank)
-    else:
-        x_k, v_k = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant=variant)
-    after = gf2_cuda.VARIANT_LAUNCHES["osd0"]
-    moved = after[counted] - before[counted]
+    with launches() as n:
+        if variant is None:
+            x_k, v_k = gf2_cuda.osd0(tg, syn, order, rank)
+        else:
+            x_k, v_k = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant=variant)
+    moved = n["launch.osd0." + counted]
     assert moved == 1 or (counted == "device" and moved > 1)
-    assert gf2_cuda.LAUNCHES == total + moved
+    assert n["launch.osd0"] == moved
     x_r, v_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
     torch.cuda.synchronize()
     assert x_k.dtype == x_r.dtype and v_k.dtype == v_r.dtype
@@ -284,12 +303,11 @@ def _elim(kname, variant, *args):
     """One K3'-K5' launch in a forced variant; its variant's counter moves
     (K4' more than once only where the device variant runs the batch in
     chunks)."""
-    before = dict(gf2_cuda.VARIANT_LAUNCHES[kname])
-    out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
-    after = gf2_cuda.VARIANT_LAUNCHES[kname]
-    moved = after[variant] - before[variant]
+    with launches() as n:
+        out = getattr(gf2_cuda, f"{kname}_cuda")(*args, variant=variant)
+    moved = n[f"launch.{kname}.{variant}"]
     assert moved == 1 or (moved > 1 and (kname, variant) == ("masked_solve", "device"))
-    assert sum(after.values()) == sum(before.values()) + moved
+    assert n["launch." + kname] == moved
     return out
 
 
@@ -335,25 +353,23 @@ def test_k3_k4_k5_default_variants(codes):
                            ("masked_solve", "warp"), ("masked_export", "block")):
         assert gf2_cuda.elim_variant(kname, graph20.m, graph20.n) == variant
     graph, tg, syn, order = _orders(codes, "surface13", 257)
-    for kname in gf2_cuda.VARIANT_LAUNCHES:
+    for kname in ELIM_KERNELS:
         assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "warp"
     rank = gf2.batched_rank(graph.dense)
     cnt = _counts(graph, syn, "random")
-    before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
-    _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank),
-                          gf2_cuda.rref_export_reference(tg, syn, order, rank))
-    for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
-                    gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
-        assert torch.equal(a, b)
-    _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
-                          gf2_cuda.masked_export_reference(tg, syn, order, cnt))
-    x0, valid = gf2_cuda.osd0(tg, syn, order, rank)
-    x0_r, valid_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
+    with launches() as n:
+        _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank),
+                              gf2_cuda.rref_export_reference(tg, syn, order, rank))
+        for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
+                        gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
+            assert torch.equal(a, b)
+        _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
+                              gf2_cuda.masked_export_reference(tg, syn, order, cnt))
+        x0, valid = gf2_cuda.osd0(tg, syn, order, rank)
+        x0_r, valid_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
     assert torch.equal(x0, x0_r) and torch.equal(valid, valid_r)
-    for kname, by_variant in gf2_cuda.VARIANT_LAUNCHES.items():
-        assert by_variant["warp"] == before[kname]["warp"] + 1
-        assert by_variant["block"] == before[kname]["block"]
-        assert by_variant["device"] == before[kname]["device"]
+    for kname in ELIM_KERNELS:
+        assert n["launch." + kname] == n[f"launch.{kname}.warp"] == 1
 
 
 @pytest.mark.parametrize("variant", ELIM_VARIANTS)
@@ -397,7 +413,7 @@ def test_elim_toric30(dev):
     bit-identical."""
     graph = compile_pcm(toric_code(30, compute_logicals=False).hx)
     tg = graph_to_torch(graph, dev)
-    for kname in gf2_cuda.VARIANT_LAUNCHES:
+    for kname in ELIM_KERNELS:
         assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "block"
     rng = np.random.default_rng(30)
     errors = (rng.random((48, graph.n)) < 0.03).astype(np.uint8)
@@ -409,9 +425,9 @@ def test_elim_toric30(dev):
     for variant in ELIM_VARIANTS:
         _assert_exports_equal(_elim("rref_export", variant, tg, syn, order, rank), ref)
     _assert_k4_k5(tg, syn, order, _counts(graph, syn, "edges"))
-    before = gf2_cuda.VARIANT_LAUNCHES["rref_export"]["block"]
-    _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank), ref)
-    assert gf2_cuda.VARIANT_LAUNCHES["rref_export"]["block"] == before + 1
+    with launches() as n:
+        _assert_exports_equal(gf2_cuda.rref_export(tg, syn, order, rank), ref)
+    assert n["launch.rref_export.block"] == 1
 
 
 def test_k4_first_growth_round_matches_plain_version(codes):
@@ -494,27 +510,25 @@ def test_large_codes_take_the_device_variant(dev, distance, lanes):
     d=60 (3.25 MB a lane): K2'-K5' take the device variant by themselves and
     equal their plain versions bit for bit."""
     graph, tg, syn, order = _large_code(dev, distance, lanes)
-    for kname in gf2_cuda.VARIANT_LAUNCHES:
+    for kname in ELIM_KERNELS:
         assert gf2_cuda.elim_variant(kname, graph.m, graph.n) == "device"
     rank = gf2.batched_rank(graph.dense)
-    before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
-    x0, valid = _k2(tg, syn, order, rank, None)
+    x0, valid = _k2(tg, syn, order, rank, None)  # K2''s device variant, counted there
     assert bool(valid.all())
     assert ((x0.cpu().numpy() @ graph.dense.T) % 2 == syn.cpu().numpy()).all()
-    ker = gf2_cuda.rref_export(tg, syn, order, rank)
-    _assert_exports_equal(ker, gf2_cuda.rref_export_reference(tg, syn, order, rank))
-    assert bool((ker[2].sum(dim=1) == rank).all())
-    for kind in ("edges", "random"):
-        cnt = _counts(graph, syn, kind)
-        for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
-                        gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
-            assert torch.equal(a, b)
-        _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
-                              gf2_cuda.masked_export_reference(tg, syn, order, cnt))
-    for kname, by_variant in gf2_cuda.VARIANT_LAUNCHES.items():
-        assert by_variant["device"] > before[kname]["device"]
-        assert by_variant["warp"] == before[kname]["warp"]
-        assert by_variant["block"] == before[kname]["block"]
+    with launches() as n:
+        ker = gf2_cuda.rref_export(tg, syn, order, rank)
+        _assert_exports_equal(ker, gf2_cuda.rref_export_reference(tg, syn, order, rank))
+        assert bool((ker[2].sum(dim=1) == rank).all())
+        for kind in ("edges", "random"):
+            cnt = _counts(graph, syn, kind)
+            for a, b in zip(gf2_cuda.masked_solve(tg, syn, order, cnt),
+                            gf2_cuda.masked_solve_reference(tg, syn, order, cnt)):
+                assert torch.equal(a, b)
+            _assert_exports_equal(gf2_cuda.masked_export(tg, syn, order, cnt),
+                                  gf2_cuda.masked_export_reference(tg, syn, order, cnt))
+    for kname in ELIM_KERNELS[1:]:
+        assert n[f"launch.{kname}.device"] == n["launch." + kname] > 0
 
 
 def test_device_variant_runs_a_large_batch_in_chunks(codes, monkeypatch):
@@ -525,12 +539,12 @@ def test_device_variant_runs_a_large_batch_in_chunks(codes, monkeypatch):
     monkeypatch.setattr(gf2_cuda, "SCRATCH_BYTES", 300 * lane_bytes)
     rank = gf2.batched_rank(graph.dense)
     cnt = _counts(graph, syn, "random")
-    before = {k: v["device"] for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
-    x0, valid = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant="device")
-    x4, bad = gf2_cuda.masked_solve_cuda(tg, syn, order, cnt, variant="device")
+    with launches() as n:
+        x0, valid = gf2_cuda.osd0_cuda(tg, syn, order, rank, variant="device")
+        x4, bad = gf2_cuda.masked_solve_cuda(tg, syn, order, cnt, variant="device")
     torch.cuda.synchronize()
     for kname in ("osd0", "masked_solve"):
-        assert gf2_cuda.VARIANT_LAUNCHES[kname]["device"] == before[kname] + 4
+        assert n[f"launch.{kname}.device"] == n["launch." + kname] == 4
     x0_r, valid_r = gf2_cuda.osd0_reference(tg, syn, order, rank)
     x4_r, bad_r = gf2_cuda.masked_solve_reference(tg, syn, order, cnt)
     assert torch.equal(x0, x0_r) and torch.equal(valid, valid_r)
@@ -602,10 +616,9 @@ def _sweep(args, k, method, order=5, variant=None):
     singles = method == osd.COMBINATION_SWEEP
     counted = variant or osd_cuda.sweep_variant(
         words.shape[1], weights_pad.shape[0] - 1, weights_pad.dtype)
-    before = dict(osd_cuda.LAUNCHES)
-    ker = osd_cuda.sweep_cuda(*args, pats, k, singles, variant=variant)
-    assert osd_cuda.LAUNCHES[counted] == before[counted] + 1
-    assert sum(osd_cuda.LAUNCHES.values()) == sum(before.values()) + 1
+    with launches() as n:
+        ker = osd_cuda.sweep_cuda(*args, pats, k, singles, variant=variant)
+    assert n["launch.osd_sweep." + counted] == n["launch.osd_sweep"] == 1
     ref = osd.sweep_reference(*args, pats, k, singles)
     torch.cuda.synchronize()
     for a, b in zip(ker, ref):
@@ -670,8 +683,6 @@ def test_osd_decoder_sweeps_in_one_launch(codes):
     """make_osd_decoder on the card: one osd.sweep span and osd.chunks = 1 a
     call, the kernel's one launch over every lane; both decodings and the
     validity equal the CPU path's (the plain sweep in chunks)."""
-    from ldpc_tpu_torch.utils import profiling as pf
-
     graph, tg, _, _ = codes["toric20"]
     rng = np.random.default_rng(6)
     errors = (rng.random((256, graph.n)) < SWEEP_P).astype(np.uint8)
@@ -681,14 +692,14 @@ def test_osd_decoder_sweeps_in_one_launch(codes):
     llrs = bp_cuda.bp_parallel_cuda(tg, syn.cuda(), llr0, MINIMUM_SUM, 10, 0.625)
     llrs = llrs.llr_posterior.cpu()
     card = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, "cuda")
-    before = sum(osd_cuda.LAUNCHES.values())
+    pf.drain()
     pf.record(True)
     try:
         got = card(syn.cuda(), llrs.cuda())
     finally:
         pf.record(False)
     rec = pf.drain()
-    assert sum(osd_cuda.LAUNCHES.values()) == before + 1
+    assert rec.counters["launch.osd_sweep"] == 1
     assert rec.counters["osd.chunks"] == 1
     assert [s.name for s in rec.spans].count("osd.sweep") == 1
     want = osd.make_osd_decoder(graph, channel, osd.COMBINATION_SWEEP, 5, "cpu")(syn, llrs)
@@ -697,9 +708,9 @@ def test_osd_decoder_sweeps_in_one_launch(codes):
 
 
 def _assert_flip_equal(tg, syn, max_iter, pfreq, seed=7):
-    before = flip.FLIP_LAUNCHES
-    ker = flip.flip(tg, syn, max_iter, pfreq, seed)
-    assert flip.FLIP_LAUNCHES == before + 1
+    with launches() as n:
+        ker = flip.flip(tg, syn, max_iter, pfreq, seed)
+    assert n["launch.flip"] == 1
     ref = flip.flip_reference(tg, syn, max_iter, pfreq, seed)
     torch.cuda.synchronize()
     for a, b in zip(ker, ref):
@@ -790,14 +801,13 @@ def _fold_call(kernel, args, state):
     relative = kernel == "bp_serial" and args[-1] == REL
     counted = state or bp_fold.state_variant(kernel, tg.m, tg.n, tg.dc, tg.dv, llr0.dtype,
                                              relative)
-    before, launches = bp_fold.STATE_LAUNCHES[kernel][counted], bp_fold.LAUNCHES[kernel]
-    if state is None:
-        ker = getattr(bp_fold, kernel)(*args)
-    else:
-        ker = getattr(bp_fold, f"{kernel}_cuda")(*args, state=state)
+    with launches() as n:
+        if state is None:
+            ker = getattr(bp_fold, kernel)(*args)
+        else:
+            ker = getattr(bp_fold, f"{kernel}_cuda")(*args, state=state)
     torch.cuda.synchronize()
-    assert bp_fold.STATE_LAUNCHES[kernel][counted] == before + 1
-    assert bp_fold.LAUNCHES[kernel] == launches + 1
+    assert n[f"launch.{kernel}.{counted}"] == n["launch." + kernel] == 1
     ref = getattr(bp_fold, f"{kernel}_reference")(*args)
     return ker, ref
 
@@ -1040,10 +1050,10 @@ def _random_code(m, n, weights, seed):
 def _k8_call(graph, dev, syn, method, alpha, state, p, max_iter=30):
     args = (graph_to_torch(graph, dev), syn, _llr0(graph, dev, torch.float64, p), method, max_iter,
             alpha)
-    before = bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state]
-    ker = bp_fold.bp_parallel_exact_cuda(*args, state=state)
+    with launches() as n:
+        ker = bp_fold.bp_parallel_exact_cuda(*args, state=state)
     torch.cuda.synchronize()
-    assert bp_fold.STATE_LAUNCHES["bp_parallel_exact"][state] == before + 1
+    assert n["launch.bp_parallel_exact." + state] == 1
     return ker, bp_fold.bp_parallel_exact_reference(*args)
 
 
@@ -1199,9 +1209,9 @@ def test_fold_launch_counters_move_on_each_path(codes, cls, kw, kernel):
         return getattr(ldpc_tpu_torch, cls)(graph.dense, error_rate=P, max_iter=30,
                                             ms_scaling_factor=0.625, device=device, **kw)
 
-    before = bp_fold.LAUNCHES[kernel]
-    out = make("cuda").decode_batch(syn_np)
-    assert bp_fold.LAUNCHES[kernel] == before + 1
+    with launches() as n:
+        out = make("cuda").decode_batch(syn_np)
+    assert n["launch." + kernel] == 1
     if cls != "BpFlipDecoder":  # BpFlip guarantees H x = s on converged rows only
         assert ((out.astype(np.int64) @ graph.dense.T % 2) == syn_np).all()
     if not kw.get("random_serial_schedule"):
@@ -1221,11 +1231,11 @@ def test_k1_float64_matches_plain_version(codes, name, alpha, state):
     llr64 = torch.from_numpy(channel_llr(np.full(graph.n, P), np.float64)).to(syn.device)
     ref = bp_cuda.bp_parallel_reference(tg, syn, llr64, MINIMUM_SUM, 30, alpha,
                                         dynamic_alpha=False)
-    before = dict(bp_cuda.DTYPE_LAUNCHES)
-    ker = bp_cuda.bp_parallel_cuda(tg, syn, llr64, MINIMUM_SUM, 30, alpha, state=state,
-                                   dynamic_alpha=False)
+    with launches() as n:
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, llr64, MINIMUM_SUM, 30, alpha, state=state,
+                                       dynamic_alpha=False)
     torch.cuda.synchronize()
-    assert bp_cuda.DTYPE_LAUNCHES["float64"] == before["float64"] + 1
+    assert n["launch.bp_parallel.float64"] == 1
     assert ker.llr_posterior.dtype == torch.float64
     _assert_k1_equal(ker, ref, MINIMUM_SUM)
 
@@ -1249,12 +1259,12 @@ def test_single_scan_float64_path_launches_k1(codes):
                                         ms_scaling_factor=0.625, dtype="float64", device=device)
 
     card, cpu = make("cuda"), make("cpu")
-    before = bp_cuda.DTYPE_LAUNCHES["float64"]
-    for s in rows:
-        x = card.decode_single_scan(s)
-        assert (x == cpu.decode_single_scan(s)).all()
-        assert (card.converge, card.iter) == (cpu.converge, cpu.iter)
-    assert bp_cuda.DTYPE_LAUNCHES["float64"] == before + len(rows)
+    with launches() as n:
+        for s in rows:
+            x = card.decode_single_scan(s)
+            assert (x == cpu.decode_single_scan(s)).all()
+            assert (card.converge, card.iter) == (cpu.converge, cpu.iter)
+    assert n["launch.bp_parallel.float64"] == len(rows)
 
 
 # ---- K9': MBP over GF(4) ---------------------------------------------------------------
@@ -1320,10 +1330,10 @@ def test_k9_matches_plain_version(gf4_codes, name, dtype, method, alpha, beta):
     chan, inv_alpha = mbp.mbp_params(np.full((3, g.n), 0.01), np.full((3, g.n), alpha), dtype,
                                      syn.device)
     ref = mbp.mbp_reference(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
-    before = mbp_cuda.DTYPE_LAUNCHES[str(dtype)[6:]]
-    ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
+    with launches() as n:
+        ker = mbp_cuda.mbp_cuda(g, syn, chan, inv_alpha, 30, beta, method, 0.625)
     torch.cuda.synchronize()
-    assert mbp_cuda.DTYPE_LAUNCHES[str(dtype)[6:]] == before + 1
+    assert n["launch.mbp." + str(dtype)[6:]] == 1
     _assert_mbp_equal(ker, ref)
     assert ker[2].any() and ker[1].dtype == dtype
 
@@ -1485,9 +1495,9 @@ def test_mbp_decoder_on_the_card_matches_cpu(gf4_codes):
                                          device=device)
 
     card, cpu = make("cuda"), make("cpu")
-    before = mbp_cuda.LAUNCHES
-    out = card.decode_batch(syn_np)
-    assert mbp_cuda.LAUNCHES == before + 1
+    with launches() as n:
+        out = card.decode_batch(syn_np)
+    assert n["launch.mbp"] == 1
     assert (out == cpu.decode_batch(syn_np)).all()
     assert (card.converge_batch == cpu.converge_batch).all()
     assert (card.iter_batch == cpu.iter_batch).all()
@@ -1536,9 +1546,9 @@ def test_k1_per_lane_prior_matches_plain_version(codes, name, dtype, method, alp
     syn = syn[:2048].contiguous()
     prior = _lane_priors(tg.n, syn.shape[0], dtype, syn.device)
     kw = dict(dynamic_alpha=dtype == torch.float32)
-    before = bp_cuda.PER_LANE_PRIOR_LAUNCHES
-    ker = bp_cuda.bp_parallel_cuda(tg, syn, prior, method, 30, alpha, state=state, **kw)
-    assert bp_cuda.PER_LANE_PRIOR_LAUNCHES == before + 1
+    with launches() as n:
+        ker = bp_cuda.bp_parallel_cuda(tg, syn, prior, method, 30, alpha, state=state, **kw)
+    assert n["launch.bp_parallel.lane_prior"] == 1
     ref = bp_cuda.bp_parallel_reference(tg, syn, prior, method, 30, alpha, **kw)
     torch.cuda.synchronize()
     _assert_k1_equal(ker, ref, method)
@@ -1683,6 +1693,80 @@ def test_sinter_adapters_on_the_card_match_cpu(dev, name):
         dem=dem).decode_shots_bit_packed(bit_packed_detection_event_data=packed)
         for d in ("cuda", "cpu")]
     assert np.array_equal(*outs)
+
+
+# ---- the launch counters against a device trace -----------------------------
+
+# each hand-written kernel function, and the recorder's launch counters of
+# the wrappers that launch it (the block body runs K2'-K5''s block and
+# device variants; K3' and K5' share the warp export kernel)
+KERNEL_FUNCTIONS = {
+    "bp_warp_kernel": ("bp_parallel",),
+    "fold_kernel": ("bp_serial", "bp_soft_info"),
+    "exact_kernel": ("bp_parallel_exact",),
+    "gf2_warp_osd0_kernel": ("osd0.warp",),
+    "gf2_warp_export_kernel": ("rref_export.warp", "masked_export.warp"),
+    "gf2_warp_solve_kernel": ("masked_solve.warp",),
+    "gf2_block_kernel": tuple(f"{k}.{v}" for k in ELIM_KERNELS for v in ("block", "device")),
+    "osd_sweep_kernel": ("osd_sweep",),
+    "mbp_kernel": ("mbp",),
+    "flip_kernel": ("flip",),
+}
+
+
+def _launches_and_trace(call, tmp_path):
+    """``call()`` once with the recorder on under a device profile: the
+    recorder's ``launch.*`` counters, and the trace's kernel events counted
+    by the hand-written kernel function each names."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # builds the kernels and the decoders' state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with launches() as n:
+            call()
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    names = [e["name"] for e in (trace if isinstance(trace, list) else trace["traceEvents"])
+             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = {fn: sum(bool(re.search(rf"\b{fn}\b", x)) for x in names) for fn in KERNEL_FUNCTIONS}
+    return n, seen
+
+
+@pytest.mark.parametrize("workload", ["toric20_osd_cs5", "phenom5_owd"])
+def test_launch_counters_match_the_trace(dev, workload, tmp_path):
+    """A toric d=20 BP+OSD-CS-5 ``decode_batch`` of 4,096 syndromes and a
+    d=5 phenomenological BP+OSD-0 overlapping-window call: every kernel
+    function's events in the trace equal the recorder's launches of it."""
+    if workload == "toric20_osd_cs5":
+        hx = toric_code(20).hx
+        rng = np.random.default_rng(20)
+        errors = (rng.random((4096, hx.shape[1])) < 0.05).astype(np.uint8)
+        syn = (errors @ hx.toarray().T % 2).astype(np.uint8)
+        dec = ldpc_tpu_torch.BpOsdDecoder(hx, error_rate=0.05, max_iter=10, bp_method="ms",
+                                          ms_scaling_factor=0.625, osd_method="osd_cs",
+                                          osd_order=5, device="cuda")
+        n, seen = _launches_and_trace(lambda: dec.decode_batch(syn), tmp_path)
+        expected = ("bp_parallel", "rref_export", "osd_sweep")
+    else:
+        from ldpc_tpu_torch import ckt_noise
+
+        dem, _, shots = _phenomenological_dem(d=5, rounds=10)
+        dec = ckt_noise.BpOsdOverlappingWindowDecoder(dem, decodings=4, window=4, commit=2,
+                                                      num_checks=dem.num_checks, device="cuda")
+        assert dec._maybe_device_scan() is not None
+        n, seen = _launches_and_trace(lambda: dec.decode_batch(shots.copy()), tmp_path)
+        expected = ("bp_parallel", "osd0")
+    assert all(n["launch." + k] > 0 for k in expected), n
+    for fn, counters in KERNEL_FUNCTIONS.items():
+        assert seen[fn] == sum(n["launch." + k] for k in counters), (fn, seen, n)
+    # and no hand-written kernel ran uncounted
+    assert sum(seen.values()) == sum(v for k, v in n.items() if k.count(".") == 1)
 
 
 MESH2 = ["cuda:0", "cuda:0"]  # two entries on one card

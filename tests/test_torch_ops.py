@@ -23,6 +23,7 @@ from ldpc_tpu_torch.ops import bp_cuda, gf2_cuda
 from ldpc_tpu_torch.ops import gf2 as tgf2
 from ldpc_tpu_torch.ops import osd as tosd
 from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.utils import profiling as pf
 
 torch.set_num_threads(1)
 
@@ -175,11 +176,15 @@ def test_bp_reference_short_runs_match_jax(workloads, max_iter):
 def test_bp_dispatch_runs_plain_version_on_cpu(workloads):
     graph, syn, llr, _ = workloads["surface3"]
     tg = graph_to_torch(graph, "cpu")
-    before = bp_cuda.LAUNCHES
     s, l0 = torch.from_numpy(syn), torch.from_numpy(llr)
-    a = bp_cuda.bp_parallel(tg, s, l0, tbp.MINIMUM_SUM, 8, 0.625)
-    b = bp_cuda.bp_parallel_reference(tg, s, l0, tbp.MINIMUM_SUM, 8, 0.625)
-    assert bp_cuda.LAUNCHES == before  # no kernel on the CPU
+    pf.drain()
+    pf.record(True)
+    try:
+        a = bp_cuda.bp_parallel(tg, s, l0, tbp.MINIMUM_SUM, 8, 0.625)
+        b = bp_cuda.bp_parallel_reference(tg, s, l0, tbp.MINIMUM_SUM, 8, 0.625)
+    finally:
+        pf.record(False)
+    assert pf.drain().counters == {}  # no kernel on the CPU
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     with pytest.raises(ValueError, match="CUDA"):
@@ -244,10 +249,14 @@ def test_osd0_dispatch_and_higher_orders(workloads):
     llrs = torch.from_numpy(_posteriors(graph, syn, llr))
     order = torch.argsort(llrs, dim=1, stable=True).to(torch.int32)
     s = torch.from_numpy(syn)
-    before = gf2_cuda.LAUNCHES
-    a = gf2_cuda.osd0(tg, s, order, rank)
-    b = gf2_cuda.osd0_reference(tg, s, order, rank)
-    assert gf2_cuda.LAUNCHES == before
+    pf.drain()
+    pf.record(True)
+    try:
+        a = gf2_cuda.osd0(tg, s, order, rank)
+        b = gf2_cuda.osd0_reference(tg, s, order, rank)
+    finally:
+        pf.record(False)
+    assert pf.drain().counters == {}  # no kernel on the CPU
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(ValueError, match="CUDA"):
         gf2_cuda.osd0_cuda(tg, s, order, rank)

@@ -37,6 +37,7 @@ from ldpc_tpu_torch.ops import gf2 as tgf2
 from ldpc_tpu_torch.ops import gf2_cuda
 from ldpc_tpu_torch.ops import osd as tosd
 from ldpc_tpu_torch.ops.pcm import graph_to_torch
+from ldpc_tpu_torch.utils import profiling as pf
 
 torch.set_num_threads(1)
 
@@ -141,20 +142,24 @@ def test_elimination_dispatch_on_cpu(small):
     s, order = torch.from_numpy(syn), _order(llrs)
     counts = torch.from_numpy(_counts(graph.n, syn.shape[0]))
     rank = tgf2.batched_rank(graph.dense)
-    before = {k: dict(v) for k, v in gf2_cuda.VARIANT_LAUNCHES.items()}
     pairs = [
         (gf2_cuda.rref_export, gf2_cuda.rref_export_reference, gf2_cuda.rref_export_cuda, rank),
         (gf2_cuda.masked_solve, gf2_cuda.masked_solve_reference, gf2_cuda.masked_solve_cuda, counts),
         (gf2_cuda.masked_export, gf2_cuda.masked_export_reference, gf2_cuda.masked_export_cuda, counts),
     ]
-    for fn, ref, cuda, arg in pairs:
-        for a, b in zip(fn(tg, s, order, arg), ref(tg, s, order, arg)):
-            assert torch.equal(a, b)
-        with pytest.raises(ValueError, match="CUDA"):
-            cuda(tg, s, order, arg)
-        with pytest.raises(ValueError, match="no kernel"):
-            fn(tg, s.to("meta"), order, arg)
-    assert before == gf2_cuda.VARIANT_LAUNCHES
+    pf.drain()
+    pf.record(True)
+    try:
+        for fn, ref, cuda, arg in pairs:
+            for a, b in zip(fn(tg, s, order, arg), ref(tg, s, order, arg)):
+                assert torch.equal(a, b)
+            with pytest.raises(ValueError, match="CUDA"):
+                cuda(tg, s, order, arg)
+            with pytest.raises(ValueError, match="no kernel"):
+                fn(tg, s.to("meta"), order, arg)
+    finally:
+        pf.record(False)
+    assert pf.drain().counters == {}
 
 
 @pytest.mark.parametrize("k", [0, 1, 4, 9])
@@ -318,10 +323,14 @@ def test_sweep_kernel_refuses_cpu_tensors():
     weights_pad = torch.zeros(graph.n + 1)
     pats = torch.from_numpy(tosd.pattern_table(tosd.COMBINATION_SWEEP, 2).astype(bool))
     args = (words, col_of_row, used, torch.from_numpy(llrs), weights_pad, pats, graph.n - rank, True)
-    before = dict(osd_cuda.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA"):
-        osd_cuda.sweep_cuda(*args)
-    assert osd_cuda.LAUNCHES == before
+    pf.drain()
+    pf.record(True)
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            osd_cuda.sweep_cuda(*args)
+    finally:
+        pf.record(False)
+    assert pf.drain().counters == {}
     osd0, osdw = tosd.sweep_reference(*args)
     assert osd0.shape == osdw.shape == (4, graph.n)
 

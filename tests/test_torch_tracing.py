@@ -5,7 +5,9 @@ counters agree with the batch's properties; decodings are the same either
 way; the spans share the profiler's Chrome-trace clock; the union-find and
 window sync sites count under their causes; the overlapping-window
 decoder's span tree and counters, and its sync sites reached alike with
-the recorder on and off; ``span_table`` on made-up spans.
+the recorder on and off. The spans are read by the benchmark's reader
+(``benchmark/yardstick/spans.py``), the one the traced benchmark run uses:
+on made-up spans and device events, and on recorded CPU calls.
 """
 
 import json
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 import ldpc_tpu_torch
+from benchmark.yardstick import spans as sp
 from ldpc_tpu_torch.ckt_noise import base_overlapping_window_decoder as owd_base
 from ldpc_tpu_torch.codes import rep_code, toric_code
 from ldpc_tpu_torch.ops import osd as osd_ops
@@ -264,22 +267,21 @@ def _window_decode():
     window.make_window_decoder(H, 4, 0.05, 0.02, device="cpu")(syn)
 
 
-@pytest.mark.parametrize("module,causes,run", [
-    (uf, ("sync.uf_any", "sync.uf_growth"), _uf_decode),
-    (window, ("sync.window_select",), _window_decode),
+@pytest.mark.parametrize("causes,run", [
+    (("sync.uf_any", "sync.uf_growth"), _uf_decode),
+    (("sync.window_select",), _window_decode),
 ], ids=["uf", "window"])
-def test_module_sync_sites_count_under_their_causes(module, causes, run):
-    before = module.HOST_SYNCS
-    growth = getattr(module, "GROWTH_ROUNDS", 0)
+def test_module_sync_sites_count_under_their_causes(causes, run):
+    """Each cause's count equals its spans; LSD's growth loop counts its
+    rounds under ``sync.uf_growth``."""
     pf.record(True)
-    run()
-    pf.record(False)
+    try:
+        run()
+    finally:
+        pf.record(False)
     spans, counters = pf.drain()
     made = {c: counters.get(c, 0) for c in causes}
-    assert sum(made.values()) == module.HOST_SYNCS - before > 0
     assert all(v > 0 for v in made.values()), made
-    if module is uf:
-        assert made["sync.uf_growth"] == uf.GROWTH_ROUNDS - growth
     for c in causes:
         assert sum(s.name == c for s in spans) == made[c]
 
@@ -292,7 +294,7 @@ def test_span_table_on_made_up_spans():
              S("call", 20_000_000, 30_000_000, -1, 1, {})]
     # device busy (us): 0-2 ms and 4-12 ms, then 25-26 ms
     busy = [(0.0, 2000.0), (1500.0, 1800.0), (4000.0, 12000.0), (25000.0, 26000.0)]
-    t = pf.span_table(spans, calls=2, device_us=busy)
+    t = sp.span_table(spans, calls=2, device_us=busy)
     assert t["call"]["spans"] == 2 and t["call"]["ms"] == pytest.approx(10.0)
     assert t["call"]["self_ms"] == pytest.approx((10 - 4 + 10) / 2)
     # idle in the calls: 2-4 ms of the first, 9 of the second's 10
@@ -300,25 +302,14 @@ def test_span_table_on_made_up_spans():
     assert t["stage"]["self_ms"] == pytest.approx(1.5)
     assert t["stage"]["idle_ms"] == pytest.approx(1.0)  # 2-4 ms
     assert t["sync.x"]["idle_ms"] == pytest.approx(0.5)
-    assert "idle_ms" not in pf.span_table(spans)["call"]
-
-
-def _profile_spans():
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parents[1] / "tools" / "profile_spans.py"
-    spec = importlib.util.spec_from_file_location("profile_spans", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    assert "idle_ms" not in sp.span_table(spans)["call"]
 
 
 def _made_up_slice(stray_us):
-    """Two calls of 10 ms, 2 ms apart, in a 25 ms slice, and their device
-    events in microseconds from the trace's base; ``stray_us`` moves the
-    second call's device events (each by its own amount, by kernel name)
-    off the host timeline, as a stray device clock does."""
+    """Two calls of 10 ms, 2 ms apart, and their device events in
+    microseconds from the trace's base; ``stray_us`` moves the second
+    call's device events (each by its own amount, by kernel name) off the
+    host timeline, as a stray device clock does."""
     base_ns = 1_790_000_000_000_000_000
     S, spans, evs = pf.Span, [], []
     for c in range(2):
@@ -345,9 +336,7 @@ def _made_up_slice(stray_us):
                         "args": {"correlation": corr}})
             evs.append({"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
                         "ts": o + launch, "dur": 5, "args": {"correlation": corr}})
-    trace = {"baseTimeNanoseconds": base_ns, "traceEvents": evs}
-    rec = pf.Recording(spans, {"sync.x": 2, "osd.chunks": 2})
-    return rec, trace, (base_ns, base_ns + 25_000_000)
+    return spans, {"baseTimeNanoseconds": base_ns, "traceEvents": evs}
 
 
 def us(x):  # microseconds since 1970 in float64: steps of 0.25 us
@@ -371,60 +360,59 @@ ALL = ("bp_warp_kernel", "gf2_warp_export_kernel<false, 16>", "Memcpy DtoH")
       "shift_us": [0.0, us(1950)]}),
 ], ids=["on_clock", "late", "early"])
 def test_span_readings_on_a_made_up_slice(stray, sweep_idle, anchor):
-    """``tools/profile_spans.py``'s readings, with the second call's device
-    timeline on the host's clock, late or early."""
-    tool = _profile_spans()
-    rec, trace, slice_ns = _made_up_slice(stray)
-    r = tool.readings(rec, trace, 2, slice_ns)
-    assert r["post.span_ms"] == pytest.approx(7.0)
-    assert r["post.sweep_idle_share"] == pytest.approx(sweep_idle)
-    assert r["decoders.sync_wait_ms"] == pytest.approx(0.5)
-    assert r["decoders.program_syncs"] == 1.0
-    # idle: 25,000 us less 2 x 4,800 busy; 2 x 5,200 of it inside the calls
-    assert r["device.idle_between_calls_share"] == pytest.approx((15400 - 10400) / 15400)
-    assert r["program"]["counters"] == {"osd.chunks": 1.0, "sync.x": 1.0}
-    assert r["program"]["spans"]["osd"]["self_ms"] == pytest.approx(7.0 - 0.8 - 5.0)
-    assert r["anchor"] == {"device_events": 6, "calls": 2, "calls_without_shift": 0, **anchor}
+    """The benchmark's reader, with the second call's device timeline on
+    the host's clock, late or early: each call's device events go back
+    inside it, and the span table reads them."""
+    spans, trace = _made_up_slice(stray)
+    busy, report = sp.device_busy(spans, trace)
+    assert report == {"device_events": 6, "calls": 2, "calls_without_shift": 0, **anchor}
+    t = sp.span_table(spans, 2, busy)
+    assert t["osd"]["ms"] == pytest.approx(7.0)
+    assert t["osd"]["self_ms"] == pytest.approx(7.0 - 0.8 - 5.0)
+    # 4,800 us of the 10,000 of a call busy
+    assert t["decode_batch"]["idle_ms"] == pytest.approx(5.2)
+    assert t["osd.sweep"]["idle_ms"] / t["osd.sweep"]["ms"] == pytest.approx(sweep_idle)
+    assert t["sync.x"]["ms"] == pytest.approx(0.5)
 
 
 def test_span_readings_with_nothing_to_read():
     """No device events, no spans, or a call whose device timeline no
     shift puts back (a kernel before its launch and a copy after the
-    call's end): the readings that need them are None."""
-    tool = _profile_spans()
-    rec, trace, slice_ns = _made_up_slice({})
-    idle = ("post.sweep_idle_share", "device.idle_between_calls_share")
-    bare = tool.readings(rec, None, 2, slice_ns)
-    assert all(bare[k] is None for k in idle)
-    assert bare["post.span_ms"] == pytest.approx(7.0)
-    assert bare["anchor"] == {"device_events": 0, "calls": 2}
-    empty = tool.readings(pf.Recording([], {}), trace, 2, slice_ns)
-    assert all(empty[k] is None for k in ("post.span_ms", "post.sweep_idle_share",
-                                          "decoders.sync_wait_ms", "decoders.program_syncs",
-                                          "device.idle_between_calls_share"))
-    rec, trace, slice_ns = _made_up_slice({"bp_warp_kernel": -2000, "Memcpy DtoH": 3000})
-    torn = tool.readings(rec, trace, 2, slice_ns)
-    assert all(torn[k] is None for k in idle)
-    assert torn["anchor"]["calls_without_shift"] == 1
-    assert torn["decoders.sync_wait_ms"] == pytest.approx(0.5)
+    call's end): no busy intervals, and a report that says why."""
+    spans, trace = _made_up_slice({})
+    assert sp.device_busy(spans, None) == (None, {"device_events": 0, "calls": 2})
+    assert sp.device_busy([], trace) == (None, {"device_events": 6, "calls": 0})
+    bare = sp.span_table(spans, 2, None)
+    assert bare["osd"]["self_ms"] == pytest.approx(7.0 - 0.8 - 5.0)
+    assert "idle_ms" not in bare["osd"]
+    spans, trace = _made_up_slice({"bp_warp_kernel": -2000, "Memcpy DtoH": 3000})
+    busy, report = sp.device_busy(spans, trace)
+    assert busy is None
+    assert report["calls_without_shift"] == 1 and report["calls_moved"] == 1
 
 
-def test_profile_spans_runs_on_the_cpu(tmp_path, capsys):
-    """The tool end to end at a small batch on the CPU: the program's
-    spans and counters and the readings that need no device events."""
-    tool = _profile_spans()
-    out = tmp_path / "spans.json"
-    assert tool.main(["--device", "cpu", "--batch", "8", "--calls", "2", "--seed", str(2**31 + 5),
-                      "--out", str(out)]) == 0
-    r = json.loads(out.read_text())
-    first, second = capsys.readouterr().out.splitlines()
-    assert json.loads(second) == r["program"]
-    assert r["calls"] == 2 and r["batch"] == 8 and r["card"] == "cpu"
-    assert r["program"]["spans"]["decode_batch"]["spans"] == 2
-    assert r["program"]["counters"]["lanes.in"] == 8
-    assert r["decoders.program_syncs"] == 10.0
-    assert r["post.span_ms"] > 0 and r["decoders.sync_wait_ms"] > 0
-    assert r["post.sweep_idle_share"] is None and r["device.idle_between_calls_share"] is None
+def test_recorded_cpu_calls_through_the_span_reader():
+    """Two CPU ``decode_batch`` calls of 8 syndromes, recorded and read as
+    the traced benchmark run reads them: a ``decode_batch`` root a call,
+    10 host syncs and 8 lanes in a call."""
+    hx, syn = _toric()
+    dec = _decoder(hx)
+    calls = 2
+    pf.record(True)
+    try:
+        for _ in range(calls):
+            dec.decode_batch(syn[:8])
+    finally:
+        pf.record(False)
+    spans, counters = pf.drain()
+    assert [r.name for r in sp.roots(spans)] == ["decode_batch"] * calls
+    t = sp.span_table(spans, calls)
+    assert t["decode_batch"]["spans"] == calls
+    assert sum(v for k, v in counters.items() if k.startswith("sync.")) == 10 * calls
+    assert sum(t[k]["spans"] for k in t if k.startswith("sync.")) == 10 * calls
+    assert counters["lanes.in"] == 8 * calls
+    assert t["osd"]["ms"] > 0 and t["decode_batch"]["self_ms"] > 0
+    assert not any(k.startswith("launch.") for k in counters)  # no kernel on the CPU
     assert not pf._on
 
 
