@@ -1887,9 +1887,9 @@ def owd_kernels(code) -> tuple:
     decode of OWD_KERNEL_ROWS shots): the device windows' BP launches up to
     the first that leaves lanes unconverged, and its OSD-0 launch on those
     lanes (keys with ties at +inf); the last boundary window's BP launch
-    (+inf on every committed column) and a boundary window's last OSD-0
-    launch (lanes of a 624 x 7,348 window, 32 of them). Returns the largest
-    |kernel - plain| of K1' and of K2'."""
+    (+inf on the committed columns its rows touch) and a boundary window's
+    last OSD-0 launch (lanes of a 624 x 1,876 window on its own columns, 32
+    of them). Returns the largest |kernel - plain| of K1' and of K2'."""
     dem, _, shots, _ = owd_workload(code, OWD_KERNEL_ROWS, seed=5)
     dec = make_owd(ckt_noise.BpOsdOverlappingWindowDecoder, dem, "cuda")
     uw = dec._maybe_device_scan()[0]
@@ -1902,11 +1902,11 @@ def owd_kernels(code) -> tuple:
         k1_err = max(k1_err, err)
         if not bool(ref.converged.all()):
             break  # the window whose unconverged lanes make the first OSD-0 launch
-    last_bp = [c for c in bp_calls if c[0].n == uw.num_cols and torch.isposinf(c[2]).any()][0]
+    last_bp = [c for c in bp_calls if c[0].n != uw.wdec and torch.isposinf(c[2]).any()][0]
     k1_err = max(k1_err, hold_owd_k1("last", last_bp)[1])
     win_osd = next(c for c in osd_calls if c[0].n == uw.wdec)
     k2_err = hold_owd_k2("window", win_osd, keys=ref.llr_posterior[~ref.converged])
-    boundary_osd = [c for c in osd_calls if c[0].n == uw.num_cols][-1]
+    boundary_osd = [c for c in osd_calls if c[0].n != uw.wdec][-1]
     k2_err = max(k2_err, hold_owd_k2("boundary", boundary_osd, lanes=32))
     return k1_err, k2_err
 

@@ -17,6 +17,15 @@ as ``BpOsdDecoder`` and ``BpLsdDecoder`` do), a call keeps its state there
 from input to output: the shots go up once (packed, if they came packed),
 every window reads and updates the resident shots and running correction,
 and only the predictions and corrections come back (packed, if asked).
+Where the window decoders post-process at order 0 (OSD-0 or LSD-0, the
+engines :meth:`_device_scan_postprocess` names), a loop window's decoder
+takes only the window's own columns, the least to the greatest column its
+rows touch: outside them the rows are empty, and an empty column changes
+no such decoding (BP leaves it at its prior and decides 0, OSD-0 and LSD
+never pivot on it, and a stable sort keeps the window's columns in their
+order among themselves). A higher-order OSD draws its flip patterns from
+the least reliable non-pivot columns, empty ones among them, so its
+windows, and PyMatching's, keep every column of the DEM.
 When the DEM's windows are time-translation invariant the middle windows
 of that call run through
 :func:`ldpc_tpu_torch.ckt_noise.device_scan.make_device_owd`. Other window
@@ -31,8 +40,10 @@ windows' ``owd.scan`` (see ``device_scan``) and ``owd.bookkeeping`` (the
 resumed window's rows), ``owd.predict`` and ``owd.d2h`` (the results'
 copies: packed results cross in one). The counter
 ``owd.windows.resident`` counts the windows decoded on the resident state
-and ``owd.d2h_bytes`` the bytes its results bring back.
-The numpy loop has only ``owd.window`` and ``owd.predict``. Each host sync
+and ``owd.d2h_bytes`` the bytes its results bring back; in either loop
+``owd.windows.narrowed`` counts the windows whose decoder takes fewer
+columns than the DEM has. The numpy loop has only ``owd.window`` and
+``owd.predict``. Each host sync
 of the OWD's own code is a ``sync.owd_<cause>`` span.
 """
 
@@ -124,7 +135,9 @@ class BaseOverlappingWindowDecoder:
 
     def _device_scan_postprocess(self):
         """Subclass hook: the device-scan window engine matching this
-        decoder family ('osd0' / 'lsd0'), or None to disable the scan."""
+        decoder family ('osd0' / 'lsd0'), or None to disable the scan.
+        None also keeps every loop window on all of the DEM's columns
+        (:meth:`_plan`)."""
         return None
 
     def _maybe_device_scan(self):
@@ -186,8 +199,11 @@ class BaseOverlappingWindowDecoder:
 
     # -- window plans -------------------------------------------------------
     def _plan(self, decoding: int) -> "_Window":
-        """Window ``decoding``'s index ranges and detector rows, computed
-        once (:func:`current_round_inds`)."""
+        """Window ``decoding``'s index ranges, detector rows and the columns
+        its decoder takes, computed once (:func:`current_round_inds`): at
+        order 0 the span of columns those rows touch, read from the rows,
+        not from ``dec_inds``, for a later row may reach below the commit
+        rows' least column; else every column."""
         plans = self.__dict__.setdefault("_plans", {})
         if decoding not in plans:
             commit_inds, dec_inds, _, synd_dec_inds = current_round_inds(
@@ -197,8 +213,13 @@ class BaseOverlappingWindowDecoder:
                 commit=self.commit,
                 num_checks=self.num_checks,
             )
+            round_dcm = self.dcm[synd_dec_inds, :]
+            cols = slice(0, self.dcm.shape[1])
+            if self._device_scan_postprocess() is not None:
+                touched = round_dcm.nonzero()[1]
+                cols = slice(int(touched.min()), int(touched.max()) + 1)
             plans[decoding] = _Window(
-                commit_inds, dec_inds, synd_dec_inds, self.dcm[synd_dec_inds, :]
+                commit_inds, dec_inds, synd_dec_inds, round_dcm, cols, round_dcm[:, cols]
             )
         return plans[decoding]
 
@@ -217,10 +238,33 @@ class BaseOverlappingWindowDecoder:
 
     def _resident(self) -> bool:
         """Whether a call keeps its state on the device: the window
-        decoders take device syndromes (``_decode_batch_device``). Window
-        0's decoder is built here as the first window would build it."""
-        decoder = self._get_decoder(0, self._plan(0).round_dcm, self._get_weights())
-        return hasattr(decoder, "_decode_batch_device")
+        decoders take device syndromes (``_decode_batch_device``), asked
+        once of window 0's decoder, built here as either loop builds it."""
+        if "_is_resident" not in self.__dict__:
+            decoder = self._window_decoder(0, self._get_weights())
+            self._is_resident = hasattr(decoder, "_decode_batch_device")
+        return self._is_resident
+
+    def _window_decoder(self, decoding, weights):
+        """Window ``decoding``'s decoder on its columns ``plan.cols``, built
+        once with these ``weights`` (the DEM's, one per column)."""
+        plan = self._plan(decoding)
+        return self._get_decoder(decoding, plan.cols_dcm, weights[plan.cols])
+
+    def _commits(self, decoding) -> Tuple[slice, slice]:
+        """The DEM columns window ``decoding`` commits (``commit_inds``; the
+        last window's ``dec_inds``) and the same columns of its decoding,
+        whose column ``j`` is the DEM's ``plan.cols.start + j``."""
+        plan = self._plan(decoding)
+        inds = plan.dec_inds if decoding == self.decodings - 1 else plan.commit_inds
+        lo = plan.cols.start
+        return inds, slice(inds.start - lo, inds.stop - lo)
+
+    def _count_window(self, decoding) -> None:
+        """Counts a loop window, and whether its decoder is narrowed."""
+        count("owd.windows.host")
+        if self._plan(decoding).cols_dcm.shape[1] < self.dcm.shape[1]:
+            count("owd.windows.narrowed")
 
     # -- decoding ----------------------------------------------------------
     def decode(self, syndrome: np.ndarray) -> np.ndarray:
@@ -344,7 +388,7 @@ class BaseOverlappingWindowDecoder:
                     )
                 decoding = uw.w_hi
                 continue
-            count("owd.windows.host")
+            self._count_window(decoding)
             count("owd.windows.resident")
             with span("owd.window"):
                 self._resident_window(decoding, shots, total, weights)
@@ -356,17 +400,16 @@ class BaseOverlappingWindowDecoder:
         arguments and ``weights``): the host loop's ``+=`` commits and its
         XOR of the syndrome rows with the running correction's parity."""
         plan = self._plan(decoding)
-        decoder = self._get_decoder(decoding, plan.round_dcm, weights)
+        decoder = self._window_decoder(decoding, weights)
         rows = plan.synd_dec_inds
         corr = decoder._decode_batch_device(shots[:, rows].contiguous())
+        inds, own = self._commits(decoding)
+        total[:, inds] += corr[:, own]
         if decoding != self.decodings - 1:
-            total[:, plan.commit_inds] += corr[:, plan.commit_inds]
             shots[:, rows] ^= _parity(
                 total, self._rows_table(("rows", decoding), plan.round_dcm)
             )
             weights[plan.commit_inds] = self._min_weight
-        else:
-            total[:, plan.dec_inds] += corr[:, plan.dec_inds]
 
     def _download(self, total, bit_packed: bool, return_corrections: bool):
         """The predictions (the parity of the total correction on each
@@ -408,7 +451,7 @@ class BaseOverlappingWindowDecoder:
         total_corr = np.zeros((shots.shape[0], self.dcm.shape[1]), dtype=np.uint8)
         weights = self._get_weights().copy()
         for decoding in range(self.decodings):
-            count("owd.windows.host")
+            self._count_window(decoding)
             with span("owd.window"):
                 self._host_decode_window(decoding, shots, total_corr, weights)
         return total_corr
@@ -416,9 +459,8 @@ class BaseOverlappingWindowDecoder:
     def _host_decode_window(self, decoding, shots, total_corr, weights):
         """One window of the host loop (mutates its array arguments)."""
         plan = self._plan(decoding)
-        commit_inds, dec_inds = plan.commit_inds, plan.dec_inds
         synd_dec_inds, round_dcm = plan.synd_dec_inds, plan.round_dcm
-        decoder = self._get_decoder(decoding, round_dcm, weights)
+        decoder = self._window_decoder(decoding, weights)
 
         window_shots = shots[:, synd_dec_inds].astype(np.uint8)
         if hasattr(decoder, "decode_batch"):
@@ -428,23 +470,25 @@ class BaseOverlappingWindowDecoder:
                 [decoder.decode(s) for s in window_shots]
             ).astype(np.uint8)
 
+        inds, own = self._commits(decoding)
+        total_corr[:, inds] += corr[:, own]
         if decoding != self.decodings - 1:
-            total_corr[:, commit_inds] += corr[:, commit_inds]
             shots[:, synd_dec_inds] ^= (
                 (total_corr @ round_dcm.T) % 2
             ).astype(shots.dtype)
-            weights[commit_inds] = self._min_weight
-        else:
-            total_corr[:, dec_inds] += corr[:, dec_inds]
+            weights[plan.commit_inds] = self._min_weight
 
 
 class _Window(NamedTuple):
-    """A window's column ranges, detector rows and their check matrix."""
+    """A window's column ranges, detector rows and their check matrix; the
+    columns its decoder takes and the rows' matrix on them."""
 
     commit_inds: slice
     dec_inds: slice
     synd_dec_inds: slice
     round_dcm: csr_matrix
+    cols: slice
+    cols_dcm: csr_matrix
 
 
 def _parity(total: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,10 @@ PyTorch profiler:
   span or count site costs one flag check.
 
 The recorder is the port's one counter: besides the decoders' ``lanes.*``,
-``osd.*``, ``owd.*`` and ``sync.<cause>`` counts, each hand-written
+``osd.*``, ``owd.*`` (``owd.shots``; ``owd.windows.host``, ``.device``,
+``.resident`` and ``.narrowed``, the loop windows whose decoder takes fewer
+columns than the DEM has; ``owd.lanes.osd0``; ``owd.d2h_bytes``) and
+``sync.<cause>`` counts, each hand-written
 kernel's wrapper (``ops.<module>.<kernel>_cuda``; the OSD-w sweep's is
 ``osd_cuda.sweep_cuda``) counts every launch once under ``launch.<kernel>``
 and once under ``launch.<kernel>.<split>`` for each of its splits. K2′ and

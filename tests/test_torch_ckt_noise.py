@@ -302,6 +302,69 @@ def test_owd_higher_order_keeps_host_loop_and_warns(monkeypatch):
         assert np.isclose(weight[cj[r] == 1].sum(), weight[ct[r] == 1].sum(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("method,order", [("osd_cs", 20), ("osd_e", 8)])
+def test_owd_higher_order_windows_keep_every_column(monkeypatch, method, order):
+    """OSD-CS and OSD-E windows at orders whose flip patterns reach past the
+    non-empty columns below the prior keep every column of the DEM: each
+    loop window's decoder takes all of them and none counts as narrowed.
+    (On its own columns such a window can return a solution of lower
+    weight than on every column: the patterns draw on the least reliable
+    non-pivot columns, and the empty ones, at their prior, take some of
+    those places.) Each window's decoding of the syndromes it was given
+    equals the JAX package's decoder of that window, built with the same
+    weights, on every lane but OSD-w ties: another solution of the same
+    weight for the same syndrome (JAX's OSD-w weights summed over set bits,
+    as in ``test_owd_higher_order_keeps_host_loop_and_warns``)."""
+    import ldpc_tpu.ops.osd as josd_module
+    from ldpc_tpu_torch.decoders.bposd_decoder import BpOsdDecoder
+
+    dem, m = surface_memory_dem(p=0.02, q=0.02)
+    mats = T.detector_error_model_to_check_matrices(dem, allow_undecomposed_hyperedges=True)
+    H = mats.check_matrix.toarray().astype(np.uint8)
+    rng = np.random.default_rng(5)
+    errs = (rng.random((256, H.shape[1])) < mats.priors).astype(np.uint8)
+    shots = (errs @ H.T % 2).astype(np.uint8)
+    kwargs = dict(decodings=5, window=4, commit=2, num_checks=m)
+    cfg = {"osd_method": method, "osd_order": order, "max_iter": 10}
+    given = {}
+    decode_batch = BpOsdDecoder._decode_batch_device
+
+    def record(self, syndromes):
+        out = decode_batch(self, syndromes)
+        given[id(self)] = (syndromes.cpu().numpy().copy(), out.cpu().numpy().copy())
+        return out
+
+    monkeypatch.setattr(BpOsdDecoder, "_decode_batch_device", record)
+    monkeypatch.setattr(josd_module, "jnp", _ZeroTimesInfIsZero())
+    t = T.BpOsdOverlappingWindowDecoder(dem, decoder_config=cfg, device="cpu", **kwargs)
+    j = J.BpOsdOverlappingWindowDecoder(dem, decoder_config=cfg, **kwargs)
+    pf.drain()
+    pf.record(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # the host loop's warning
+            t._corr_multiple_rounds_batch(shots.copy())
+    finally:
+        pf.record(False)
+    counters = pf.drain().counters
+    assert counters["owd.windows.host"] == kwargs["decodings"]
+    assert "owd.windows.narrowed" not in counters
+    weights = mats.priors.copy()
+    for k in range(kwargs["decodings"]):
+        plan, td = t._plan(k), t._decoders[k]
+        assert plan.cols == slice(0, H.shape[1]) and td.n == H.shape[1]
+        syndromes, ct = given[id(td)]
+        cj = np.asarray(j._init_decoder(plan.round_dcm, weights.copy()).decode_batch(syndromes))
+        rows = plan.round_dcm.toarray().astype(np.int64)
+        with np.errstate(divide="ignore"):
+            cost = np.log(1.0 / weights)
+        for r in np.flatnonzero((cj != ct).any(axis=1)):
+            assert np.array_equal(rows @ cj[r] % 2, syndromes[r])
+            assert np.array_equal(rows @ ct[r] % 2, syndromes[r])
+            assert np.isclose(cost[cj[r] == 1].sum(), cost[ct[r] == 1].sum(), rtol=1e-12)
+        weights[plan.commit_inds] = 0.0
+
+
 def test_boundary_decoder_is_built_once():
     """A boundary window's decoder is built on the first call, with that
     call's weights, and reused."""
@@ -405,8 +468,9 @@ def test_window_bp_and_osd_with_infinite_priors_match_jax(monkeypatch):
 
 
 def test_boundary_windows_take_infinite_priors_without_nan(monkeypatch):
-    """The boundary windows' decoders see +inf priors on every committed
-    column (the last window) and all-zero columns outside their rows. Their
+    """The boundary windows' decoders take their own columns, the span their
+    rows touch, and the last window's sees +inf priors on every committed
+    column of that span (the look-back its first rows reach). Their
     stored BP results (full depth) hold no NaN and equal, on every lane,
     the JAX package's fast engine run at full depth on the syndromes each
     decoder was given: decisions, flags, iterations and posteriors. (The
@@ -431,9 +495,12 @@ def test_boundary_windows_take_infinite_priors_without_nan(monkeypatch):
     ct = t._corr_multiple_rounds_batch(shots.copy())
     assert np.array_equal(ct, j._corr_multiple_rounds_batch(shots.copy()))
     last = kwargs["decodings"] - 1
-    assert np.isposinf(tbp.channel_llr(t._decoders[last]._channel)).sum() > 100
+    cols, committed = t._plan(last).cols, t._plan(last - 1).commit_inds.stop
+    assert np.isposinf(tbp.channel_llr(t._decoders[last]._channel)).sum() == (
+        committed - cols.start) > 0
     for k in (0, last):
         td = t._decoders[k]
+        assert td.pcm.shape[1] == t._plan(k).cols.stop - t._plan(k).cols.start < t.dcm.shape[1]
         ref = jbp.make_parallel_decoder(compile_pcm(td.pcm), jbp.MINIMUM_SUM, 30, 1.0)(
             jnp.asarray(given[id(td)]), jnp.asarray(jbp.channel_llr(td._channel)))
         post = td.log_prob_ratios_batch

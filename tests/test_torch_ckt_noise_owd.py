@@ -3,9 +3,13 @@ package's on the CPU (the DEM and its shots: tests/test_torch_ckt_noise.py):
 the corrections of ``_corr_multiple_rounds_batch`` and the predictions of
 ``decode_batch`` (packed and unpacked), lane for lane, for both BP families
 through the device windows and through the forced host loop; the resident
-call's returned corrections and its counters; and a window decoder without
-the device entry, which keeps the numpy loop.
+call's returned corrections and its counters; a window decoder without
+the device entry, which keeps the numpy loop; and a DEM whose later window
+rows reach below the commit rows' least column, which the window's span
+covers.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import jax.numpy as jnp
 import ldpc_tpu.ckt_noise as J
 import ldpc_tpu_torch.ckt_noise as T
 from ldpc_tpu_torch.utils import profiling as pf
+from test_ckt_noise import MockDem, error, rep_code_memory_dem
 from test_torch_ckt_noise import _surface_shots
 
 torch.set_num_threads(1)
@@ -132,8 +137,9 @@ class _NumpyOnlyOwd(T.BpOsdOverlappingWindowDecoder):
 
 def test_window_decoder_without_device_entry_keeps_numpy_loop():
     """Window decoders without ``_decode_batch_device`` keep the numpy
-    loop over every window: the same corrections as the JAX package's host
-    loop and no window on the resident state."""
+    loop over every window, each window's decoder on its own columns as on
+    the resident path: the same corrections as the JAX package's host loop
+    (every window on every column) and no window on the resident state."""
     dem, kwargs, shots, _, _ = _surface_shots()
     t = _port("bposd", "device", dem, kwargs, _NumpyOnlyOwd)
     ct, counters = _recorded(t._corr_multiple_rounds_batch, shots.copy())
@@ -142,3 +148,41 @@ def test_window_decoder_without_device_entry_keeps_numpy_loop():
     assert counters.get("owd.windows.resident", 0) == 0 and "owd.d2h_bytes" not in counters
     assert counters["owd.windows.host"] == kwargs["decodings"]
     assert "owd.windows.device" not in counters
+    assert counters["owd.windows.narrowed"] == kwargs["decodings"]
+
+
+def _hooked_rep_dem(n_checks=3, rounds=10, p=0.03):
+    """``rep_code_memory_dem`` with one more mechanism first (column 0): it
+    flips checks 0 and 2 in round 4, so window 1's rows (rounds 2-5) reach
+    column 0, below its commit rows' least column, and no window before it
+    has committed the column."""
+    base = rep_code_memory_dem(n_checks, rounds, p, p)
+    hook = error(p, [4 * n_checks, 4 * n_checks + 2])
+    return MockDem([hook] + base.flattened(), base.num_detectors, 1)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_window_span_covers_rows_below_the_commit_rows(family):
+    """Where a later row of a window touches a column below the commit rows'
+    least column (``dec_inds.start``), the window's span, and its decoder,
+    start at that column, and the corrections equal the JAX package's on
+    every lane (both decode every window in the loop: the DEM's windows
+    are not time-translation invariant)."""
+    dem = _hooked_rep_dem()
+    kwargs = dict(decodings=4, window=4, commit=2, num_checks=3)
+    mats = T.detector_error_model_to_check_matrices(dem, allow_undecomposed_hyperedges=True)
+    H = mats.check_matrix.toarray().astype(np.uint8)
+    assert H[:, 0].nonzero()[0].tolist() == [12, 14]
+    rng = np.random.default_rng(4)
+    errs = (rng.random((256, H.shape[1])) < mats.priors).astype(np.uint8)
+    shots = (errs @ H.T % 2).astype(np.uint8)
+    t = FAMILIES[family][1](dem, device="cpu", **kwargs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the host loop's warning
+        ct = t._corr_multiple_rounds_batch(shots.copy())
+        cj = FAMILIES[family][0](dem, **kwargs)._corr_multiple_rounds_batch(shots.copy())
+    plan = t._plan(1)
+    assert plan.cols.start == 0 < plan.dec_inds.start
+    assert t._decoders[1].n == plan.cols.stop < H.shape[1]
+    assert ct.dtype == cj.dtype and np.array_equal(ct, cj)
+    assert ((ct.astype(np.int64) @ H.T % 2) == shots).all()

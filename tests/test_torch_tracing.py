@@ -502,6 +502,33 @@ def test_owd_host_loop_spans():
                    for s in spans)
 
 
+@pytest.mark.parametrize("path,narrowed,resident", [
+    ("device", 2, 4), ("host", 4, 4), ("numpy", 4, 0)])
+def test_owd_narrowed_windows_count(path, narrowed, resident):
+    """``owd.windows.narrowed`` counts a call's loop windows whose decoder
+    takes fewer columns than the DEM has: both boundary windows beside the
+    device windows, every window with the scan off and every window of the
+    numpy loop (window decoders without the device entry), whose windows
+    are not resident."""
+    from test_torch_owd_phenom import FAMILIES, _decoder, _experiment, _NumpyLoop, _quiet
+
+    _, model, shots = _experiment()
+    cls = type("NumpyLoop", (_NumpyLoop, FAMILIES[0]), {}) if path == "numpy" else FAMILIES[0]
+    dec = _decoder(model, "device" if path == "numpy" else path, cls)
+    _quiet(dec.decode_batch, shots.copy())  # builds the loop windows' decoders
+    pf.drain()
+    pf.record(True)
+    try:
+        for _ in range(2):
+            _quiet(dec.decode_batch, shots.copy())
+    finally:
+        pf.record(False)
+    counters = pf.drain().counters
+    assert counters.get("owd.windows.narrowed", 0) == 2 * narrowed
+    assert counters.get("owd.windows.resident", 0) == 2 * resident
+    assert counters["owd.windows.host"] == 2 * (4 if path != "device" else 2)
+
+
 def test_owd_packed_results_come_back_in_one_copy():
     """Packed predictions and corrections cross in one copy
     (``sync.owd_results_d2h``), and ``owd.d2h_bytes`` counts both."""
