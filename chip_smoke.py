@@ -2778,8 +2778,10 @@ def main() -> int:
         syndromes_per_s=runs_per_call / statistics.median(times),
     )
 
-    # K2' at a Monte-Carlo bucket's shape: the first OSD-0 call of one step
-    k2_bucket = captured_calls(gf2_cuda, "osd0", lambda: step(gen))[0]
+    # K2' at a Monte-Carlo bucket's shape: the OSD-0 call of one eager round
+    # (a call replays its captured round, which calls no wrapper)
+    k2_bucket = captured_calls(
+        gf2_cuda, "osd0", lambda: step.decode_round(step.sample_errors(gen)))[0]
     k2_err = max(k2_err, time_k2("k2_bucket_time", k2_bucket)[1])
 
     # ---- 8. one LSD statistics record: the card against the CPU ---------------

@@ -14,18 +14,30 @@ generator, seeded per call from ``(seed, call index)``, so a checkpointed
 run resumes exactly. The decodings of a call's rounds stay on the device
 (``last_decodings``), so a caller can check them shot by shot.
 
+On a CUDA device every shape of a round is fixed when the step is built
+and nothing in it reads back to the host, so the step captures the round,
+syndromes to counters, as one CUDA graph on its first call and replays it
+on every round: the host launches a round's kernels in one graph launch
+instead of one by one. The errors are still drawn eagerly, into the
+graph's input, and each round's decodings are cloned out of it. On the CPU
+the round runs eagerly.
+
 With the recorder of :mod:`ldpc_tpu_torch.utils.profiling` on,
 ``DeviceMonteCarlo.run`` is the span ``mc.run`` (counters ``mc.calls``,
 ``mc.shots``) over an ``mc.round`` a round (``mc.rounds``) and a
 ``sync.mc_counters`` a call, the pull of the counters; from the pulled
 vector it counts ``mc.lanes.bucket`` (K a round), ``mc.lanes.osd`` and
-``mc.bucket_overflow``.
+``mc.bucket_overflow``. On a CUDA device it counts ``mc.graph.captures``
+(one a step) and ``mc.graph.replays`` (one a round), and each replay
+counts the kernel launches the graph holds, as the eager round would; the
+spans inside a round (``osd``) are not recorded under a replay.
 
 :func:`make_sharded_mc_step` runs the step on every entry of a mesh's
 batch axis, each on its own generator, and sums the counters (in the
 process, then over the processes).
 """
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -36,7 +48,7 @@ from ldpc_tpu_torch.helpers import convert_to_binary_sparse
 from ldpc_tpu_torch.ops.pcm import compile_pcm
 from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops import osd as osd_ops
-from ldpc_tpu_torch.utils.profiling import count, span, sync
+from ldpc_tpu_torch.utils.profiling import count, span, sync, tally
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -58,8 +70,13 @@ class McDecoderStep:
 
     ``last_decodings`` is the list of the last call's (B, n) uint8
     decodings, one a round in round order, as each round's merge left them
-    on the device; each call replaces it. Keeping them adds no kernel, copy
-    or host sync.
+    on the device; each call replaces it, and a later call leaves an
+    earlier call's tensors as they were. On the CPU keeping them adds no
+    kernel, copy or host sync; on a CUDA device each is one device copy out
+    of the captured round's output.
+
+    On a CUDA device a call replays one captured round
+    (:meth:`_capture`); ``decode_round`` runs eagerly on any device.
     """
 
     def __init__(
@@ -138,11 +155,20 @@ class McDecoderStep:
             else None
         )
         self.last_decodings = []
+        # on a CUDA device: the captured round (on the first call) and its input
+        self._graph = None
+        if self.device.type == "cuda":
+            self._errors = torch.empty(
+                (self.batch, self.n), dtype=torch.uint8, device=self.device)
 
-    def sample_errors(self, generator: torch.Generator) -> torch.Tensor:
+    def sample_errors(self, generator: torch.Generator, out=None) -> torch.Tensor:
+        """One round's (B, n) uint8 errors drawn from ``generator``, written
+        into ``out`` where it is given."""
         u = torch.rand(
             (self.batch, self.n), generator=generator, device=self.device
         )
+        if out is not None:
+            return torch.lt(u, self.p, out=out)
         return (u < self.p[None, :]).to(torch.uint8)
 
     def decode_round(self, errors) -> torch.Tensor:
@@ -186,7 +212,7 @@ class McDecoderStep:
             fail = residual.any(dim=1)
         counters = torch.stack(
             [
-                torch.tensor(B, device=self.device),
+                torch.full((), B, dtype=torch.int64, device=self.device),
                 fail.sum(),
                 conv.sum(),
                 iters.to(torch.int64).sum(),
@@ -196,15 +222,52 @@ class McDecoderStep:
         ).to(torch.int64)
         return counters, decoding
 
+    def _capture(self) -> None:
+        """Capture one round on the errors in ``self._errors`` as a CUDA
+        graph, after an eager warm-up round on a side stream (PyTorch's
+        recipe). The capture runs nothing; the recorder keeps the launches
+        it would make, which each replay counts."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._round(self._errors)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with tally() as counts, torch.cuda.graph(
+            graph, stream=side, capture_error_mode="thread_local"
+        ):
+            self._counters, self._decodings = self._round(self._errors)
+        self._graph, self._graph_counts = graph, counts
+        count("mc.graph.captures")
+
+    def _replayed_round(self, generator: torch.Generator):
+        """A round on a CUDA device: its errors drawn into the captured
+        round's input, the graph replayed (captured on the first round), its
+        decodings cloned out of the graph's memory."""
+        self.sample_errors(generator, out=self._errors)
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        count("mc.graph.replays")
+        for name, k in self._graph_counts.items():
+            count(name, k)
+        return self._counters, self._decodings.clone()
+
     def __call__(self, generator: torch.Generator) -> torch.Tensor:
+        cuda = self.device.type == "cuda"
         acc = torch.zeros(6, dtype=torch.int64, device=self.device)
         self.last_decodings = decodings = []
-        for _ in range(self.rounds_per_call):
-            count("mc.rounds")
-            with span("mc.round"):
-                counters, decoding = self._round(self.sample_errors(generator))
-                acc = acc + counters
-                decodings.append(decoding)
+        with torch.cuda.device(self.device) if cuda else contextlib.nullcontext():
+            for _ in range(self.rounds_per_call):
+                count("mc.rounds")
+                with span("mc.round"):
+                    if cuda:
+                        counters, decoding = self._replayed_round(generator)
+                    else:
+                        counters, decoding = self._round(self.sample_errors(generator))
+                    acc = acc + counters
+                    decodings.append(decoding)
         return acc
 
 

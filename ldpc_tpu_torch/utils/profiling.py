@@ -20,7 +20,9 @@ PyTorch profiler:
   the host's ``time.time_ns()`` clock), :func:`count` (a named total),
   :func:`sync` (a host sync by cause, a span and a count) and
   :func:`drain` (take and clear what was kept). Off by default, and then a
-  span or count site costs one flag check.
+  span or count site costs one flag check. :func:`tally` keeps a region's
+  counts apart, on or off: what a captured CUDA graph launches, counted
+  again on each replay.
 
 The recorder is the port's one counter: besides the decoders' ``lanes.*``,
 ``osd.*``, ``owd.*`` (``owd.shots``; ``owd.windows.host``, ``.device``,
@@ -29,12 +31,14 @@ columns than the DEM has; ``owd.lanes.osd0``; ``owd.d2h_bytes``), the
 device Monte-Carlo's ``mc.*`` (``mc.calls``, ``mc.shots`` and
 ``mc.rounds`` under the spans ``mc.run`` and ``mc.round``;
 ``mc.lanes.bucket``, ``mc.lanes.osd`` and ``mc.bucket_overflow``, read from
-the counters its ``sync.mc_counters`` pulls) and ``sync.<cause>`` counts,
-each hand-written
+the counters its ``sync.mc_counters`` pulls; on a card ``mc.graph.captures``
+and ``mc.graph.replays``) and ``sync.<cause>`` counts, each hand-written
 kernel's wrapper (``ops.<module>.<kernel>_cuda``; the OSD-w sweep's is
 ``osd_cuda.sweep_cuda``) counts every launch once under ``launch.<kernel>``
 and once under ``launch.<kernel>.<split>`` for each of its splits. K2′ and
-K4′ in their device variant launch once a chunk of lanes.
+K4′ in their device variant launch once a chunk of lanes. A launch that a
+CUDA graph holds is counted on each replay, from the :func:`tally` of its
+capture.
 
 =================  =====  ========  ==========================================
 kernel             kind   module    splits
@@ -241,11 +245,12 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 _on = False
+_tallies = 0  # tallies open, in every thread
 _spans: list = []  # [name, start_ns, end_ns, parent, call, attrs] a span
 _counters: Dict[str, int] = {}
 _calls = itertools.count()
 _lock = threading.Lock()
-_open = threading.local()  # .stack: indices of a thread's open spans
+_open = threading.local()  # .stack: indices of a thread's open spans; .tally: its tally
 
 
 def record(on: bool = True) -> None:
@@ -293,7 +298,7 @@ def span(name: str, lanes: Optional[int] = None, chunk: Optional[int] = None):
     trace taken meanwhile shows the region under that name. ``lanes`` and
     ``chunk`` are kept as its attributes. Off, it returns
     :data:`NULL_SPAN`: no clock read, no annotation, nothing allocated."""
-    if not _on:
+    if not _on or _tallying():
         return NULL_SPAN
     attrs = {}
     if lanes is not None:
@@ -306,17 +311,48 @@ def span(name: str, lanes: Optional[int] = None, chunk: Optional[int] = None):
 def count(name: str, k: int = 1) -> None:
     """Add ``k`` to the counter ``name`` while the recorder is on. ``k``
     must already be on the host: a count adds no sync. The module's
-    docstring lists the kernels' launch counters."""
-    if _on:
+    docstring lists the kernels' launch counters. Inside :func:`tally` the
+    count goes to the tally instead, the recorder on or off."""
+    if _on or _tallies:
+        kept = getattr(_open, "tally", None)
+        if kept is not None:
+            kept[name] = kept.get(name, 0) + int(k)
+        elif _on:
+            with _lock:
+                _counters[name] = _counters.get(name, 0) + int(k)
+
+
+def _tallying() -> bool:
+    return getattr(_open, "tally", None) is not None
+
+
+@contextlib.contextmanager
+def tally():
+    """Keep this thread's counts in the enclosed region in the dict it
+    yields, whether the recorder is on or off, and none of them in the
+    recorder's totals; the region's spans and syncs are not recorded. For a
+    region that is captured into a CUDA graph, not run: add the tally with
+    :func:`count` on each replay, and the replays count what the eager
+    region would have."""
+    global _tallies
+    kept: Dict[str, int] = {}
+    outer = getattr(_open, "tally", None)
+    with _lock:
+        _tallies += 1
+    _open.tally = kept
+    try:
+        yield kept
+    finally:
+        _open.tally = outer
         with _lock:
-            _counters[name] = _counters.get(name, 0) + int(k)
+            _tallies -= 1
 
 
 def sync(cause: str):
     """The span ``sync.<cause>``, which also counts ``sync.<cause>``: put
     the operation that makes the host wait for the device inside it, and
     the span's length is that wait."""
-    if not _on:
+    if not _on or _tallying():
         return NULL_SPAN
     name = "sync." + cause
     count(name)

@@ -195,6 +195,60 @@ def test_drain_empties_the_recorder():
     assert [(s.name, s.parent, s.call) for s in pf.drain().spans] == [("e", -1, 0)]
 
 
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_tally_keeps_a_regions_counts_apart(on):
+    """Inside ``tally`` the counts go to its dict, the recorder on or off,
+    and none to the recorder's totals; the region's spans and syncs are not
+    recorded; a nested tally keeps its own; outside, counting is as
+    before."""
+    pf.record(on)
+    pf.count("before")
+    with pf.span("outer"):
+        with pf.tally() as kept:
+            pf.count("launch.k", 2)
+            pf.count("launch.k")
+            assert pf.span("inside") is pf.NULL_SPAN
+            assert pf.sync("inside") is pf.NULL_SPAN
+            with pf.tally() as inner:
+                pf.count("launch.j")
+            pf.count("lanes.x", 5)
+        pf.count("after")
+    pf.record(False)
+    assert kept == {"launch.k": 3, "lanes.x": 5} and inner == {"launch.j": 1}
+    spans, counters = pf.drain()
+    if on:
+        assert [s.name for s in spans] == ["outer"]
+        assert counters == {"before": 1, "after": 1}
+    else:
+        assert pf.drain() == pf.Recording([], {}) and (spans, counters) == ([], {})
+    assert pf._tallies == 0
+
+
+def test_a_tally_leaves_other_threads_alone():
+    """One thread's tally takes nothing from another thread's counts and
+    spans."""
+    pf.record(True)
+    opened, done = threading.Event(), threading.Event()
+
+    def other():
+        opened.wait(timeout=30)
+        with pf.span("other"):
+            pf.count("launch.other")
+        done.set()
+
+    th = threading.Thread(target=other)
+    th.start()
+    with pf.tally() as kept:
+        opened.set()
+        assert done.wait(timeout=30)
+        pf.count("launch.mine")
+    th.join(timeout=30)
+    pf.record(False)
+    spans, counters = pf.drain()
+    assert kept == {"launch.mine": 1}
+    assert [s.name for s in spans] == ["other"] and counters == {"launch.other": 1}
+
+
 def test_threads_keep_their_own_trees():
     """Threads that record at once lose no count and no span, and each
     span's parent is its own thread's."""
