@@ -46,7 +46,7 @@ from ldpc_tpu_torch.monte_carlo_simulation.memory_experiment import (
 )
 from ldpc_tpu_torch.ops import bp as bp_ops
 from ldpc_tpu_torch.ops.pcm import compile_pcm
-from ldpc_tpu_torch.utils.profiling import sync
+from ldpc_tpu_torch.utils.profiling import count, span, sync
 
 ROUNDS_AXIS = "rounds"
 
@@ -164,6 +164,7 @@ def _build_core(
         _osd = osd_ops.make_osd_decoder(graph3d, channel_mid, osd_ops.OSD_0, 0, device)
 
         def post(syn, llr):
+            count("window.lanes.post", syn.shape[0])
             return _osd(syn, llr)[0]
 
     elif osd:
@@ -175,6 +176,7 @@ def _build_core(
         )
 
         def post(syn, llr):
+            count("window.lanes.post", syn.shape[0])
             return _lsd(syn, llr)[0]
 
     def window_decode(syn_flat, init_llr):
@@ -236,19 +238,24 @@ def _window_prior(core: _WindowCore, is_last: bool, analog_win=None) -> torch.Te
 def _decode_window(core: _WindowCore, s_win, is_last: bool, analog_win=None):
     """Difference syndromes of the (B, m, W) window (carries applied),
     decoded: ``(commit (B, n) uint8, time-boundary bits (B, m) uint8,
-    iterations (B,) int32)``."""
+    iterations (B,) int32)``. The span ``window.step``; counts
+    ``window.windows`` and, on a per-lane prior, ``window.windows.analog``."""
     m, n, W, T = core.m, core.n, core.W, core.T
     B = s_win.shape[0]
-    # difference syndromes along the time axis (memory_experiment_v2.py:93-94)
-    diff = torch.cat([s_win[:, :, :1], s_win[:, :, 1:] ^ s_win[:, :, :-1]], dim=2)
-    syn_flat = diff.transpose(1, 2).reshape(B, W * m)  # round-major
-    decoding, iters = core.window_decode(
-        syn_flat, _window_prior(core, is_last, analog_win)
-    )
-    space = decoding[:, : core.n_space].reshape(B, W, n)
-    n_commit = W if is_last else T
-    commit = (space[:, :n_commit].sum(dim=1) % 2).to(torch.uint8)
-    tb = decoding[:, core.n_space :].reshape(B, W, m)[:, T - 1, :]
+    count("window.windows")
+    if analog_win is not None:
+        count("window.windows.analog")
+    with span("window.step", lanes=B):
+        # difference syndromes along the time axis (memory_experiment_v2.py:93-94)
+        diff = torch.cat([s_win[:, :, :1], s_win[:, :, 1:] ^ s_win[:, :, :-1]], dim=2)
+        syn_flat = diff.transpose(1, 2).reshape(B, W * m)  # round-major
+        decoding, iters = core.window_decode(
+            syn_flat, _window_prior(core, is_last, analog_win)
+        )
+        space = decoding[:, : core.n_space].reshape(B, W, n)
+        n_commit = W if is_last else T
+        commit = (space[:, :n_commit].sum(dim=1) % 2).to(torch.uint8)
+        tb = decoding[:, core.n_space :].reshape(B, W, m)[:, T - 1, :]
     return commit, tb, iters
 
 
@@ -291,6 +298,12 @@ def make_window_decoder(
     The results stay on the device. The OSD-0 engine syncs with the host
     once a window (to pick the lanes BP leaves unconverged); the LSD-0
     engine also syncs once a growth round.
+
+    Recorded (``utils/profiling.py``): the span ``window.decode`` a call
+    (counter ``window.shots``) over a ``window.step`` a window
+    (``window.windows``, ``window.windows.analog``; ``sync.window_select``
+    and the post-processor's spans nest in it), and ``window.lanes.post``,
+    the lanes handed to OSD-0 or LSD-0.
     """
     core = _build_core(
         pcm, repetitions, data_channel, syndr_channel, sigma=sigma,
@@ -300,37 +313,39 @@ def make_window_decoder(
     dev = core.device
 
     def decode(syndromes, analog=None) -> WindowDecodeResult:
-        syndromes = torch.as_tensor(syndromes, device=dev).to(torch.uint8)
-        B, m_, R = syndromes.shape
-        if m_ != m:
-            raise ValueError(f"syndromes rows {m_} != checks {m}")
-        if R < W or (R - W) % T:
-            raise ValueError(
-                f"history of {R} rounds does not tile into windows of "
-                f"{W} sliding by {T}"
-            )
-        if analog is not None:
-            if core.analog_scale is None:
-                raise ValueError("analog syndromes need the decoder's sigma")
-            analog = torch.as_tensor(analog, device=dev).to(torch.float32)
-            if analog.shape != syndromes.shape:
+        with span("window.decode", lanes=len(syndromes)):
+            syndromes = torch.as_tensor(syndromes, device=dev).to(torch.uint8)
+            B, m_, R = syndromes.shape
+            if m_ != m:
+                raise ValueError(f"syndromes rows {m_} != checks {m}")
+            if R < W or (R - W) % T:
                 raise ValueError(
-                    f"analog shape {tuple(analog.shape)} != syndromes shape "
-                    f"{tuple(syndromes.shape)}"
+                    f"history of {R} rounds does not tile into windows of "
+                    f"{W} sliding by {T}"
                 )
-        NW = (R - W) // T + 1
-        carry = (
-            torch.zeros((B, m), dtype=torch.uint8, device=dev),
-            torch.zeros((B, m), dtype=torch.uint8, device=dev),
-            torch.zeros((B, n), dtype=torch.uint8, device=dev),
-            torch.zeros((B,), dtype=torch.int32, device=dev),
-        )
-        for w in range(NW):
-            rounds = slice(w * T, w * T + W)
-            a_win = analog[:, :, rounds] if analog is not None else None
-            carry = _window_step(core, carry, syndromes[:, :, rounds], w == NW - 1, a_win)
-        _, _, total, iters = carry
-        return WindowDecodeResult(correction=total, bp_iterations=iters)
+            if analog is not None:
+                if core.analog_scale is None:
+                    raise ValueError("analog syndromes need the decoder's sigma")
+                analog = torch.as_tensor(analog, device=dev).to(torch.float32)
+                if analog.shape != syndromes.shape:
+                    raise ValueError(
+                        f"analog shape {tuple(analog.shape)} != syndromes shape "
+                        f"{tuple(syndromes.shape)}"
+                    )
+            count("window.shots", B)
+            NW = (R - W) // T + 1
+            carry = (
+                torch.zeros((B, m), dtype=torch.uint8, device=dev),
+                torch.zeros((B, m), dtype=torch.uint8, device=dev),
+                torch.zeros((B, n), dtype=torch.uint8, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev),
+            )
+            for w in range(NW):
+                rounds = slice(w * T, w * T + W)
+                a_win = analog[:, :, rounds] if analog is not None else None
+                carry = _window_step(core, carry, syndromes[:, :, rounds], w == NW - 1, a_win)
+            _, _, total, iters = carry
+            return WindowDecodeResult(correction=total, bp_iterations=iters)
 
     return decode
 

@@ -32,7 +32,14 @@ device Monte-Carlo's ``mc.*`` (``mc.calls``, ``mc.shots`` and
 ``mc.rounds`` under the spans ``mc.run`` and ``mc.round``;
 ``mc.lanes.bucket``, ``mc.lanes.osd`` and ``mc.bucket_overflow``, read from
 the counters its ``sync.mc_counters`` pulls; on a card ``mc.graph.captures``
-and ``mc.graph.replays``) and ``sync.<cause>`` counts, each hand-written
+and ``mc.graph.replays``), the window engine's ``window.*``
+(``parallel/window.py``: ``window.shots`` under the span ``window.decode``,
+one a ``make_window_decoder`` call; ``window.windows`` and
+``window.windows.analog``, the windows decoded and those on a per-lane
+prior, under the span ``window.step``, which ``DeviceQss`` opens too;
+``window.lanes.post``, the lanes BP left unconverged that OSD-0 or LSD-0
+took, from the count that ``sync.window_select`` brings to the host) and
+``sync.<cause>`` counts, each hand-written
 kernel's wrapper (``ops.<module>.<kernel>_cuda``; the OSD-w sweep's is
 ``osd_cuda.sweep_cuda``) counts every launch once under ``launch.<kernel>``
 and once under ``launch.<kernel>.<split>`` for each of its splits. K2′ and

@@ -7,7 +7,11 @@ window sync sites count under their causes; the overlapping-window
 decoder's span tree and counters, and its sync sites reached alike with
 the recorder on and off; the device Monte-Carlo's span tree, its counters
 against the pulled counter vector, and its one sync site reached alike on
-and off. The spans are read by the benchmark's reader
+and off; the sliding-window decoder's span tree and counters (one
+``window.decode`` a call over a ``window.step`` a window, the lanes it hands
+to OSD-0 as ``sync.window_select`` selects them), ``DeviceQss``'s window
+steps without a root of the window decoder's, and the OWD's counts without
+any of the window engine's. The spans are read by the benchmark's reader
 (``benchmark/yardstick/spans.py``), the one the traced benchmark run uses:
 on made-up spans and device events, and on recorded CPU calls.
 """
@@ -26,6 +30,7 @@ from benchmark.yardstick import spans as sp
 from ldpc_tpu_torch.ckt_noise import base_overlapping_window_decoder as owd_base
 from ldpc_tpu_torch.codes import rep_code, surface_code, toric_code
 from ldpc_tpu_torch.monte_carlo_simulation import device_mc
+from ldpc_tpu_torch.monte_carlo_simulation.simulation_utils import get_sigma_from_syndr_er
 from ldpc_tpu_torch.ops import osd as osd_ops
 from ldpc_tpu_torch.ops import uf
 from ldpc_tpu_torch.parallel import window
@@ -705,3 +710,126 @@ def test_mc_recorder_off_records_nothing_and_syncs_alike():
     assert off[0].tolist() == on[0].tolist()
     assert pf.span("mc.run") is pf.NULL_SPAN and pf.span("mc.round") is pf.NULL_SPAN
     assert pf.sync("mc_counters") is pf.NULL_SPAN
+
+
+# ---------------------------------------------------------------------------
+# The sliding-window decoder's spans and counters (surface d=5 histories of
+# 12 rounds, windows of 4 sliding by 2: 5 windows a call; 64 shots)
+
+WIN_ROUNDS, WIN_WINDOWS = 12, 5
+
+
+def _window(calls: int, on: bool, analog: bool):
+    """``calls`` calls of a small window decoder with the recorder on or
+    off: the results, the recording, the sync sites reached and the lanes
+    each window's ``sync.window_select`` selected."""
+    from test_torch_window_reference import _history, _hx, P, W
+
+    syn, ana = _history(WIN_ROUNDS)
+    dec = window.make_window_decoder(_hx(), W, P, P, device="cpu",
+                                     sigma=get_sigma_from_syndr_er(P) if analog else None)
+    sites, selected = [], []
+    plain_sync, plain_post = pf.sync, window._postprocess
+
+    def counted(cause):
+        sites.append(cause)
+        return plain_sync(cause)
+
+    def post(fn, s, bp, cause="window_select"):
+        selected.append(int((~bp.converged).sum()))
+        return plain_post(fn, s, bp, cause)
+
+    outs = []
+    pf.record(on)
+    try:
+        window.sync, window._postprocess = counted, post
+        for _ in range(calls):
+            outs.append(dec(syn, ana if analog else None))
+    finally:
+        pf.record(False)
+        window.sync, window._postprocess = plain_sync, plain_post
+    return outs, pf.drain(), sites, selected
+
+
+@pytest.mark.parametrize("analog", [False, True], ids=["binary", "analog"])
+def test_window_span_tree_and_counters_of_a_call(analog):
+    """One ``window.decode`` root a call over a ``window.step`` a window,
+    each holding its lane selection's sync and, where lanes are left, the
+    post-processor's span; ``window.lanes.post`` counts the lanes each
+    selection took."""
+    from test_torch_window_reference import B
+
+    calls = 2
+    _, (spans, counters), sites, selected = _window(calls, True, analog)
+    roots = [i for i, s in enumerate(spans) if s.parent < 0]
+    assert [spans[i].name for i in roots] == ["window.decode"] * calls
+    assert all(spans[i].attrs == {"lanes": B} for i in roots)
+    for i in roots:
+        assert [s.name for s in spans if s.parent == i] == ["window.step"] * WIN_WINDOWS
+    for s in spans:
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns and s.call == p.call
+    steps = [i for i, s in enumerate(spans) if s.name == "window.step"]
+    for i, lanes in zip(steps, selected):
+        assert spans[i].attrs == {"lanes": B}
+        assert [s.name for s in spans if s.parent == i] == ["sync.window_select"] + ["osd"] * (
+            lanes > 0)
+    assert len(selected) == calls * WIN_WINDOWS and sum(selected) > 0
+    assert counters["window.shots"] == calls * B
+    assert counters["window.windows"] == calls * WIN_WINDOWS
+    assert counters.get("window.windows.analog", 0) == (calls * WIN_WINDOWS if analog else 0)
+    assert counters["window.lanes.post"] == sum(selected) == counters["lanes.osd"]
+    assert counters["sync.window_select"] == calls * WIN_WINDOWS
+    assert sites == ["window_select"] * (calls * WIN_WINDOWS)
+    assert {k for k in counters if k.startswith("sync.")} == {"sync.window_select"}
+
+
+def test_window_recorder_off_records_nothing_and_syncs_alike():
+    off, rec_off, sites_off, _ = _window(1, False, True)
+    on, _, sites_on, _ = _window(1, True, True)
+    assert rec_off == pf.Recording([], {})
+    assert sites_off == sites_on == ["window_select"] * WIN_WINDOWS
+    assert torch.equal(off[0].correction, on[0].correction)
+    assert torch.equal(off[0].bp_iterations, on[0].bp_iterations)
+    assert pf.span("window.decode", lanes=3) is pf.NULL_SPAN
+    assert pf.span("window.step") is pf.NULL_SPAN
+
+
+@pytest.mark.parametrize("analog", [False, True], ids=["binary", "analog"])
+def test_device_qss_opens_window_steps_without_a_decoders_root(analog):
+    """A ``DeviceQss`` call runs the window engine: its windows open
+    ``window.step`` and count ``window.windows``; it opens no
+    ``window.decode`` and counts no shots of the window decoder's; its one
+    sync a window stays ``sync.window_select``, and on the CPU no kernel is
+    launched."""
+    from ldpc_tpu_torch.monte_carlo_simulation import DeviceQss
+
+    code = surface_code(5, compute_logicals=True)
+    qss = DeviceQss(code.hx, 0.02, 0.02, code.lx, repetitions=4, rounds=8, batch_size=64,
+                    analog_tg=analog, device="cpu", seed=2**31 + 26)
+    pf.record(True)
+    try:
+        qss.run(64)
+    finally:
+        pf.record(False)
+    spans, counters = pf.drain()
+    windows = qss._step.NW
+    assert qss.calls == 1 and windows == 3
+    assert [s.name for s in spans if s.parent < 0] == ["window.step"] * windows
+    assert not any(s.name == "window.decode" for s in spans)
+    assert "window.shots" not in counters
+    assert counters["window.windows"] == windows
+    assert counters.get("window.windows.analog", 0) == (windows if analog else 0)
+    assert {k for k in counters if k.startswith("sync.")} == {"sync.window_select"}
+    assert counters["sync.window_select"] == windows
+    assert not any(k.startswith("launch.") for k in counters)
+
+
+def test_owd_counts_none_of_the_window_engines():
+    """The OWD's device windows share ``window._postprocess``: they count
+    their OSD-0 lanes as ``owd.lanes.osd0`` alone, as before."""
+    _, (spans, counters), _, work = _owd(1, True)
+    assert counters["owd.lanes.osd0"] == work[1]["osd_lanes"] + work[2]["osd_lanes"] > 0
+    assert not any(k.startswith("window.") for k in counters)
+    assert not any(s.name.startswith("window.") for s in spans)
